@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``; no PyTorch headers are
-involved, so a build takes seconds. The library goes to ``build/kernels/``
+All ``csrc/*.cu`` sources compile with ``nvcc``, one process per source
+in parallel, and link into one shared library with a plain C interface,
+loaded with ``ctypes``; no PyTorch headers are involved, so a build takes
+seconds. The library goes to ``build/kernels/``
 at the repository root (listed in ``.gitignore``) under a name keyed by a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses it. Delete ``build/`` to force a rebuild.
@@ -19,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -26,13 +28,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of each C entry point: pointers and the stream as c_void_p
 SIGNATURES = {
     "cet_sconv_fused": [_P] * 7 + [_I] * 18 + [_P],
     "cet_bsc_spmm": [_P] * 6 + [_I] * 10 + [_P],
+    "cet_sconv_gc": [_P] * 6 + [_I] * 15 + [_P],
 }
 
 _lib = None
@@ -63,31 +66,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcet_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_nvcc(args) -> subprocess.CompletedProcess:
+    proc = subprocess.run([_nvcc(), *args], capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr}\n{proc.stdout}")
+    return proc
+
+
 def build() -> Path:
-    """Compile the sources unless the library for this tree exists."""
+    """Compile the sources unless the library for this tree exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     global build_seconds, ptxas_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    cu = sorted(CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    # compile to a private name, then rename: a concurrent build never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    # build in a private directory, then rename the library into place: a
+    # concurrent build never sees a half-written one
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}\n{proc.stdout}")
-        os.replace(tmp, out)
+        objs = [str(tmp / f"{src.stem}.o") for src in cu]
+        with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+            futures = [pool.submit(_run_nvcc, [*NVCC_FLAGS, "-c", "-o", obj,
+                                               str(src)])
+                       for src, obj in zip(cu, objs)]
+            logs = [f.result().stderr for f in futures]
+        _run_nvcc(["-shared", "-o", str(tmp / out.name), *objs])
+        os.replace(tmp / out.name, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
-    ptxas_log = proc.stderr
+    ptxas_log = "".join(logs)
     return out
 
 

@@ -20,6 +20,7 @@ kernel launches only.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -46,13 +47,81 @@ def supported(x: torch.Tensor, aligned: AlignedConvWeight, *,
     """The kernel's own limits: stride 1, dilation 1, every K-block inside
     one kernel offset (cin_pad % bk == 0), the input carrying exactly
     ``cin`` channels, and a block width the epilogue tiles (bn % 8 == 0,
-    bn <= 128). No memory budget: tiles stream through shared memory."""
+    bn <= 128). No memory budget: tiles stream through shared memory
+    (``fits_budget`` is the routing rule, not a limit of this kernel)."""
     if aligned.bsc is None or x.dim() != 4:
         return False
     bk, bn = aligned.bsc.block_shape
     return (tuple(stride) == (1, 1) and tuple(dilation) == (1, 1)
             and x.shape[-1] == aligned.cin and aligned.cin_pad % bk == 0
             and bn % 8 == 0 and bn <= 128)
+
+
+# The reference's routing rule (caffe_escoin_tpu/kernels/sconv_fused.py:56-57,
+# 60-124), carried over so that each layer takes the same kernel on both
+# sides. These are the TPU kernel's VMEM sizes, not a memory size of the
+# card: this kernel has no such limit. An H100 router chosen by measurement
+# is the autotune port's work.
+VMEM_BUDGET = 10 * 1024 * 1024  # slab + acc + weights + out tile
+W_BUDGET = 4 * 1024 * 1024
+
+
+def _pack(n, hp, wp):
+    """Images per grid step of the TPU kernel (must divide the batch)."""
+    p = min(max(1, 512 // (hp * wp)), n)
+    while n % p != 0:
+        p -= 1
+    return p
+
+
+def _pick_tile_rows(w, pw):
+    return max(1, 512 // (-(-(w + pw) // 8) * 8))
+
+
+def _sizes(x_shape, kernel_shape, padding, block_shape, tile_rows):
+    """The TPU kernel's slab geometry (its ``_sizes``, the keys the budget
+    reads)."""
+    n, h, w, c = x_shape
+    kh, kw = kernel_shape
+    ph, pw = padding
+    hp, wp = h + 2 * ph, w + 2 * pw
+    wp_s = -(-(w + pw) // 8) * 8
+    pimg = _pack(n, hp, wp_s)
+    q = max(1, min(tile_rows, pimg * hp))
+    n_tiles = -(-(pimg * hp) // q)
+    slab_len = -(-((1 + n_tiles * q + kh - 1) * wp_s + kw) // 8) * 8
+    return dict(wp=wp, ho=hp - kh + 1, wo=wp - kw + 1, q=q,
+                slab_len=slab_len, pimg=pimg)
+
+
+@functools.lru_cache(maxsize=4096)
+def _budget_total(x_shape, itemsize, kernel_shape, padding, block_shape,
+                  cin_pad, n_bcols, max_bw):
+    """Bytes the TPU kernel holds in VMEM (its ``supported``, integers
+    only; cached because every forward asks it again per layer)."""
+    _, h, w, c = x_shape
+    bk, bn = block_shape
+    z = _sizes(x_shape, kernel_shape, padding, block_shape,
+               _pick_tile_rows(w, padding[1]))
+    slab = (cin_pad // bk) * z["slab_len"] * bk * 4
+    wmem = n_bcols * max_bw * bk * bn * 2
+    out_tile = z["pimg"] * z["ho"] * z["wo"] * n_bcols * bn * itemsize
+    ximg = z["pimg"] * h * w * c * itemsize
+    acc = z["q"] * z["wp"] * bn * 4
+    return slab + min(wmem, W_BUDGET) + 2 * out_tile + 2 * ximg + 2 * acc
+
+
+def fits_budget(x, aligned: AlignedConvWeight, padding) -> bool:
+    """The budget test of the reference's ``supported``
+    (caffe_escoin_tpu/kernels/sconv_fused.py:100-118): slab + weights +
+    double-buffered x/out + accumulator within ``VMEM_BUDGET``, counted at
+    x's itemsize (the activation after any compute-dtype cast) and at the
+    aligned BSC's ``max_bw``. ``x`` needs only ``shape`` and ``dtype``."""
+    bsc = aligned.bsc
+    return _budget_total(tuple(x.shape), x.dtype.itemsize,
+                         aligned.kernel_shape, tuple(padding),
+                         bsc.block_shape, aligned.cin_pad, bsc.n_bcols,
+                         bsc.max_bw) <= VMEM_BUDGET
 
 
 def _out_hw(x, aligned, padding) -> Tuple[int, int]:

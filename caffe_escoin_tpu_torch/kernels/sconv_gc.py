@@ -1,0 +1,187 @@
+"""Garbage-column direct sparse convolution.
+
+Port of the Pallas kernel ``caffe_escoin_tpu/kernels/sconv_pallas.py``
+(``sconv``, the v2 direct conv) as the CUDA kernel ``csrc/sconv_gc.cu``.
+The input is zero-padded to Hp x Wp and its H x W flattened into a slab;
+the output is computed over Ho x Wp rows, of which the Wp - Wo "garbage"
+columns of each row are sliced away afterwards. So each live K-block
+(kh, kw, cin-block) reads one contiguous range of slab rows starting at
+``m + kh * Wp + kw``: a row shift and a column offset, no spatial masks.
+Bias and ReLU ride the kernel's epilogue; a residual is added by the
+caller (``ops/conv.py``), as in the JAX route.
+
+The slab ``[N, L, cin_pad]`` (L = Hp * Wp + Kw - 1 rows per image) and the
+output slice are torch ops shared by the kernel route and ``sconv_plain``;
+the plain version replaces only the launch. The TPU kernel's
+channel-block-major slab transpose is dropped: it exists only for Mosaic's
+lane-slicing rule. Here a K-block is a column offset ``cb * bk`` into rows
+of stride ``cin_pad``.
+
+``sconv`` runs the kernel for a CUDA tensor and the plain version for a
+CPU tensor. ``calls`` counts entry calls on any device; ``launches``
+counts kernel launches only.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from caffe_escoin_tpu_torch.engine.context import resolve_mxu_dtype
+from caffe_escoin_tpu_torch.kernels import _build
+from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
+
+calls = 0
+launches = 0
+
+_IO_DTYPES = (torch.float32, torch.bfloat16)
+
+# The reference's routing rule (caffe_escoin_tpu/kernels/sconv_pallas.py:48),
+# carried over so that each layer takes the same kernel on both sides. It is
+# the TPU kernel's VMEM residency, not a memory size of the card.
+SLAB_BUDGET = 6 * 1024 * 1024
+
+
+def reset_counts() -> None:
+    global calls, launches
+    calls = 0
+    launches = 0
+
+
+def supported(x: torch.Tensor, aligned: AlignedConvWeight) -> bool:
+    """The kernel's own limits (stride 1 and dilation 1 are the caller's):
+    every K-block inside one kernel offset (cin_pad % bk == 0), the input
+    carrying exactly ``cin`` channels, and a block width the epilogue tiles
+    (bn % 8 == 0, bn <= 128)."""
+    if aligned.bsc is None or x.dim() != 4:
+        return False
+    bk, bn = aligned.bsc.block_shape
+    return (x.shape[-1] == aligned.cin and aligned.cin_pad % bk == 0
+            and bn % 8 == 0 and bn <= 128)
+
+
+def fits_budget(x, aligned: AlignedConvWeight) -> bool:
+    """The gate of the reference's ``supported``
+    (caffe_escoin_tpu/kernels/sconv_pallas.py:52-66): the padded slab, with
+    pad = kernel - 1 as its upper bound, counted at x's itemsize (the
+    activation after any compute-dtype cast), within ``SLAB_BUDGET``. ``x``
+    needs only ``shape`` and ``dtype``."""
+    kh, kw = aligned.kernel_shape
+    _, h, w, _ = x.shape
+    hp, wp = h + kh - 1, w + kw - 1
+    slab = (hp * wp + wp) * aligned.cin_pad * x.dtype.itemsize
+    return slab <= SLAB_BUDGET
+
+
+def _geometry(x, aligned, padding) -> Tuple[int, int, int, int, int]:
+    """(hp, wp, ho, wo, L) of the slab and the garbage-column output."""
+    kh, kw = aligned.kernel_shape
+    hp, wp = x.shape[1] + 2 * padding[0], x.shape[2] + 2 * padding[1]
+    # the last output row m = Ho*Wp - 1 reads up to row Hp*Wp + Kw - 2
+    return hp, wp, hp - kh + 1, wp - kw + 1, hp * wp + kw - 1
+
+
+def _slab(x, aligned, padding, g):
+    """x [N,H,W,Cin] zero-padded to Hp x Wp and cin_pad channels, H x W
+    flattened, Kw - 1 zero rows appended: [N, L, cin_pad] in x's dtype."""
+    n, h, w, c = x.shape
+    hp, wp, _, _, length = g
+    ph, pw = padding
+    slab = x.new_zeros((n, length, aligned.cin_pad))
+    slab[:, :hp * wp].view(n, hp, wp, aligned.cin_pad)[
+        :, ph:ph + h, pw:pw + w, :c] = x
+    return slab
+
+
+def _crop(flat, aligned, g):
+    """[N, Ho*Wp, Cout] -> [N, Ho, Wo, Cout]: drop the garbage columns."""
+    _, wp, ho, wo, _ = g
+    return flat.view(flat.shape[0], ho, wp, aligned.cout)[:, :, :wo, :
+                                                          ].contiguous()
+
+
+def _flat_plain(slab, aligned, g, relu, mxu_dtype, out_dtype):
+    """What the kernel computes, in plain PyTorch: for each kernel offset the
+    shifted slab rows times that offset's rows of the dense GEMM-view weight
+    rebuilt from the BSC, f32 sums, then bias and ReLU in f32."""
+    kh, kw = aligned.kernel_shape
+    _, wp, ho, _, _ = g
+    w = aligned.bsc.to_dense().float().reshape(kh, kw, aligned.cin_pad,
+                                               aligned.cout)
+    a = slab.float()
+    if mxu_dtype == "bfloat16":
+        a, w = a.bfloat16().float(), w.bfloat16().float()
+    m = ho * wp
+    out = torch.zeros((slab.shape[0], m, aligned.cout), dtype=torch.float32,
+                      device=slab.device)
+    for khi in range(kh):
+        for kwi in range(kw):
+            shift = khi * wp + kwi
+            out += a[:, shift:shift + m, :] @ w[khi, kwi]
+    if aligned.bias is not None:
+        out = out + aligned.bias.float()
+    if relu:
+        out = torch.relu(out)
+    return out.to(out_dtype)
+
+
+def sconv_plain(x: torch.Tensor, aligned: AlignedConvWeight, *, padding,
+                relu: bool, mxu_dtype: str = "float32") -> torch.Tensor:
+    """Plain PyTorch version over the same slab and output slice as the
+    kernel. With ``mxu_dtype="bfloat16"`` the slab and the weight are
+    rounded to bf16 first, as the kernel multiplies them."""
+    padding = tuple(padding)
+    g = _geometry(x, aligned, padding)
+    flat = _flat_plain(_slab(x, aligned, padding, g), aligned, g, relu,
+                       mxu_dtype, x.dtype)
+    return _crop(flat, aligned, g)
+
+
+def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
+          mxu_dtype: str = "auto") -> torch.Tensor:
+    """x [N,H,W,Cin] (f32 or bf16) -> [N,Ho,Wo,Cout] in x's dtype; stride 1,
+    dilation 1 (callers route with ``supported`` and ``fits_budget``)."""
+    global calls, launches
+    calls += 1
+    padding = tuple(padding)
+    mxu = resolve_mxu_dtype(mxu_dtype, x.device)
+    if x.device.type == "cpu":
+        return sconv_plain(x, aligned, padding=padding, relu=relu,
+                           mxu_dtype=mxu)
+    if x.device.type != "cuda":
+        raise ValueError(f"sconv_gc: unsupported device {x.device}")
+    if mxu != "bfloat16":
+        raise NotImplementedError(
+            "sconv_gc on CUDA multiplies in bf16 only (mxu_dtype='bfloat16')")
+    if not supported(x, aligned):
+        raise ValueError("sconv_gc kernel does not take this shape "
+                         "(see sconv_gc.supported)")
+    bsc = aligned.bsc
+    bk, bn = bsc.block_shape
+    n = x.shape[0]
+    g = _geometry(x, aligned, padding)
+    _, wp, ho, _, length = g
+    dev = x.device
+    blocks = bsc.blocks.to(torch.bfloat16)  # the MXU dtype, as on the TPU
+    slab = _slab(x, aligned, padding, g)
+    _build.check_operand(slab, "slab", dev, _IO_DTYPES)
+    _build.check_operand(blocks, "bsc.blocks", dev, (torch.bfloat16,))
+    _build.check_operand(bsc.block_row, "bsc.block_row", dev, (torch.int32,))
+    _build.check_operand(bsc.bcol_nnz, "bsc.bcol_nnz", dev, (torch.int32,))
+    bias = aligned.bias
+    if bias is not None:
+        bias = bias.float()
+        _build.check_operand(bias, "bias", dev, (torch.float32,))
+    flat = torch.empty((n, ho * wp, aligned.cout), dtype=x.dtype, device=dev)
+    vec = int(aligned.cin_pad % 8 == 0 and bk % 8 == 0)
+    rc = _build.load().cet_sconv_gc(
+        slab.data_ptr(), blocks.data_ptr(), bsc.block_row.data_ptr(),
+        bsc.bcol_nnz.data_ptr(), None if bias is None else bias.data_ptr(),
+        flat.data_ptr(), n, length, aligned.cin_pad, ho, wp, aligned.cout,
+        aligned.kernel_shape[1], aligned.cin_pad // bk, bk, bn, bsc.n_bcols,
+        bsc.max_bw, int(relu), int(x.dtype == torch.bfloat16), vec,
+        _build.stream_of(x))
+    _build.check(rc, "cet_sconv_gc")
+    launches += 1
+    return _crop(flat, aligned, g)

@@ -1,9 +1,9 @@
 """The layers of the slice (port of ``caffe_escoin_tpu/nn/layers.py``:
-Input, Convolution, ConvolutionReLU, InnerProduct, Pooling, ReLU, Softmax,
-BatchNorm at global statistics, Scale, Eltwise). Convolution and
+Input, Convolution, ConvolutionReLU, InnerProduct, Pooling, ReLU, Dropout,
+Softmax, BatchNorm at global statistics, Scale, Eltwise). Convolution and
 InnerProduct carry the sparse machinery (weight_align -> AlignedConvWeight
--> mode dispatch); the rest are thin. The other registered types of the
-JAX package wait.
+-> mode dispatch) and name the kernel route they take (``route``); the rest
+are thin. The other registered types of the JAX package wait.
 """
 
 from __future__ import annotations
@@ -101,6 +101,18 @@ class ConvolutionLayer(Layer):
         return weight_align(params["w"], params.get("b"),
                             groups=self.p.get("group", 1), policy=self.policy)
 
+    def route(self, params, in_shapes, in_dtype):
+        """``ops.conv.conv_route`` of this layer for an input of
+        ``in_shapes[0]`` and ``in_dtype``, from shapes alone."""
+        if not isinstance(params, AlignedConvWeight):
+            return "dense"
+        c = self._conf(in_shapes[0])
+        x = torch.empty(in_shapes[0], dtype=self.policy.compute_dtype
+                        or in_dtype, device="meta")
+        return conv_ops.conv_route(x, params, stride=c["stride"],
+                                   padding=c["pad"], dilation=c["dilation"],
+                                   policy=self.policy)
+
     def forward(self, params, inputs, state=None):
         x = inputs[0]
         residual = (inputs[1] if len(inputs) > 1 and self.p.get("fuse_add")
@@ -163,6 +175,17 @@ class InnerProductLayer(Layer):
         return weight_align(params["w"][None, None], params.get("b"),
                             policy=self.policy)
 
+    def route(self, params, in_shapes=None, in_dtype=None):
+        """"spmm" (the block-sparse SpMM) or "dense". Block-density gate, as
+        the conv dispatcher's: an element-sparse but block-dense pattern
+        runs the one dense matmul instead."""
+        if (isinstance(params, AlignedConvWeight) and params.bsc is not None
+                and params.sparsity >= self.policy.sparse_threshold
+                and params.block_density <= 0.5
+                and self.policy.conv_mode != ConvMode.LOWERED_GEMM):
+            return "spmm"
+        return "dense"
+
     def forward(self, params, inputs, state=None):
         (x,) = inputs
         x2 = x.reshape(x.shape[0], -1)
@@ -174,13 +197,7 @@ class InnerProductLayer(Layer):
             params = _cast(params, cd)
         if isinstance(params, AlignedConvWeight):
             aligned = params
-            # block-density gate, as the conv dispatcher's: an element-sparse
-            # but block-dense pattern runs the one dense matmul instead
-            use_sparse = (aligned.bsc is not None
-                          and aligned.sparsity >= self.policy.sparse_threshold
-                          and aligned.block_density <= 0.5
-                          and self.policy.conv_mode != ConvMode.LOWERED_GEMM)
-            if use_sparse:
+            if self.route(aligned) == "spmm":
                 if aligned.cin_pad != aligned.cin:
                     x2 = F.pad(x2, (0, aligned.cin_pad - aligned.cin))
                 out = linear_ops.linear_sparse(x2, aligned.bsc, aligned.bias,
@@ -228,6 +245,14 @@ class PoolingLayer(Layer):
 class ReLULayer(Layer):
     def forward(self, params, inputs, state=None):
         return [act.relu(inputs[0], self.p.get("negative_slope", 0.0))]
+
+
+@register_layer("Dropout")
+class DropoutLayer(Layer):
+    """The identity at inference (the training forward is not ported)."""
+
+    def forward(self, params, inputs, state=None):
+        return [act.dropout(inputs[0], self.p.get("ratio", 0.5))]
 
 
 @register_layer("Softmax")

@@ -74,6 +74,10 @@ class Layer(torch.nn.Module):
     def out_shapes(self, in_shapes) -> List[Tuple[int, ...]]:
         return [tuple(in_shapes[0])]
 
+    def route(self, params, in_shapes, in_dtype) -> Optional[str]:
+        """The kernel route a conv or fc layer takes; None for the rest."""
+        return None
+
     def forward(self, params, inputs: List[torch.Tensor], state=None):
         raise NotImplementedError
 
@@ -119,19 +123,37 @@ class Net(torch.nn.Module):
         ``state0`` (initial BatchNorm buffers)."""
         params: Dict[str, Any] = {}
         state0: Dict[str, Any] = {}
+        for layer, in_shapes in self.walk_shapes(input_shapes):
+            p = layer.init_params(gen, in_shapes)
+            if p:
+                params[layer.spec.name] = p
+            if layer.has_state:
+                state0[layer.spec.name] = layer.init_state(in_shapes)
+        self.state0 = state0
+        return params
+
+    def walk_shapes(self, input_shapes):
+        """Each layer in order with the shapes of its bottoms."""
         shapes = {k: tuple(v) for k, v in input_shapes.items()}
         for layer in self.layers:
             spec = layer.spec
             in_shapes = [shapes[b] for b in spec.bottoms]
-            p = layer.init_params(gen, in_shapes)
-            if p:
-                params[spec.name] = p
-            if layer.has_state:
-                state0[spec.name] = layer.init_state(in_shapes)
+            yield layer, in_shapes
             for t, o in zip(spec.tops, layer.out_shapes(in_shapes)):
                 shapes[t] = tuple(o)
-        self.state0 = state0
-        return params
+
+    def routes(self, aligned_params, input_shapes: Dict[str, Tuple[int, ...]],
+               input_dtype: torch.dtype = torch.float32) -> Dict[str, str]:
+        """The kernel route of every conv and fc layer (``Layer.route``,
+        e.g. "fused", "gc", "lowered", "spmm", "dense") for inputs of these
+        shapes and dtype, from shapes alone: nothing runs."""
+        out = {}
+        for layer, in_shapes in self.walk_shapes(input_shapes):
+            r = layer.route(aligned_params.get(layer.spec.name), in_shapes,
+                            input_dtype)
+            if r is not None:
+                out[layer.spec.name] = r
+        return out
 
     def forward(self, params: Dict[str, Any], inputs: Dict[str, torch.Tensor],
                 *, state: Optional[Dict[str, Any]] = None,

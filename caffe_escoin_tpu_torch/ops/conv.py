@@ -3,11 +3,16 @@
 
 * LOWERED_GEMM   -> ``F.conv2d`` (cuDNN on the card).
 * LOWERED_SPARSE -> im2col + block-sparse SpMM (kernels/bsc_spmm.py).
-* SCONV[_PAR]    -> direct sparse conv (kernels/sconv_fused.py), the route
-                    the JAX package takes with ``use_xla_sparse=False``:
-                    strided 1x1 convs subsample first, strided k>1 convs
-                    run lowered, and every stride-1 conv goes to the fused
-                    kernel with bias, residual and ReLU in its epilogue.
+* SCONV[_PAR]    -> the route the JAX package takes with
+                    ``use_xla_sparse=False`` (its ``ops/conv.py:188-210,
+                    314-381``): strided 1x1 convs subsample first, strided
+                    k>1 convs run lowered, and a stride-1 conv takes, in
+                    this order, the fused direct kernel
+                    (kernels/sconv_fused.py), the SpMM for a 1x1 conv, the
+                    garbage-column direct kernel (kernels/sconv_gc.py), or
+                    im2col + SpMM. ``conv_route`` names the route of a
+                    layer from shapes alone, and ``conv2d`` dispatches
+                    through it.
 
 A layer whose weight is denser than the policy's threshold runs dense.
 Activations are NHWC and weights HWIO, as in the JAX package.
@@ -21,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy
-from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused
+from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
 from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
 
 
@@ -92,34 +97,96 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
     return out
 
 
-def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
-                 relu, policy: ExecutionPolicy, residual=None):
-    """Direct sparse convolution (the JAX package's ``use_xla_sparse=False``
-    route, ``ops/conv.py:188-210,314-381``)."""
-    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
+# the kernel each route launches once per layer ("dense" launches none);
+# "spmm" is the sparse fc's route (nn/layers.py InnerProductLayer.route)
+ROUTE_KERNELS = {"fused": "sconv_fused", "gc": "sconv_gc",
+                 "spmm_1x1": "bsc_spmm", "lowered": "bsc_spmm",
+                 "spmm": "bsc_spmm"}
+
+
+def _sconv_route(x, aligned: AlignedConvWeight, stride, padding,
+                 dilation) -> str:
+    """The SCONV route of the JAX package's ``conv2d_sconv`` with
+    ``use_xla_sparse=False``. Its two Pallas gates are size budgets of the
+    TPU kernels, carried over (``sconv_fused.fits_budget``,
+    ``sconv_gc.fits_budget``) so that each layer takes the same kernel on
+    both sides; each kernel's ``supported`` adds its own limits."""
     if stride != (1, 1):
         if aligned.kernel_shape == (1, 1) and dilation == (1, 1):
-            # a 1x1 conv commutes with the stride: subsample once, then run
-            # the stride-1 sparse path on the smaller map
-            xs = x
-            if padding != (0, 0):
-                xs = F.pad(x, (0, 0, padding[1], padding[1],
-                               padding[0], padding[0]))
-            xs = xs[:, ::stride[0], ::stride[1], :].contiguous()
-            return conv2d_sconv(xs, aligned, stride=(1, 1), padding=(0, 0),
-                                dilation=(1, 1), relu=relu, policy=policy,
-                                residual=residual)
-        return conv2d_lowered_sparse(
-            x, aligned, stride=stride, padding=padding, dilation=dilation,
-            relu=relu, policy=policy, residual=residual)
+            n, h, w, c = x.shape
+            sub = torch.empty(
+                (n, _out_spatial(h, 1, stride[0], padding[0], 1),
+                 _out_spatial(w, 1, stride[1], padding[1], 1), c),
+                dtype=x.dtype, device="meta")
+            return _sconv_route(sub, aligned, (1, 1), (0, 0), (1, 1))
+        return "lowered"
+    if dilation != (1, 1):
+        return "lowered"
+    if (sconv_fused.supported(x, aligned)
+            and sconv_fused.fits_budget(x, aligned, padding)):
+        return "fused"
+    bk = aligned.bsc.block_shape[0]
+    # the 1x1 gate keeps the TPU SpMM's alignment rule (bsc_pallas.py:43-47)
+    if (aligned.kernel_shape == (1, 1) and padding == (0, 0)
+            and (bk % 128 == 0 or aligned.bsc.n_brows == 1)):
+        return "spmm_1x1"
+    if sconv_gc.supported(x, aligned) and sconv_gc.fits_budget(x, aligned):
+        return "gc"
+    return "lowered"
 
-    if sconv_fused.supported(x, aligned, stride=stride, dilation=dilation):
+
+def conv_route(x, aligned: AlignedConvWeight, *,
+               stride: Tuple[int, int] = (1, 1),
+               padding: Tuple[int, int] = (0, 0),
+               dilation: Tuple[int, int] = (1, 1),
+               mode: Optional[ConvMode] = None,
+               policy: Optional[ExecutionPolicy] = None) -> str:
+    """The route ``conv2d`` takes for this layer: "dense", "lowered",
+    "fused", "spmm_1x1" or "gc". ``x`` needs only ``shape`` and ``dtype``
+    (a meta tensor will do); its dtype is the activation's after any
+    compute-dtype cast, since the size gates count its bytes."""
+    policy = policy or ExecutionPolicy()
+    mode = policy.conv_mode if mode is None else mode
+    if mode == ConvMode.LOWERED_SPARSE:
+        profitable = aligned.sparsity >= policy.sparse_threshold
+    elif mode in (ConvMode.SCONV, ConvMode.SCONV_PAR):
+        profitable = aligned.sparsity >= policy.sconv_threshold
+    else:
+        profitable = False
+    if mode == ConvMode.LOWERED_GEMM or aligned.bsc is None or not profitable:
+        return "dense"
+    if mode == ConvMode.LOWERED_SPARSE:
+        return "lowered"
+    return _sconv_route(x, aligned, tuple(stride), tuple(padding),
+                        tuple(dilation))
+
+
+def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
+                 relu, policy: ExecutionPolicy, residual=None,
+                 route: Optional[str] = None):
+    """Direct sparse convolution (the JAX package's ``use_xla_sparse=False``
+    route, ``ops/conv.py:188-210,314-381``). ``route``: this layer's
+    ``conv_route``, when the caller has it already."""
+    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
+    if (stride != (1, 1) and aligned.kernel_shape == (1, 1)
+            and dilation == (1, 1)):
+        # a 1x1 conv commutes with the stride: subsample once, then run the
+        # stride-1 sparse path on the smaller map
+        xs = x
+        if padding != (0, 0):
+            xs = F.pad(x, (0, 0, padding[1], padding[1],
+                           padding[0], padding[0]))
+        xs = xs[:, ::stride[0], ::stride[1], :].contiguous()
+        return conv2d_sconv(xs, aligned, stride=(1, 1), padding=(0, 0),
+                            dilation=(1, 1), relu=relu, policy=policy,
+                            residual=residual, route=route)
+    if route is None:
+        route = _sconv_route(x, aligned, stride, padding, dilation)
+    if route == "fused":
         return sconv_fused.sconv(x, aligned, padding=padding, relu=relu,
                                  residual=residual, mxu_dtype=policy.mxu_dtype)
-
-    # a 1x1 conv is the SpMM itself: the batch folds into M
-    if (aligned.kernel_shape == (1, 1) and dilation == (1, 1)
-            and padding == (0, 0) and aligned.bsc is not None):
+    if route == "spmm_1x1":
+        # a 1x1 conv is the SpMM itself: the batch folds into M
         n, h, w, c = x.shape
         x2d = x.reshape(n * h * w, c)
         if aligned.cin_pad != aligned.cin:
@@ -128,13 +195,17 @@ def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                                   relu=relu and residual is None,
                                   mxu_dtype=policy.mxu_dtype)
         out = out2d.reshape(n, h, w, aligned.cout)
-        if residual is not None:
-            out = _epilogue(out, relu, residual)
-        return out
-
-    return conv2d_lowered_sparse(
-        x, aligned, stride=stride, padding=padding, dilation=dilation,
-        relu=relu, policy=policy, residual=residual)
+    elif route == "gc":
+        out = sconv_gc.sconv(x, aligned, padding=padding,
+                             relu=relu and residual is None,
+                             mxu_dtype=policy.mxu_dtype)
+    else:
+        return conv2d_lowered_sparse(
+            x, aligned, stride=stride, padding=padding, dilation=dilation,
+            relu=relu, policy=policy, residual=residual)
+    if residual is not None:
+        out = _epilogue(out, relu, residual)
+    return out
 
 
 def conv2d(x, aligned: AlignedConvWeight, *,
@@ -145,22 +216,18 @@ def conv2d(x, aligned: AlignedConvWeight, *,
            policy: Optional[ExecutionPolicy] = None, residual=None):
     """Mode-dispatched convolution over an aligned weight."""
     policy = policy or ExecutionPolicy()
-    mode = policy.conv_mode if mode is None else mode
-    if mode == ConvMode.LOWERED_SPARSE:
-        profitable = aligned.sparsity >= policy.sparse_threshold
-    elif mode in (ConvMode.SCONV, ConvMode.SCONV_PAR):
-        profitable = aligned.sparsity >= policy.sconv_threshold
-    else:
-        profitable = False
-    if mode == ConvMode.LOWERED_GEMM or aligned.bsc is None or not profitable:
+    route = conv_route(x, aligned, stride=stride, padding=padding,
+                       dilation=dilation, mode=mode, policy=policy)
+    if route == "dense":
         return conv2d_dense(
             x, aligned.dense, aligned.bias, stride=stride, padding=padding,
             dilation=dilation, groups=aligned.groups, relu=relu,
             residual=residual)
+    mode = policy.conv_mode if mode is None else mode
     if mode == ConvMode.LOWERED_SPARSE:
         return conv2d_lowered_sparse(
             x, aligned, stride=stride, padding=padding, dilation=dilation,
             relu=relu, policy=policy, residual=residual)
     return conv2d_sconv(x, aligned, stride=stride, padding=padding,
                         dilation=dilation, relu=relu, policy=policy,
-                        residual=residual)
+                        residual=residual, route=route)

@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (caffe_escoin_tpu_torch) on one GPU.
 
-Drives the port's main path the way ``bench.py``'s ``run_e2e`` composes it
-(without autotune, calibration, packing or buckets): ResNet-50 at batch 32,
-224x224, conv and fc weights pruned to 90% in 128x128 blocks (the 3-channel
-stem stays dense), BatchNorm/Scale/ReLU/residual fused into the convs,
-weight-aligned to BSC, run in SCONV_PAR mode in bf16 on the card.
+Drives the port's two inference paths the way ``bench.py``'s ``run_e2e``
+composes them (without autotune, calibration, packing or buckets):
+
+* ResNet-50 at batch 32, 224x224, conv and fc weights pruned to 90% in
+  128x128 blocks (the 3-channel stem stays dense), BatchNorm/Scale/ReLU/
+  residual fused into the convs;
+* VGG-16 at batch 16, 224x224, full width, the same pruning (each pruned
+  weight scaled back to its norm, so that the signal survives thirteen
+  pruned convs and three pruned fcs), fc6/fc7 ReLU fused, Dropout kept as
+  the inference identity;
+
+both weight-aligned to BSC and run in SCONV_PAR mode in bf16 on the card.
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
-  2. build: both CUDA kernels from the sources in this checkout.
+  2. build: the three CUDA kernels from the sources in this checkout.
   3. parity: each kernel against its plain PyTorch version at main-path
-     shapes, bf16, max|err| <= 1e-2 * max|plain| + 1e-2.
-  4. net: the sparse ResNet-50 on 4 distinct inputs; the kernels' launch
-     counters must show every sparse conv in sconv_fused and fc1000 in
-     bsc_spmm; fc1000 logits within 5e-2 relative L2 of the same pruned,
-     fused net run dense in f32 (cuDNN, TF32 off).
-  5. times (CUDA events, after warm-up, cycling the 4 inputs): sparse,
-     dense-bf16 and dense-f32 ms; each kernel beside its plain version.
+     shapes, bf16, max|err| <= 1e-2 * max|plain| + 1e-2: sconv_fused at
+     ResNet-50 shapes, bsc_spmm at fc1000, sconv_gc at VGG-16 conv2_1,
+     conv2_2 and conv3_2, and sconv_fused at those three too.
+  4. nets, each on 4 distinct inputs with every launch counter set to 0
+     just before and read just after: every kernel must have launched as
+     many times as the layers' routes (``Net.routes``, the function the
+     dispatch runs through) say; the last classifier's logits within 5e-2
+     relative L2 of the same pruned, fused net run dense in f32 (cuDNN,
+     TF32 off).
+  5. times (CUDA events, after warm-up, cycling the 4 inputs): each net
+     sparse, dense-bf16 and dense-f32; each kernel beside its plain version,
+     and sconv_gc beside sconv_fused on the same layer.
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -27,6 +39,7 @@ device and nvcc; exits 1 without them.
 
 from __future__ import annotations
 
+import collections
 import json
 import re
 import subprocess
@@ -35,8 +48,6 @@ import time
 
 import numpy as np
 
-BATCH = 32
-HW = 224
 SPARSITY = 0.9
 BLOCK = (128, 128)
 SEED = 0
@@ -44,6 +55,13 @@ N_INPUTS = 4
 TIMED_ITERS = 20
 PARITY_REL, PARITY_ABS = 1e-2, 1e-2
 LOGITS_REL_L2 = 5e-2
+KERNELS = {  # name -> the TPU kernel it replaces
+    "sconv_fused": "caffe_escoin_tpu/kernels/sconv_fused.py:263",
+    "bsc_spmm": "caffe_escoin_tpu/kernels/bsc_pallas.py:125",
+    "sconv_gc": "caffe_escoin_tpu/kernels/sconv_pallas.py:157",
+}
+# (model, batch, last classifier, output width)
+NETS = [("resnet50", 32, "fc1000", 1000), ("vgg16", 16, "fc8", 1000)]
 
 
 def _card_line() -> str:
@@ -72,9 +90,10 @@ def _time_ms(fn, args, iters=TIMED_ITERS):
     return start.elapsed_time(end) / iters
 
 
-def _prune(net, params):
+def _prune(net, params, keep_norm=False):
     """bench.py's pruning: conv and fc weights at SPARSITY in BLOCK blocks.
-    The stem (3 input channels) stays dense."""
+    The stem (3 input channels) stays dense. ``keep_norm`` scales each
+    pruned weight back to its Frobenius norm."""
     import torch
 
     from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
@@ -83,16 +102,20 @@ def _prune(net, params):
     out = dict(params)
     for layer in net.layers:
         name, kind = layer.spec.name, layer.spec.type
-        if name not in out or kind not in ("Convolution", "InnerProduct"):
+        if name not in out or kind not in ("Convolution", "ConvolutionReLU",
+                                           "InnerProduct"):
             continue
         q = dict(out[name])
         w = q["w"].numpy()
-        if kind == "Convolution":
-            if w.shape[2] < 32:
-                continue
-            q["w"] = torch.from_numpy(prune_conv_weight(w, SPARSITY, BLOCK))
+        if kind == "InnerProduct":
+            wp = prune_blocks(w, SPARSITY, BLOCK)
+        elif w.shape[2] >= 32:
+            wp = prune_conv_weight(w, SPARSITY, BLOCK)
         else:
-            q["w"] = torch.from_numpy(prune_blocks(w, SPARSITY, BLOCK))
+            continue
+        if keep_norm:
+            wp = wp * np.float32(np.linalg.norm(w) / np.linalg.norm(wp))
+        q["w"] = torch.from_numpy(wp)
         out[name] = q
     return out
 
@@ -107,9 +130,11 @@ def main() -> int:
     try:
         from caffe_escoin_tpu_torch.engine.context import (ConvMode,
                                                            ExecutionPolicy)
-        from caffe_escoin_tpu_torch.kernels import _build, bsc_spmm, sconv_fused
-        from caffe_escoin_tpu_torch.models import resnet
+        from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm,
+                                                    sconv_fused, sconv_gc)
+        from caffe_escoin_tpu_torch.models import ZOO
         from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
+        from caffe_escoin_tpu_torch.ops.conv import ROUTE_KERNELS
         from caffe_escoin_tpu_torch.sparse import dense_to_bsc
         from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
         from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
@@ -118,6 +143,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run from "
               f"the repository root", file=sys.stderr)
         return 1
+    mods = {"sconv_fused": sconv_fused, "bsc_spmm": bsc_spmm,
+            "sconv_gc": sconv_gc}
     card = _card_line()
     print(card)
     tag = f"[{card}]"
@@ -148,9 +175,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng_np = np.random.default_rng(SEED)
     pol_block = ExecutionPolicy(block_shape=BLOCK)
-    results = {"sconv_fused": dict(err=0.0, ms=0.0, plain_ms=0.0),
-               "bsc_spmm": dict(err=0.0, ms=0.0, plain_ms=0.0)}
-    timed = []  # (kernel, label, kernel fn, plain fn, args)
+    results = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, launches=0)
+               for k in KERNELS}
+    timed = []  # (kernel, label, {arm: fn}, args)
 
     def check(kernel, label, out, ref):
         err = (out.float() - ref.float()).abs().max().item()
@@ -164,21 +191,25 @@ def main() -> int:
             raise SystemExit(f"{kernel} {label}: kernel disagrees with plain")
         results[kernel]["err"] = max(results[kernel]["err"], err)
 
-    sconv_shapes = [  # (label, h, cin, cout, k, pad, residual+relu)
-        ("b32 56x56 64->64 3x3", 56, 64, 64, 3, 1, False),
-        ("b32 14x14 1024->256 1x1", 14, 1024, 256, 1, 0, False),
-        ("b32 7x7 512->2048 1x1 +res+relu", 7, 512, 2048, 1, 0, True),
-    ]
-    for label, h, cin, cout, k, pad, fuse in sconv_shapes:
+    def conv_case(batch, h, cin, cout, k, fuse):
         w = prune_conv_weight(
             rng_np.standard_normal((k, k, cin, cout)).astype("float32")
             * (2.0 / (k * k * cin)) ** 0.5, SPARSITY, (min(128, cin), 128))
         b = rng_np.standard_normal(cout).astype("float32") * 0.1
         al = weight_align(w, b, policy=pol_block).to(dev, torch.bfloat16)
-        xs = [torch.randn((BATCH, h, h, cin), generator=gen, device=dev
+        xs = [torch.randn((batch, h, h, cin), generator=gen, device=dev
                           ).bfloat16() for _ in range(N_INPUTS)]
-        res = (torch.randn((BATCH, h, h, cout), generator=gen, device=dev
+        res = (torch.randn((batch, h, h, cout), generator=gen, device=dev
                            ).bfloat16() if fuse else None)
+        return al, xs, res
+
+    sconv_shapes = [  # (label, batch, h, cin, cout, k, pad, residual+relu)
+        ("b32 56x56 64->64 3x3", 32, 56, 64, 64, 3, 1, False),
+        ("b32 14x14 1024->256 1x1", 32, 14, 1024, 256, 1, 0, False),
+        ("b32 7x7 512->2048 1x1 +res+relu", 32, 7, 512, 2048, 1, 0, True),
+    ]
+    for label, batch, h, cin, cout, k, pad, fuse in sconv_shapes:
+        al, xs, res = conv_case(batch, h, cin, cout, k, fuse)
 
         def kern(x, al=al, pad=pad, fuse=fuse, res=res):
             return sconv_fused.sconv(x, al, padding=(pad, pad), relu=fuse,
@@ -192,13 +223,14 @@ def main() -> int:
         out = kern(xs[0])
         torch.cuda.synchronize()
         check("sconv_fused", label, out, plain(xs[0]))
-        timed.append(("sconv_fused", label, kern, plain, xs))
+        timed.append(("sconv_fused", label,
+                      {"kernel": kern, "plain": plain}, xs))
 
     w = prune_blocks(rng_np.standard_normal((2048, 1000)).astype("float32")
                      * (3.0 / 2048) ** 0.5, SPARSITY, BLOCK)
     bsc = dense_to_bsc(w, BLOCK).to(dev, torch.bfloat16)
     fc_bias = torch.randn(1000, generator=gen, device=dev) * 0.1
-    a_list = [torch.randn((BATCH, 2048), generator=gen, device=dev).bfloat16()
+    a_list = [torch.randn((32, 2048), generator=gen, device=dev).bfloat16()
               for _ in range(N_INPUTS)]
 
     def fc_kern(a):
@@ -211,101 +243,133 @@ def main() -> int:
     out = fc_kern(a_list[0])
     torch.cuda.synchronize()
     check("bsc_spmm", "fc1000 32x2048->1000", out, fc_plain(a_list[0]))
-    timed.append(("bsc_spmm", "fc1000 32x2048->1000", fc_kern, fc_plain,
-                  a_list))
+    timed.append(("bsc_spmm", "fc1000 32x2048->1000",
+                  {"kernel": fc_kern, "plain": fc_plain}, a_list))
 
-    # ---- 4. the whole net -------------------------------------------------
-    t0 = time.perf_counter()
+    gc_shapes = [  # (label, batch, h, cin, cout): VGG-16 3x3 pad-1 layers
+        ("conv2_1 b16 112x112 64->128 3x3 +relu", 16, 112, 64, 128),
+        ("conv2_2 b16 112x112 128->128 3x3 +relu", 16, 112, 128, 128),
+        ("conv3_2 b16 56x56 256->256 3x3 +relu", 16, 56, 256, 256),
+    ]
+    for label, batch, h, cin, cout in gc_shapes:
+        al, xs, _ = conv_case(batch, h, cin, cout, 3, False)
+
+        def gc_kern(x, al=al):
+            return sconv_gc.sconv(x, al, padding=(1, 1), relu=True)
+
+        def gc_plain(x, al=al):
+            return sconv_gc.sconv_plain(x, al, padding=(1, 1), relu=True,
+                                        mxu_dtype="bfloat16")
+
+        def fused_kern(x, al=al):
+            return sconv_fused.sconv(x, al, padding=(1, 1), relu=True)
+
+        out, out_fused = gc_kern(xs[0]), fused_kern(xs[0])
+        torch.cuda.synchronize()
+        ref = gc_plain(xs[0])
+        check("sconv_gc", label, out, ref)
+        check("sconv_fused", label, out_fused, ref)
+        timed.append(("sconv_gc", label, {"kernel": gc_kern,
+                                          "plain": gc_plain,
+                                          "sconv_fused": fused_kern}, xs))
+
+    # ---- 4. the nets ------------------------------------------------------
     pol_s = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
                             compute_dtype=torch.bfloat16, cast_back=False)
-    net = Net(resnet.resnet50(), policy=pol_s)
-    params = net.init(torch.Generator().manual_seed(SEED),
-                      {"data": (BATCH, HW, HW, 3)})
-    pruned = _prune(net, params)
-    fnet, fparams = fuse_inference(net, pruned, state=net.state0)
-    aligned = fnet.weight_align(fparams)
-    expect = {"sconv_fused": 0, "bsc_spmm": 0}
-    for layer in fnet.layers:
-        a = aligned.get(layer.spec.name)
-        if layer.spec.type == "Convolution" and a.bsc is not None \
-                and a.sparsity >= pol_s.sconv_threshold:
-            stride = np.atleast_1d(layer.spec.params.get("stride", 1))
-            strided_k = a.kernel_shape != (1, 1) and (stride != 1).any()
-            expect["bsc_spmm" if strided_k else "sconv_fused"] += 1
-        elif layer.spec.type == "InnerProduct" and a.bsc is not None \
-                and a.sparsity >= pol_s.sparse_threshold \
-                and a.block_density <= 0.5:
-            expect["bsc_spmm"] += 1
-    sparse_params = params_to(aligned, dev, torch.bfloat16)
-    dense_net = Net(fnet.specs, policy=ExecutionPolicy())
-    dense_params = params_to(fparams, dev)
-    dense_bf16_net = Net(fnet.specs, policy=ExecutionPolicy(
-        compute_dtype=torch.bfloat16, cast_back=False))
-    dense_bf16_params = params_to(fparams, dev, torch.bfloat16)
-    xs = [torch.randn((BATCH, HW, HW, 3), generator=gen, device=dev) * 0.1
-          for _ in range(N_INPUTS)]
-    print(f"net: resnet50 b{BATCH} {HW}x{HW}, {len(net.layers)} -> "
-          f"{len(fnet.layers)} layers after fusion, {SPARSITY:.0%} sparsity in "
-          f"{BLOCK[0]}x{BLOCK[1]} blocks, set-up {time.perf_counter() - t0:.1f} s;"
-          f" expected per forward: {expect} {tag}")
+    e2e = []  # (model, batch, {arm: fn}, inputs f32, inputs bf16)
+    for model, batch, logits_blob, width in NETS:
+        t0 = time.perf_counter()
+        build, shapes = ZOO[model]
+        shapes = {"data": (batch,) + tuple(shapes["data"][1:])}
+        net = Net(build(), policy=pol_s)
+        params = net.init(torch.Generator().manual_seed(SEED), shapes)
+        pruned = _prune(net, params, keep_norm=model == "vgg16")
+        fnet, fparams = fuse_inference(net, pruned, state=net.state0)
+        aligned = fnet.weight_align(fparams)
+        routes = fnet.routes(aligned, shapes)
+        expect = collections.Counter(
+            ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
+        sparse_params = params_to(aligned, dev, torch.bfloat16)
+        dense_net = Net(fnet.specs, policy=ExecutionPolicy())
+        dense_params = params_to(fparams, dev)
+        dense_bf16_net = Net(fnet.specs, policy=ExecutionPolicy(
+            compute_dtype=torch.bfloat16, cast_back=False))
+        dense_bf16_params = params_to(fparams, dev, torch.bfloat16)
+        scale = 0.1 if model == "resnet50" else 1.0
+        xs = [torch.randn(shapes["data"], generator=gen, device=dev) * scale
+              for _ in range(N_INPUTS)]
+        print(f"net: {model} b{batch} {shapes['data'][1]}x"
+              f"{shapes['data'][2]}, {len(net.layers)} -> {len(fnet.layers)} "
+              f"layers after fusion, {SPARSITY:.0%} sparsity in "
+              f"{BLOCK[0]}x{BLOCK[1]} blocks, set-up "
+              f"{time.perf_counter() - t0:.1f} s; routes "
+              f"{dict(collections.Counter(routes.values()))}; expected "
+              f"launches per forward: {dict(expect)} {tag}")
 
-    fwd_s = fnet.inference_fn(sparse_params, return_blobs=True)
-    fwd_d = dense_net.inference_fn(dense_params, return_blobs=True)
-    fwd_db = dense_bf16_net.inference_fn(dense_bf16_params)
-    sconv_fused.reset_counts()
-    bsc_spmm.reset_counts()
-    sparse_out = [fwd_s({"data": x}) for x in xs]
-    torch.cuda.synchronize()
-    launches = {"sconv_fused": sconv_fused.launches,
-                "bsc_spmm": bsc_spmm.launches}
-    print(f"net launches over {N_INPUTS} forwards: {launches} "
-          f"(expected {N_INPUTS} x {expect}) {tag}")
-    for name, n in launches.items():
-        if n == 0 or n != N_INPUTS * expect[name]:
-            raise SystemExit(f"main path launched {name} {n} times, expected "
-                             f"{N_INPUTS * expect[name]} (> 0)")
-    num, den = 0.0, 0.0
-    for x, so in zip(xs, sparse_out):
-        prob, logits = so["prob"], so["fc1000"].float()
-        if prob.shape != (BATCH, 1000) or not torch.isfinite(prob).all() \
-                or not torch.isfinite(logits).all():
-            raise SystemExit("sparse net output is not finite [32, 1000]")
-        if (prob.float().sum(-1) - 1).abs().max().item() > 2e-2:
-            raise SystemExit("sparse net softmax rows do not sum to 1")
-        ref = fwd_d({"data": x})["fc1000"]
-        num += (logits - ref).pow(2).sum().item()
-        den += ref.pow(2).sum().item()
-    rel_l2 = (num / den) ** 0.5
-    ok = rel_l2 <= LOGITS_REL_L2
-    print(f"net fc1000 logits vs dense f32: rel L2 {rel_l2:.3e} "
-          f"(limit {LOGITS_REL_L2:.0e}) {'ok' if ok else 'FAIL'} {tag}")
-    if not ok:
-        raise SystemExit("sparse net disagrees with the dense f32 net")
+        fwd_s = fnet.inference_fn(sparse_params, return_blobs=True)
+        fwd_d = dense_net.inference_fn(dense_params, return_blobs=True)
+        fwd_db = dense_bf16_net.inference_fn(dense_bf16_params)
+        for m in mods.values():
+            m.reset_counts()
+        sparse_out = [fwd_s({"data": x}) for x in xs]
+        torch.cuda.synchronize()
+        launches = {k: m.launches for k, m in mods.items()}
+        print(f"net {model} launches over {N_INPUTS} forwards: {launches} "
+              f"(expected {N_INPUTS} x {dict(expect)}) {tag}")
+        for name, n in launches.items():
+            if n != N_INPUTS * expect[name]:
+                raise SystemExit(f"{model} launched {name} {n} times, "
+                                 f"expected {N_INPUTS * expect[name]}")
+            results[name]["launches"] += n
+        if not all(launches[k] for k in expect):
+            raise SystemExit(f"{model}: a kernel of its path never launched")
+        num, den, peak = 0.0, 0.0, 0.0
+        for x, so in zip(xs, sparse_out):
+            prob, logits = so["prob"], so[logits_blob].float()
+            if prob.shape != (batch, width) or not torch.isfinite(prob).all() \
+                    or not torch.isfinite(logits).all():
+                raise SystemExit(f"{model} output is not finite "
+                                 f"[{batch}, {width}]")
+            if (prob.float().sum(-1) - 1).abs().max().item() > 2e-2:
+                raise SystemExit(f"{model} softmax rows do not sum to 1")
+            ref = fwd_d({"data": x})[logits_blob]
+            num += (logits - ref).pow(2).sum().item()
+            den += ref.pow(2).sum().item()
+            peak = max(peak, ref.abs().max().item())
+        rel_l2 = (num / den) ** 0.5
+        ok = rel_l2 <= LOGITS_REL_L2
+        print(f"net {model} {logits_blob} logits vs dense f32: rel L2 "
+              f"{rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}), max|logit| "
+              f"{peak:.3e} {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"sparse {model} disagrees with dense f32")
+        e2e.append((model, batch, {"sparse": fwd_s, "dense-bf16": fwd_db,
+                                   "dense-f32": fwd_d},
+                    [{"data": x} for x in xs],
+                    [{"data": x.bfloat16()} for x in xs]))
+        del sparse_out
 
     # ---- 5. times ---------------------------------------------------------
-    inputs = [{"data": x} for x in xs]
-    inputs_bf16 = [{"data": x.bfloat16()} for x in xs]
-    t_s = _time_ms(fwd_s, inputs)
-    t_db = _time_ms(fwd_db, inputs_bf16)
-    t_d = _time_ms(fwd_d, inputs)
-    print(f"time resnet50 b{BATCH}: sparse {t_s:.3f} ms, dense-bf16 "
-          f"{t_db:.3f} ms, dense-f32 {t_d:.3f} ms {tag}")
+    for model, batch, arms, inputs, inputs_bf16 in e2e:
+        ms = {arm: _time_ms(fn, inputs_bf16 if arm == "dense-bf16"
+                            else inputs) for arm, fn in arms.items()}
+        print(f"time {model} b{batch}: " + ", ".join(
+            f"{arm} {t:.3f} ms" for arm, t in ms.items()) + f" {tag}")
     with torch.inference_mode():
-        for kernel, label, kern, plain, args in timed:
-            ms, plain_ms = _time_ms(kern, args), _time_ms(plain, args)
-            results[kernel]["ms"] += ms
-            results[kernel]["plain_ms"] += plain_ms
-            print(f"time {kernel} {label}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms {tag}")
+        for kernel, label, arms, args in timed:
+            ms = {arm: _time_ms(fn, args) for arm, fn in arms.items()}
+            results[kernel]["ms"] += ms["kernel"]
+            results[kernel]["plain_ms"] += ms["plain"]
+            print(f"time {kernel} {label}: " + ", ".join(
+                f"{arm} {t:.4f} ms" for arm, t in ms.items()) + f" {tag}")
 
-    replaces = {"sconv_fused": "caffe_escoin_tpu/kernels/sconv_fused.py:263",
-                "bsc_spmm": "caffe_escoin_tpu/kernels/bsc_pallas.py:125"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"caffe_escoin_tpu_torch/csrc/{k}.cu",
-         "replaces": replaces[k], "launches": launches[k],
+         "replaces": replaces, "launches": results[k]["launches"],
          "max_abs_err": results[k]["err"], "ms": results[k]["ms"],
-         "plain_ms": results[k]["plain_ms"]} for k in replaces]}))
+         "plain_ms": results[k]["plain_ms"]}
+        for k, replaces in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

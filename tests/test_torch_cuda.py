@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
-from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused
+from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
 from caffe_escoin_tpu_torch.utils.pruning import prune_blocks, prune_conv_weight
@@ -76,6 +76,52 @@ def test_sconv_kernel_matches_plain(dev, name, dtype):
     ref = sconv_fused.sconv_plain(x, al, padding=(pad, pad), relu=relu,
                                   residual=res, mxu_dtype="bfloat16")
     _close(out, ref, dtype)
+
+
+# (n, h, w, cin, cout, k, pad, sparsity, relu, block)
+GC_SHAPES = {
+    "3x3_c128_relu_odd_w": (2, 12, 9, 128, 128, 3, 1, 0.85, True, (128, 128)),
+    "1x1_c256_to_200": (2, 7, 7, 256, 200, 1, 0, 0.75, False, (128, 128)),
+    "3x3_c40_pad_tail_b16": (1, 9, 11, 40, 24, 3, 1, 0.7, True, (16, 16)),
+    "5x5_c64_tiles_straddle_images": (3, 20, 17, 64, 64, 5, 2, 0.8, False,
+                                      (128, 128)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(GC_SHAPES))
+def test_sconv_gc_kernel_matches_plain(dev, name, dtype):
+    n, h, w, cin, cout, k, pad, sp, relu, block = GC_SHAPES[name]
+    rng = np.random.default_rng(2)
+    wt = prune_conv_weight(
+        rng.standard_normal((k, k, cin, cout)).astype(np.float32) * 0.05, sp,
+        (min(block[0], cin), block[1]))
+    b = rng.standard_normal(cout).astype(np.float32)
+    al = weight_align(wt, b, policy=ExecutionPolicy(block_shape=block)).to(
+        dev, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin)).astype(
+        np.float32)).to(dev, dtype)
+    launches = sconv_gc.launches
+    out = sconv_gc.sconv(x, al, padding=(pad, pad), relu=relu)
+    torch.cuda.synchronize()
+    assert sconv_gc.launches == launches + 1
+    ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+    assert out.dtype == dtype and out.shape == (n, ho, wo, cout)
+    ref = sconv_gc.sconv_plain(x, al, padding=(pad, pad), relu=relu,
+                               mxu_dtype="bfloat16")
+    _close(out, ref, dtype)
+
+
+def test_sconv_gc_raises_on_what_the_kernel_does_not_take(dev):
+    wt = np.ones((3, 3, 16, 256), np.float32)
+    wt[:, :, :, 128:] = 0
+    al = weight_align(wt, policy=ExecutionPolicy(block_shape=(16, 256))).to(
+        dev, torch.bfloat16)  # bn = 256: wider than the epilogue tiles
+    x = torch.ones((1, 6, 6, 16), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        sconv_gc.sconv(x, al, padding=(1, 1), relu=False)
+    with pytest.raises(NotImplementedError):
+        sconv_gc.sconv(x, al, padding=(1, 1), relu=False, mxu_dtype="float32")
 
 
 # (m, k, n, block, sparsity, relu)
