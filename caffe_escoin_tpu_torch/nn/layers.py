@@ -150,6 +150,11 @@ class ConvolutionReLULayer(ConvolutionLayer):
         self.p["fuse_relu"] = True
 
 
+# the kernel each ``Layer.route`` launches once per layer ("dense" launches
+# none): the conv routes' kernels and the fc's SpMM
+ROUTE_KERNELS = {**conv_ops.ROUTE_KERNELS, "spmm": "bsc_spmm"}
+
+
 @register_layer("InnerProduct")
 class InnerProductLayer(Layer):
     """FC layer. Sparse execution runs the block-sparse SpMM over the 1x1

@@ -97,11 +97,9 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
     return out
 
 
-# the kernel each route launches once per layer ("dense" launches none);
-# "spmm" is the sparse fc's route (nn/layers.py InnerProductLayer.route)
+# the kernel each conv route launches once per layer ("dense" launches none)
 ROUTE_KERNELS = {"fused": "sconv_fused", "gc": "sconv_gc",
-                 "spmm_1x1": "bsc_spmm", "lowered": "bsc_spmm",
-                 "spmm": "bsc_spmm"}
+                 "spmm_1x1": "bsc_spmm", "lowered": "bsc_spmm"}
 
 
 def _sconv_route(x, aligned: AlignedConvWeight, stride, padding,
@@ -113,6 +111,7 @@ def _sconv_route(x, aligned: AlignedConvWeight, stride, padding,
     both sides; each kernel's ``supported`` adds its own limits."""
     if stride != (1, 1):
         if aligned.kernel_shape == (1, 1) and dilation == (1, 1):
+            # routed as the stride-1 conv on the subsampled map
             n, h, w, c = x.shape
             sub = torch.empty(
                 (n, _out_spatial(h, 1, stride[0], padding[0], 1),
@@ -161,27 +160,28 @@ def conv_route(x, aligned: AlignedConvWeight, *,
                         tuple(dilation))
 
 
-def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
-                 relu, policy: ExecutionPolicy, residual=None,
-                 route: Optional[str] = None):
-    """Direct sparse convolution (the JAX package's ``use_xla_sparse=False``
-    route, ``ops/conv.py:188-210,314-381``). ``route``: this layer's
-    ``conv_route``, when the caller has it already."""
-    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
-    if (stride != (1, 1) and aligned.kernel_shape == (1, 1)
-            and dilation == (1, 1)):
-        # a 1x1 conv commutes with the stride: subsample once, then run the
-        # stride-1 sparse path on the smaller map
-        xs = x
-        if padding != (0, 0):
-            xs = F.pad(x, (0, 0, padding[1], padding[1],
-                           padding[0], padding[0]))
-        xs = xs[:, ::stride[0], ::stride[1], :].contiguous()
-        return conv2d_sconv(xs, aligned, stride=(1, 1), padding=(0, 0),
-                            dilation=(1, 1), relu=relu, policy=policy,
-                            residual=residual, route=route)
-    if route is None:
-        route = _sconv_route(x, aligned, stride, padding, dilation)
+def _subsample_1x1(x, stride, padding):
+    """A 1x1 conv commutes with its stride: pad, then keep every stride-th
+    pixel, so that the stride-1 route runs on the smaller map."""
+    if padding != (0, 0):
+        x = F.pad(x, (0, 0, padding[1], padding[1], padding[0], padding[0]))
+    return x[:, ::stride[0], ::stride[1], :].contiguous()
+
+
+def _run_route(route, x, aligned: AlignedConvWeight, *, stride, padding,
+               dilation, relu, policy: ExecutionPolicy, residual):
+    """Runs one conv on the route ``conv_route`` named for it."""
+    if route == "dense":
+        return conv2d_dense(
+            x, aligned.dense, aligned.bias, stride=stride, padding=padding,
+            dilation=dilation, groups=aligned.groups, relu=relu,
+            residual=residual)
+    if route == "lowered":
+        return conv2d_lowered_sparse(
+            x, aligned, stride=stride, padding=padding, dilation=dilation,
+            relu=relu, policy=policy, residual=residual)
+    if stride != (1, 1):  # only a 1x1 conv takes a direct route strided
+        x, padding = _subsample_1x1(x, stride, padding), (0, 0)
     if route == "fused":
         return sconv_fused.sconv(x, aligned, padding=padding, relu=relu,
                                  residual=residual, mxu_dtype=policy.mxu_dtype)
@@ -195,17 +195,25 @@ def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                                   relu=relu and residual is None,
                                   mxu_dtype=policy.mxu_dtype)
         out = out2d.reshape(n, h, w, aligned.cout)
-    elif route == "gc":
+    else:  # "gc"
         out = sconv_gc.sconv(x, aligned, padding=padding,
                              relu=relu and residual is None,
                              mxu_dtype=policy.mxu_dtype)
-    else:
-        return conv2d_lowered_sparse(
-            x, aligned, stride=stride, padding=padding, dilation=dilation,
-            relu=relu, policy=policy, residual=residual)
     if residual is not None:
         out = _epilogue(out, relu, residual)
     return out
+
+
+def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
+                 relu, policy: ExecutionPolicy, residual=None):
+    """Direct sparse convolution, whatever the weight's sparsity (the JAX
+    package's ``use_xla_sparse=False`` route, ``ops/conv.py:188-210,
+    314-381``)."""
+    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
+    return _run_route(_sconv_route(x, aligned, stride, padding, dilation), x,
+                      aligned, stride=stride, padding=padding,
+                      dilation=dilation, relu=relu, policy=policy,
+                      residual=residual)
 
 
 def conv2d(x, aligned: AlignedConvWeight, *,
@@ -214,20 +222,12 @@ def conv2d(x, aligned: AlignedConvWeight, *,
            dilation: Tuple[int, int] = (1, 1), relu: bool = False,
            mode: Optional[ConvMode] = None,
            policy: Optional[ExecutionPolicy] = None, residual=None):
-    """Mode-dispatched convolution over an aligned weight."""
+    """Mode-dispatched convolution over an aligned weight: runs the route
+    ``conv_route`` names."""
     policy = policy or ExecutionPolicy()
+    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     route = conv_route(x, aligned, stride=stride, padding=padding,
                        dilation=dilation, mode=mode, policy=policy)
-    if route == "dense":
-        return conv2d_dense(
-            x, aligned.dense, aligned.bias, stride=stride, padding=padding,
-            dilation=dilation, groups=aligned.groups, relu=relu,
-            residual=residual)
-    mode = policy.conv_mode if mode is None else mode
-    if mode == ConvMode.LOWERED_SPARSE:
-        return conv2d_lowered_sparse(
-            x, aligned, stride=stride, padding=padding, dilation=dilation,
-            relu=relu, policy=policy, residual=residual)
-    return conv2d_sconv(x, aligned, stride=stride, padding=padding,
-                        dilation=dilation, relu=relu, policy=policy,
-                        residual=residual, route=route)
+    return _run_route(route, x, aligned, stride=stride, padding=padding,
+                      dilation=dilation, relu=relu, policy=policy,
+                      residual=residual)

@@ -19,14 +19,17 @@ Phases, one line each (any failure exits non-zero):
   2. build: the three CUDA kernels from the sources in this checkout.
   3. parity: each kernel against its plain PyTorch version at main-path
      shapes, bf16, max|err| <= 1e-2 * max|plain| + 1e-2: sconv_fused at
-     ResNet-50 shapes, bsc_spmm at fc1000, sconv_gc at VGG-16 conv2_1,
-     conv2_2 and conv3_2, and sconv_fused at those three too.
+     ResNet-50 shapes and at VGG-16 conv3_1, conv4_2 and conv5_2; bsc_spmm
+     at ResNet-50 fc1000, VGG-16 fc6 and conv1_2's lowered im2col GEMM
+     (64x64 blocks); sconv_gc at VGG-16 conv2_1, conv2_2 and conv3_2, and
+     sconv_fused at those three too.
   4. nets, each on 4 distinct inputs with every launch counter set to 0
      just before and read just after: every kernel must have launched as
      many times as the layers' routes (``Net.routes``, the function the
      dispatch runs through) say; the last classifier's logits within 5e-2
      relative L2 of the same pruned, fused net run dense in f32 (cuDNN,
-     TF32 off).
+     TF32 off). Also the routing's host time per layer (``Net.routes``,
+     host clock).
   5. times (CUDA events, after warm-up, cycling the 4 inputs): each net
      sparse, dense-bf16 and dense-f32; each kernel beside its plain version,
      and sconv_gc beside sconv_fused on the same layer.
@@ -60,8 +63,15 @@ KERNELS = {  # name -> the TPU kernel it replaces
     "bsc_spmm": "caffe_escoin_tpu/kernels/bsc_pallas.py:125",
     "sconv_gc": "caffe_escoin_tpu/kernels/sconv_pallas.py:157",
 }
-# (model, batch, last classifier, output width)
-NETS = [("resnet50", 32, "fc1000", 1000), ("vgg16", 16, "fc8", 1000)]
+# logits: the last classifier's blob; input_scale: the std of the random
+# inputs; keep_norm: see _prune
+NETS = [
+    dict(model="resnet50", batch=32, logits="fc1000", width=1000,
+         input_scale=0.1, keep_norm=False),
+    dict(model="vgg16", batch=16, logits="fc8", width=1000,
+         input_scale=1.0, keep_norm=True),
+]
+ROUTE_REPS = 100
 
 
 def _card_line() -> str:
@@ -93,7 +103,8 @@ def _time_ms(fn, args, iters=TIMED_ITERS):
 def _prune(net, params, keep_norm=False):
     """bench.py's pruning: conv and fc weights at SPARSITY in BLOCK blocks.
     The stem (3 input channels) stays dense. ``keep_norm`` scales each
-    pruned weight back to its Frobenius norm."""
+    pruned weight back to its Frobenius norm, which bench.py does not: it
+    keeps the signal alive through VGG-16's sixteen pruned layers."""
     import torch
 
     from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
@@ -134,7 +145,7 @@ def main() -> int:
                                                     sconv_fused, sconv_gc)
         from caffe_escoin_tpu_torch.models import ZOO
         from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
-        from caffe_escoin_tpu_torch.ops.conv import ROUTE_KERNELS
+        from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
         from caffe_escoin_tpu_torch.sparse import dense_to_bsc
         from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
         from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
@@ -191,33 +202,43 @@ def main() -> int:
             raise SystemExit(f"{kernel} {label}: kernel disagrees with plain")
         results[kernel]["err"] = max(results[kernel]["err"], err)
 
-    def conv_case(batch, h, cin, cout, k, fuse):
+    def conv_weight(cin, cout, k):
         w = prune_conv_weight(
             rng_np.standard_normal((k, k, cin, cout)).astype("float32")
             * (2.0 / (k * k * cin)) ** 0.5, SPARSITY, (min(128, cin), 128))
         b = rng_np.standard_normal(cout).astype("float32") * 0.1
-        al = weight_align(w, b, policy=pol_block).to(dev, torch.bfloat16)
+        return weight_align(w, b, policy=pol_block).to(dev, torch.bfloat16)
+
+    def conv_case(batch, h, cin, cout, k, with_res):
+        al = conv_weight(cin, cout, k)
         xs = [torch.randn((batch, h, h, cin), generator=gen, device=dev
                           ).bfloat16() for _ in range(N_INPUTS)]
         res = (torch.randn((batch, h, h, cout), generator=gen, device=dev
-                           ).bfloat16() if fuse else None)
+                           ).bfloat16() if with_res else None)
         return al, xs, res
 
-    sconv_shapes = [  # (label, batch, h, cin, cout, k, pad, residual+relu)
-        ("b32 56x56 64->64 3x3", 32, 56, 64, 64, 3, 1, False),
-        ("b32 14x14 1024->256 1x1", 32, 14, 1024, 256, 1, 0, False),
-        ("b32 7x7 512->2048 1x1 +res+relu", 32, 7, 512, 2048, 1, 0, True),
+    sconv_shapes = [  # (label, batch, h, cin, cout, k, pad, relu, residual)
+        ("b32 56x56 64->64 3x3", 32, 56, 64, 64, 3, 1, False, False),
+        ("b32 14x14 1024->256 1x1", 32, 14, 1024, 256, 1, 0, False, False),
+        ("b32 7x7 512->2048 1x1 +res+relu", 32, 7, 512, 2048, 1, 0, True,
+         True),
+        ("conv3_1 b16 56x56 128->256 3x3 +relu", 16, 56, 128, 256, 3, 1,
+         True, False),
+        ("conv4_2 b16 28x28 512->512 3x3 +relu", 16, 28, 512, 512, 3, 1,
+         True, False),
+        ("conv5_2 b16 14x14 512->512 3x3 +relu", 16, 14, 512, 512, 3, 1,
+         True, False),
     ]
-    for label, batch, h, cin, cout, k, pad, fuse in sconv_shapes:
-        al, xs, res = conv_case(batch, h, cin, cout, k, fuse)
+    for label, batch, h, cin, cout, k, pad, relu, with_res in sconv_shapes:
+        al, xs, res = conv_case(batch, h, cin, cout, k, with_res)
 
-        def kern(x, al=al, pad=pad, fuse=fuse, res=res):
-            return sconv_fused.sconv(x, al, padding=(pad, pad), relu=fuse,
+        def kern(x, al=al, pad=pad, relu=relu, res=res):
+            return sconv_fused.sconv(x, al, padding=(pad, pad), relu=relu,
                                      residual=res)
 
-        def plain(x, al=al, pad=pad, fuse=fuse, res=res):
+        def plain(x, al=al, pad=pad, relu=relu, res=res):
             return sconv_fused.sconv_plain(x, al, padding=(pad, pad),
-                                           relu=fuse, residual=res,
+                                           relu=relu, residual=res,
                                            mxu_dtype="bfloat16")
 
         out = kern(xs[0])
@@ -226,25 +247,35 @@ def main() -> int:
         timed.append(("sconv_fused", label,
                       {"kernel": kern, "plain": plain}, xs))
 
-    w = prune_blocks(rng_np.standard_normal((2048, 1000)).astype("float32")
-                     * (3.0 / 2048) ** 0.5, SPARSITY, BLOCK)
-    bsc = dense_to_bsc(w, BLOCK).to(dev, torch.bfloat16)
-    fc_bias = torch.randn(1000, generator=gen, device=dev) * 0.1
-    a_list = [torch.randn((32, 2048), generator=gen, device=dev).bfloat16()
-              for _ in range(N_INPUTS)]
+    def spmm_case(label, m, bsc, relu):
+        bias = torch.randn(bsc.shape[1], generator=gen, device=dev) * 0.1
+        a_list = [torch.randn((m, bsc.shape[0]), generator=gen, device=dev
+                              ).bfloat16() for _ in range(N_INPUTS)]
 
-    def fc_kern(a):
-        return bsc_spmm.bsc_spmm(a, bsc, bias=fc_bias)
+        def kern(a):
+            return bsc_spmm.bsc_spmm(a, bsc, bias=bias, relu=relu)
 
-    def fc_plain(a):
-        return bsc_spmm.bsc_spmm_plain(a, bsc, bias=fc_bias,
-                                       mxu_dtype="bfloat16")
+        def plain(a):
+            return bsc_spmm.bsc_spmm_plain(a, bsc, bias=bias, relu=relu,
+                                           mxu_dtype="bfloat16")
 
-    out = fc_kern(a_list[0])
-    torch.cuda.synchronize()
-    check("bsc_spmm", "fc1000 32x2048->1000", out, fc_plain(a_list[0]))
-    timed.append(("bsc_spmm", "fc1000 32x2048->1000",
-                  {"kernel": fc_kern, "plain": fc_plain}, a_list))
+        out = kern(a_list[0])
+        torch.cuda.synchronize()
+        check("bsc_spmm", label, out, plain(a_list[0]))
+        timed.append(("bsc_spmm", label, {"kernel": kern, "plain": plain},
+                      a_list))
+
+    for label, m, k, n, relu in [  # the fc layers, 128x128 blocks
+            ("fc1000 32x2048->1000", 32, 2048, 1000, False),
+            ("fc6 16x25088->4096 +relu", 16, 25088, 4096, True)]:
+        w = prune_blocks(rng_np.standard_normal((k, n)).astype("float32")
+                         * (3.0 / k) ** 0.5, SPARSITY, BLOCK)
+        spmm_case(label, m, dense_to_bsc(w, BLOCK).to(dev, torch.bfloat16),
+                  relu)
+    # conv1_2's lowered route: its im2col [16*224*224, 9*64] against the
+    # GEMM-view weight, which weight_align cuts in 64x64 blocks
+    spmm_case("conv1_2 lowered b16 802816x576->64 +relu", 16 * 224 * 224,
+              conv_weight(64, 64, 3).bsc, True)
 
     gc_shapes = [  # (label, batch, h, cin, cout): VGG-16 3x3 pad-1 layers
         ("conv2_1 b16 112x112 64->128 3x3 +relu", 16, 112, 64, 128),
@@ -277,16 +308,23 @@ def main() -> int:
     pol_s = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
                             compute_dtype=torch.bfloat16, cast_back=False)
     e2e = []  # (model, batch, {arm: fn}, inputs f32, inputs bf16)
-    for model, batch, logits_blob, width in NETS:
+    for cfg in NETS:
+        model, batch = cfg["model"], cfg["batch"]
+        logits_blob, width = cfg["logits"], cfg["width"]
         t0 = time.perf_counter()
         build, shapes = ZOO[model]
         shapes = {"data": (batch,) + tuple(shapes["data"][1:])}
         net = Net(build(), policy=pol_s)
         params = net.init(torch.Generator().manual_seed(SEED), shapes)
-        pruned = _prune(net, params, keep_norm=model == "vgg16")
+        pruned = _prune(net, params, keep_norm=cfg["keep_norm"])
         fnet, fparams = fuse_inference(net, pruned, state=net.state0)
         aligned = fnet.weight_align(fparams)
         routes = fnet.routes(aligned, shapes)
+        t1 = time.perf_counter()
+        for _ in range(ROUTE_REPS):
+            fnet.routes(aligned, shapes)
+        route_us = ((time.perf_counter() - t1) / ROUTE_REPS / len(routes)
+                    * 1e6)
         expect = collections.Counter(
             ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
         sparse_params = params_to(aligned, dev, torch.bfloat16)
@@ -295,9 +333,8 @@ def main() -> int:
         dense_bf16_net = Net(fnet.specs, policy=ExecutionPolicy(
             compute_dtype=torch.bfloat16, cast_back=False))
         dense_bf16_params = params_to(fparams, dev, torch.bfloat16)
-        scale = 0.1 if model == "resnet50" else 1.0
-        xs = [torch.randn(shapes["data"], generator=gen, device=dev) * scale
-              for _ in range(N_INPUTS)]
+        xs = [torch.randn(shapes["data"], generator=gen, device=dev)
+              * cfg["input_scale"] for _ in range(N_INPUTS)]
         print(f"net: {model} b{batch} {shapes['data'][1]}x"
               f"{shapes['data'][2]}, {len(net.layers)} -> {len(fnet.layers)} "
               f"layers after fusion, {SPARSITY:.0%} sparsity in "
@@ -305,6 +342,9 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s; routes "
               f"{dict(collections.Counter(routes.values()))}; expected "
               f"launches per forward: {dict(expect)} {tag}")
+        print(f"net {model} routing host time: {route_us:.2f} us per layer "
+              f"(Net.routes over {len(routes)} conv/fc layers, mean of "
+              f"{ROUTE_REPS}, host clock) {tag}")
 
         fwd_s = fnet.inference_fn(sparse_params, return_blobs=True)
         fwd_d = dense_net.inference_fn(dense_params, return_blobs=True)
