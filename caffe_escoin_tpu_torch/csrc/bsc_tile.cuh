@@ -1,10 +1,11 @@
-// Shared tile machinery of the two block-sparse kernels of this package:
-// sconv_fused.cu (direct sparse convolution) and bsc_spmm.cu (dense A times
-// a BSC weight). Both compute, for one output tile of kTileM rows and one
-// weight block-column j, the sum over the column's live K-blocks of
-// A_tile[:, kblock] @ W_block, and differ only in where a row of A lives:
-// a shifted input pixel (conv) or a row of a dense matrix (SpMM). A "Rows"
-// policy class supplies that address; everything else is here.
+// The tile loop and epilogue of bsc_spmm.cu (dense A times a BSC weight),
+// which alone uses this header now: the two direct convolutions moved to the
+// pipelined loop of sconv_pipe.cuh, and bsc_spmm's own redesign onto that
+// header is next (ROADMAP, queue 2), after which this file goes. It
+// computes, for one output tile of kTileM rows and one weight block-column
+// j, the sum over the column's live K-blocks of A_tile[:, kblock] @ W_block;
+// a "Rows" policy class says where a row of A lives, everything else is
+// here.
 //
 // Design, for an H100 (sm_90a):
 // * Grid (M-tiles, block-columns). Each block reads its column's bcol_nnz[j]

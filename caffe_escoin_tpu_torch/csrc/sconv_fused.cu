@@ -15,95 +15,106 @@
 // does about 10% of the dense MMA work; e.g. 56x56 64->64 3x3 keeps one of
 // its nine 64x64 blocks: 0.82 GFLOP against 25.7 MB of bf16 activation in
 // and out, 32 FLOP/byte, far below the ~295 FLOP/byte an H100 needs in
-// bf16 to be MMA-bound. So it is bound by memory traffic and by latency
-// (few K-blocks per output tile to hide it); each block-column re-reads
-// its A rows, which for wide layers comes from L2.
+// bf16 to be MMA-bound. So memory bounds it, and latency: a block-column
+// has 0-4 live K-blocks, too few steps for one block to hide a load behind
+// the previous step's multiply. The 1x1 expand layers with a residual move
+// as many bytes in the epilogue (residual in, output out) as in the loop.
+// The first port (bsc_tile.cuh) lost most of its time to exactly these:
+// synchronous 32-deep chunks, and an epilogue of 2-byte scalar stores and
+// residual reads that ran ResNet-50's res2 expand layers at ~400 GB/s
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
 //
-// What the design does about it: the TPU kernel built a zero-padded,
-// channel-blocked slab of each image in VMEM and read shifted slices of
-// it. Here there is no slab: each output tile gathers its shifted A rows
-// straight from x with masked loads (zero outside the image and past Cin),
-// so x is never copied or padded in device memory, and the residual add
-// and ReLU ride the epilogue instead of a separate pass. The tile loop and
-// the epilogue are shared with bsc_spmm.cu (bsc_tile.cuh).
+// What the design does about it: no slab. Each output tile gathers its
+// shifted A rows straight from x with cp.async copies whose zero fill does
+// the masking (outside the image, past M, past Cin), through the pipelined
+// ring of sconv_pipe.cuh, which keeps the next steps' loads in flight
+// across K-blocks; the residual add and ReLU ride the coalesced 16-byte
+// epilogue there; block-columns of one M-tile launch side by side so the
+// A rows they share come from L2; the wrapper picks 64-row tiles for the
+// small late layers so they still fill the card.
 
-#include "bsc_tile.cuh"
+#include "sconv_pipe.cuh"
 
 namespace {
 
-using cet::kTileM;
-
-template <typename T>
 struct ConvRows {
-  const T* x;
-  int H, W, Cin, Ho, Wo, kw, ph, pw, n_cin_b, bk;
-  int dh, dw, c0, limit;
+  const __nv_bfloat16* x;  // [N, H, W, Cin], Cin % 8 == 0
+  int H, W, Cin, Ho, Wo, kw, ph, pw, n_cin_b, bk, m_total;
+  int m0;  // first output row of the tile
 
-  // meta[0..2][r] = (n, ho, wo) of output row m0 + r; n = -1 past M
-  __device__ void init(int m0, int m_total, int (*meta)[kTileM]) {
-    for (int r = threadIdx.x; r < kTileM; r += blockDim.x) {
-      const int m = m0 + r;
-      if (m < m_total) {
-        const int hw = Ho * Wo;
-        const int n = m / hw, rem = m - n * hw, ho = rem / Wo;
-        meta[0][r] = n;
-        meta[1][r] = ho;
-        meta[2][r] = rem - ho * Wo;
-      } else {
-        meta[0][r] = -1;
-      }
-    }
+  struct Row {
+    int n, ho, wo;  // n = -1 past M
+  };
+  struct Blk {
+    int dh, dw, c0, limit;
+  };
+
+  __device__ void tile(int mt, int bm) { m0 = mt * bm; }
+
+  __device__ Row row(int r) const {
+    const int m = m0 + r;
+    if (m >= m_total) return {-1, 0, 0};
+    const int hw = Ho * Wo;
+    const int n = m / hw, rem = m - n * hw, ho = rem / Wo;
+    return {n, ho, rem - ho * Wo};
   }
 
-  __device__ void begin(int kblk) {
+  __device__ Blk block(int kblk) const {
     const int off = kblk / n_cin_b, cb = kblk - off * n_cin_b;
     const int khi = off / kw;
-    dh = khi - ph;
-    dw = off - khi * kw - pw;
-    c0 = cb * bk;
-    limit = min(bk, Cin - c0);  // channel tail when cin_pad > Cin
+    // channel tail when cin_pad > Cin
+    return {khi - ph, off - khi * kw - pw, cb * bk, min(bk, Cin - cb * bk)};
   }
 
-  __device__ const T* row(int r, int (*meta)[kTileM]) const {
-    const int n = meta[0][r];
-    if (n < 0) return nullptr;
-    const int hi = meta[1][r] + dh, wi = meta[2][r] + dw;
-    if (hi < 0 || hi >= H || wi < 0 || wi >= W) return nullptr;  // padding
-    return x + ((size_t)(n * H + hi) * W + wi) * Cin + c0;
+  // 8 channels at column kk of the K-block for this row; null reads zeros
+  // (padding, past M, past Cin)
+  __device__ const __nv_bfloat16* at(const Row& rw, const Blk& b,
+                                     int kk) const {
+    if (rw.n < 0 || kk >= b.limit) return nullptr;
+    const int hi = rw.ho + b.dh, wi = rw.wo + b.dw;
+    if ((unsigned)hi >= (unsigned)H || (unsigned)wi >= (unsigned)W)
+      return nullptr;
+    return x + ((size_t)(rw.n * H + hi) * W + wi) * Cin + b.c0 + kk;
+  }
+
+  __device__ long long out_row(int r) const {
+    const int m = m0 + r;
+    return m < m_total ? m : -1;
   }
 };
 
-template <typename T>
-int run(const void* x, const void* blocks, const void* block_row,
-        const void* bcol_nnz, const void* bias, const void* residual,
-        void* out, int n, int h, int w, int cin, int ho, int wo, int cout,
-        int kw, int ph, int pw, int n_cin_b, int bk, int bn, int n_bcols,
-        int max_bw, int relu, int vec, void* stream) {
-  ConvRows<T> rows{static_cast<const T*>(x), h, w, cin, ho, wo, kw, ph, pw,
-                   n_cin_b, bk, 0, 0, 0, 0};
-  return static_cast<int>(cet::launch_bsc_tile<T>(
-      rows, blocks, block_row, bcol_nnz, bias, residual, out, n * ho * wo,
-      cout, bk, bn, n_bcols, max_bw, relu, vec, stream));
-}
-
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-// bf16_io: x, residual and out are bf16 (else f32). blocks: bf16.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a plan the kernel does not match. x: bf16.
+// blocks: bf16. residual and out: bf16 if bf16_io, else f32. d: the
+// integer arguments, n, h, w, cin, ho, wo, cout, kw, ph, pw, n_cin_b, bk,
+// bn, n_bcols, max_bw, relu, bf16_io, then the launch plan of
+// kernels/sconv_pipe.py: tile_m, stages, chunk, smem.
 extern "C" int cet_sconv_fused(const void* x, const void* blocks,
                                const void* block_row, const void* bcol_nnz,
                                const void* bias, const void* residual,
-                               void* out, int n, int h, int w, int cin, int ho,
-                               int wo, int cout, int kw, int ph, int pw,
-                               int n_cin_b, int bk, int bn, int n_bcols,
-                               int max_bw, int relu, int bf16_io, int vec,
-                               void* stream) {
-  if (bf16_io)
-    return run<__nv_bfloat16>(x, blocks, block_row, bcol_nnz, bias, residual,
-                              out, n, h, w, cin, ho, wo, cout, kw, ph, pw,
-                              n_cin_b, bk, bn, n_bcols, max_bw, relu, vec,
-                              stream);
-  return run<float>(x, blocks, block_row, bcol_nnz, bias, residual, out, n, h,
-                    w, cin, ho, wo, cout, kw, ph, pw, n_cin_b, bk, bn, n_bcols,
-                    max_bw, relu, vec, stream);
+                               void* out, const int* d, void* stream) {
+  const int n = d[0], h = d[1], w = d[2], cin = d[3], ho = d[4], wo = d[5];
+  const int cout = d[6], kw = d[7], ph = d[8], pw = d[9], n_cin_b = d[10];
+  const int bk = d[11], bn = d[12], n_bcols = d[13], max_bw = d[14];
+  const int relu = d[15], bf16_io = d[16], tile_m = d[17], stages = d[18];
+  const int chunk = d[19], smem = d[20];
+  if (cin % 8 != 0 || tile_m <= 0) return cudaErrorInvalidValue;
+  const int m_total = n * ho * wo;
+  ConvRows rows{static_cast<const __nv_bfloat16*>(x),
+                h, w, cin, ho, wo, kw, ph, pw, n_cin_b, bk, m_total, 0};
+  const cet::pipe::Args a{static_cast<const __nv_bfloat16*>(blocks),
+                          static_cast<const int*>(block_row),
+                          static_cast<const int*>(bcol_nnz),
+                          static_cast<const float*>(bias),
+                          residual, out, cout, bk, bn, n_bcols, max_bw, relu,
+                          stages};
+  const int m_tiles = (m_total + tile_m - 1) / tile_m;
+  const cudaError_t e =
+      bf16_io ? cet::pipe::launch_sconv_pipe<__nv_bfloat16>(
+                    rows, a, m_tiles, tile_m, chunk, smem, stream)
+              : cet::pipe::launch_sconv_pipe<float>(rows, a, m_tiles, tile_m,
+                                                    chunk, smem, stream);
+  return static_cast<int>(e);
 }

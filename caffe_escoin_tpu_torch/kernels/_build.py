@@ -31,11 +31,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# argtypes of each C entry point: pointers and the stream as c_void_p
+_IP = ctypes.POINTER(ctypes.c_int)
+# argtypes of each C entry point: pointers and the stream as c_void_p; the
+# direct convs take their integer arguments as one int array (``c_ints``),
+# built once per layer shape, since ctypes converts each argument anew on
+# every call
 SIGNATURES = {
-    "cet_sconv_fused": [_P] * 7 + [_I] * 18 + [_P],
+    "cet_sconv_fused": [_P] * 7 + [_IP, _P],
     "cet_bsc_spmm": [_P] * 6 + [_I] * 10 + [_P],
-    "cet_sconv_gc": [_P] * 6 + [_I] * 15 + [_P],
+    "cet_sconv_gc": [_P] * 6 + [_IP, _P],
 }
 
 _lib = None
@@ -119,13 +123,21 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def c_ints(*values: int) -> ctypes.Array:
+    """An int array for a C entry point's integer arguments."""
+    return (ctypes.c_int * len(values))(*values)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device, which must be
-    the current device (the kernels launch there)."""
-    if t.device.index != torch.cuda.current_device():
+    the current device (the kernels launch there). Read with the raw
+    accessor that Triton's launcher uses too: building the Python
+    ``torch.cuda.Stream`` object costs more host time than the launch."""
+    index = torch.cuda.current_device()
+    if t.device.index != index:
         raise ValueError(f"tensor on {t.device}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    return torch.cuda.current_stream(t.device).cuda_stream
+                         f"cuda:{index}")
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_operand(t: torch.Tensor, name: str, device, dtypes) -> None:

@@ -13,6 +13,11 @@ the conv output is cast to bf16, and casts the folded bias to bf16 with the
 other params (its ``ops/conv.py:283-286,321-323``, ``nn/layers.py:152-161``);
 the port keeps the bias in f32. The plain version follows the kernel.
 
+The kernel copies its operands with ``cp.async``, which does not convert:
+``sconv`` hands it x in bf16 with 16-byte aligned rows and K-blocks
+(``sconv_pipe.kernel_operands``). ``launch_plan`` is the kernel's tile size,
+ring depth and shared memory for a shape (``kernels/sconv_pipe.py``).
+
 ``sconv`` runs the kernel for a CUDA tensor and ``sconv_plain`` for a CPU
 tensor. ``calls`` counts entry calls on any device; ``launches`` counts
 kernel launches only.
@@ -27,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.engine.context import resolve_mxu_dtype
-from caffe_escoin_tpu_torch.kernels import _build
+from caffe_escoin_tpu_torch.kernels import _build, sconv_pipe
 from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
 
 calls = 0
@@ -124,10 +129,55 @@ def fits_budget(x, aligned: AlignedConvWeight, padding) -> bool:
                          bsc.max_bw) <= VMEM_BUDGET
 
 
-def _out_hw(x, aligned, padding) -> Tuple[int, int]:
-    kh, kw = aligned.kernel_shape
-    return (x.shape[1] + 2 * padding[0] - kh + 1,
-            x.shape[2] + 2 * padding[1] - kw + 1)
+def _out_hw(x_shape, kernel_shape, padding) -> Tuple[int, int]:
+    kh, kw = kernel_shape
+    return (x_shape[1] + 2 * padding[0] - kh + 1,
+            x_shape[2] + 2 * padding[1] - kw + 1)
+
+
+def _plan(x_shape, kernel_shape, padding, block_shape, n_bcols,
+          max_bw) -> sconv_pipe.LaunchPlan:
+    ho, wo = _out_hw(x_shape, kernel_shape, padding)
+    return sconv_pipe.plan(1, x_shape[0] * ho * wo, block_shape, n_bcols,
+                           max_bw)
+
+
+def launch_plan(x_shape, aligned: AlignedConvWeight,
+                padding) -> sconv_pipe.LaunchPlan:
+    """The kernel's launch plan for an input of ``x_shape``: its tiles run
+    over the N * Ho * Wo output rows of the whole batch. ``_c_dims`` passes
+    the kernel this plan."""
+    bsc = aligned.bsc
+    return _plan(tuple(x_shape), aligned.kernel_shape, tuple(padding),
+                 bsc.block_shape, bsc.n_bcols, bsc.max_bw)
+
+
+def _dims(x_shape, cin_k, bk, aligned: AlignedConvWeight, padding,
+          relu: bool, bf16_io: bool):
+    """The kernel's integer arguments, as ``sconv`` passes them: x of
+    ``x_shape`` handed over with ``cin_k`` channels in K-blocks ``bk``
+    deep (``sconv_pipe.kernel_operands``)."""
+    bsc = aligned.bsc
+    return _c_dims(tuple(x_shape), cin_k, tuple(padding),
+                   aligned.kernel_shape, aligned.cout,
+                   aligned.cin_pad // bsc.block_shape[0], bk,
+                   bsc.block_shape, bsc.n_bcols, bsc.max_bw, int(relu),
+                   int(bf16_io))
+
+
+@functools.lru_cache(maxsize=4096)
+def _c_dims(x_shape, cin_k, padding, kernel_shape, cout, n_cin_b, bk,
+            block_shape, n_bcols, max_bw, relu, bf16_io):
+    """The kernel's integer arguments for one layer shape, ``launch_plan``'s
+    plan included, in the order ``cet_sconv_fused`` reads them; built once,
+    since eager dispatch asks again on every forward."""
+    n, h, w, _ = x_shape
+    ho, wo = _out_hw(x_shape, kernel_shape, padding)
+    p = _plan(x_shape, kernel_shape, padding, block_shape, n_bcols, max_bw)
+    return _build.c_ints(
+        n, h, w, cin_k, ho, wo, cout, kernel_shape[1], padding[0],
+        padding[1], n_cin_b, bk, block_shape[1], n_bcols, max_bw, relu,
+        bf16_io, p.tile_m, p.stages, p.chunk, p.smem)
 
 
 def sconv_plain(x: torch.Tensor, aligned: AlignedConvWeight, *, padding,
@@ -175,35 +225,35 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
     if not supported(x, aligned):
         raise ValueError("sconv kernel does not take this shape "
                          "(see sconv_fused.supported)")
+    if x.dtype not in _IO_DTYPES:
+        raise TypeError(f"x has dtype {x.dtype}, expected one of {_IO_DTYPES}")
     bsc = aligned.bsc
-    bk, bn = bsc.block_shape
-    n, h, w, cin = x.shape
-    ho, wo = _out_hw(x, aligned, padding)
+    n, h, w, _ = x.shape
+    ho, wo = _out_hw(x.shape, aligned.kernel_shape, padding)
     dev = x.device
-    blocks = bsc.blocks.to(torch.bfloat16)  # the MXU dtype, as on the TPU
-    _build.check_operand(x, "x", dev, _IO_DTYPES)
+    xk, blocks, bk = sconv_pipe.kernel_operands(x, aligned)
+    _build.check_operand(xk, "x", dev, (torch.bfloat16,))
     _build.check_operand(blocks, "bsc.blocks", dev, (torch.bfloat16,))
     _build.check_operand(bsc.block_row, "bsc.block_row", dev, (torch.int32,))
     _build.check_operand(bsc.bcol_nnz, "bsc.bcol_nnz", dev, (torch.int32,))
     bias = aligned.bias
     if bias is not None:
-        bias = bias.float()
+        if bias.dtype != torch.float32:
+            bias = bias.float()
         _build.check_operand(bias, "bias", dev, (torch.float32,))
     if residual is not None:
         _build.check_operand(residual, "residual", dev, (x.dtype,))
         if residual.shape != (n, ho, wo, aligned.cout):
             raise ValueError(f"residual shape {tuple(residual.shape)} != "
                              f"{(n, ho, wo, aligned.cout)}")
-    out = torch.empty((n, ho, wo, aligned.cout), dtype=x.dtype, device=dev)
-    vec = int(cin % 8 == 0 and bk % 8 == 0)
+    out = x.new_empty((n, ho, wo, aligned.cout))
+    dims = _dims(x.shape, xk.shape[-1], bk, aligned, padding, relu,
+                 x.dtype == torch.bfloat16)
     rc = _build.load().cet_sconv_fused(
-        x.data_ptr(), blocks.data_ptr(), bsc.block_row.data_ptr(),
+        xk.data_ptr(), blocks.data_ptr(), bsc.block_row.data_ptr(),
         bsc.bcol_nnz.data_ptr(), None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
-        n, h, w, cin, ho, wo, aligned.cout, aligned.kernel_shape[1],
-        padding[0], padding[1], aligned.cin_pad // bk, bk, bn, bsc.n_bcols,
-        bsc.max_bw, int(relu), int(x.dtype == torch.bfloat16), vec,
-        _build.stream_of(x))
+        dims, _build.stream_of(x))
     _build.check(rc, "cet_sconv_fused")
     launches += 1
     return out

@@ -10,12 +10,17 @@ columns of each row are sliced away afterwards. So each live K-block
 Bias and ReLU ride the kernel's epilogue; a residual is added by the
 caller (``ops/conv.py``), as in the JAX route.
 
-The slab ``[N, L, cin_pad]`` (L = Hp * Wp + Kw - 1 rows per image) and the
-output slice are torch ops shared by the kernel route and ``sconv_plain``;
-the plain version replaces only the launch. The TPU kernel's
-channel-block-major slab transpose is dropped: it exists only for Mosaic's
-lane-slicing rule. Here a K-block is a column offset ``cb * bk`` into rows
-of stride ``cin_pad``.
+The plain version builds the slab ``[N, L, cin_pad]`` (L = Hp * Wp + Kw - 1
+rows per image) and slices the garbage columns off its output with torch
+ops (``_slab``, ``_crop``). The kernel route builds its bf16 slab in one
+write (``_kernel_slab``: one ``F.pad`` with one extra zero image row, which
+covers the Kw - 1 rows the last output row reads past Hp * Wp), and the
+kernel's epilogue writes the exact output itself, skipping the garbage
+columns: no crop copy. The TPU kernel's channel-block-major slab transpose
+is dropped: it exists only for Mosaic's lane-slicing rule. Here a K-block
+is a column offset ``cb * bk`` into rows of stride ``cin_pad``.
+``launch_plan`` is the kernel's tile size, ring depth and shared memory
+for a shape (``kernels/sconv_pipe.py``); its tiles never cross an image.
 
 ``sconv`` runs the kernel for a CUDA tensor and the plain version for a
 CPU tensor. ``calls`` counts entry calls on any device; ``launches``
@@ -24,12 +29,14 @@ counts kernel launches only.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.engine.context import resolve_mxu_dtype
-from caffe_escoin_tpu_torch.kernels import _build
+from caffe_escoin_tpu_torch.kernels import _build, sconv_pipe
 from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
 
 calls = 0
@@ -74,10 +81,11 @@ def fits_budget(x, aligned: AlignedConvWeight) -> bool:
     return slab <= SLAB_BUDGET
 
 
-def _geometry(x, aligned, padding) -> Tuple[int, int, int, int, int]:
+def _geometry(x_shape, kernel_shape,
+              padding) -> Tuple[int, int, int, int, int]:
     """(hp, wp, ho, wo, L) of the slab and the garbage-column output."""
-    kh, kw = aligned.kernel_shape
-    hp, wp = x.shape[1] + 2 * padding[0], x.shape[2] + 2 * padding[1]
+    kh, kw = kernel_shape
+    hp, wp = x_shape[1] + 2 * padding[0], x_shape[2] + 2 * padding[1]
     # the last output row m = Ho*Wp - 1 reads up to row Hp*Wp + Kw - 2
     return hp, wp, hp - kh + 1, wp - kw + 1, hp * wp + kw - 1
 
@@ -99,6 +107,61 @@ def _crop(flat, aligned, g):
     _, wp, ho, wo, _ = g
     return flat.view(flat.shape[0], ho, wp, aligned.cout)[:, :, :wo, :
                                                           ].contiguous()
+
+
+def _kernel_slab(xk, padding, cin_pad):
+    """The kernel's slab in one write: ``xk`` (bf16, from
+    ``sconv_pipe.kernel_operands``) zero-padded to Hp + 1 rows, Wp columns
+    and ``cin_pad`` channels, H x W flattened: [N, (Hp + 1) * Wp, cin_pad].
+    Its first Hp * Wp + Kw - 1 rows are ``_slab``'s; the extra image row
+    (Wp >= Kw - 1 rows) holds the zero tail rows."""
+    ph, pw = padding
+    slab = F.pad(xk, (0, cin_pad - xk.shape[-1], pw, pw, ph, ph + 1))
+    return slab.flatten(1, 2)
+
+
+def _plan(x_shape, kernel_shape, padding, block_shape, n_bcols,
+          max_bw) -> sconv_pipe.LaunchPlan:
+    _, wp, ho, _, _ = _geometry(x_shape, kernel_shape, padding)
+    return sconv_pipe.plan(x_shape[0], ho * wp, block_shape, n_bcols, max_bw)
+
+
+def launch_plan(x_shape, aligned: AlignedConvWeight,
+                padding) -> sconv_pipe.LaunchPlan:
+    """The kernel's launch plan for an input of ``x_shape``: its tiles run
+    over the Ho * Wp garbage-column rows of one image each. ``_c_dims``
+    passes the kernel this plan."""
+    bsc = aligned.bsc
+    return _plan(tuple(x_shape), aligned.kernel_shape, tuple(padding),
+                 bsc.block_shape, bsc.n_bcols, bsc.max_bw)
+
+
+def _dims(x_shape, slab_shape, bk, aligned: AlignedConvWeight, padding,
+          relu: bool, bf16_io: bool):
+    """The kernel's integer arguments, as ``sconv`` passes them: x of
+    ``x_shape`` handed over as a slab of ``slab_shape`` in K-blocks ``bk``
+    deep (``_kernel_slab``)."""
+    bsc = aligned.bsc
+    return _c_dims(tuple(x_shape), tuple(slab_shape), tuple(padding),
+                   aligned.kernel_shape, aligned.cout,
+                   aligned.cin_pad // bsc.block_shape[0], bk,
+                   bsc.block_shape, bsc.n_bcols, bsc.max_bw, int(relu),
+                   int(bf16_io))
+
+
+@functools.lru_cache(maxsize=4096)
+def _c_dims(x_shape, slab_shape, padding, kernel_shape, cout, n_cin_b, bk,
+            block_shape, n_bcols, max_bw, relu, bf16_io):
+    """The kernel's integer arguments for one layer shape, ``launch_plan``'s
+    plan included, in the order ``cet_sconv_gc`` reads them; built once,
+    since eager dispatch asks again on every forward."""
+    n, length, cin_pad = slab_shape
+    _, wp, ho, wo, _ = _geometry(x_shape, kernel_shape, padding)
+    p = _plan(x_shape, kernel_shape, padding, block_shape, n_bcols, max_bw)
+    return _build.c_ints(n, length, cin_pad, ho, wo, wp, cout,
+                         kernel_shape[1], n_cin_b, bk, block_shape[1],
+                         n_bcols, max_bw, relu, bf16_io, p.tile_m, p.stages,
+                         p.chunk, p.smem)
 
 
 def _flat_plain(slab, aligned, g, relu, mxu_dtype, out_dtype):
@@ -132,7 +195,7 @@ def sconv_plain(x: torch.Tensor, aligned: AlignedConvWeight, *, padding,
     kernel. With ``mxu_dtype="bfloat16"`` the slab and the weight are
     rounded to bf16 first, as the kernel multiplies them."""
     padding = tuple(padding)
-    g = _geometry(x, aligned, padding)
+    g = _geometry(x.shape, aligned.kernel_shape, padding)
     flat = _flat_plain(_slab(x, aligned, padding, g), aligned, g, relu,
                        mxu_dtype, x.dtype)
     return _crop(flat, aligned, g)
@@ -157,31 +220,31 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
     if not supported(x, aligned):
         raise ValueError("sconv_gc kernel does not take this shape "
                          "(see sconv_gc.supported)")
+    if x.dtype not in _IO_DTYPES:
+        raise TypeError(f"x has dtype {x.dtype}, expected one of {_IO_DTYPES}")
     bsc = aligned.bsc
-    bk, bn = bsc.block_shape
     n = x.shape[0]
-    g = _geometry(x, aligned, padding)
-    _, wp, ho, _, length = g
+    _, _, ho, wo, _ = _geometry(x.shape, aligned.kernel_shape, padding)
     dev = x.device
-    blocks = bsc.blocks.to(torch.bfloat16)  # the MXU dtype, as on the TPU
-    slab = _slab(x, aligned, padding, g)
-    _build.check_operand(slab, "slab", dev, _IO_DTYPES)
+    xk, blocks, bk = sconv_pipe.kernel_operands(x, aligned)
+    n_cin_b = aligned.cin_pad // bsc.block_shape[0]
+    slab = _kernel_slab(xk, padding, n_cin_b * bk)
+    _build.check_operand(slab, "slab", dev, (torch.bfloat16,))
     _build.check_operand(blocks, "bsc.blocks", dev, (torch.bfloat16,))
     _build.check_operand(bsc.block_row, "bsc.block_row", dev, (torch.int32,))
     _build.check_operand(bsc.bcol_nnz, "bsc.bcol_nnz", dev, (torch.int32,))
     bias = aligned.bias
     if bias is not None:
-        bias = bias.float()
+        if bias.dtype != torch.float32:
+            bias = bias.float()
         _build.check_operand(bias, "bias", dev, (torch.float32,))
-    flat = torch.empty((n, ho * wp, aligned.cout), dtype=x.dtype, device=dev)
-    vec = int(aligned.cin_pad % 8 == 0 and bk % 8 == 0)
+    out = x.new_empty((n, ho, wo, aligned.cout))
+    dims = _dims(x.shape, slab.shape, bk, aligned, padding, relu,
+                 x.dtype == torch.bfloat16)
     rc = _build.load().cet_sconv_gc(
         slab.data_ptr(), blocks.data_ptr(), bsc.block_row.data_ptr(),
         bsc.bcol_nnz.data_ptr(), None if bias is None else bias.data_ptr(),
-        flat.data_ptr(), n, length, aligned.cin_pad, ho, wp, aligned.cout,
-        aligned.kernel_shape[1], aligned.cin_pad // bk, bk, bn, bsc.n_bcols,
-        bsc.max_bw, int(relu), int(x.dtype == torch.bfloat16), vec,
-        _build.stream_of(x))
+        out.data_ptr(), dims, _build.stream_of(x))
     _build.check(rc, "cet_sconv_gc")
     launches += 1
-    return _crop(flat, aligned, g)
+    return out

@@ -18,7 +18,9 @@ Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
   2. build: the three CUDA kernels from the sources in this checkout.
   3. parity: each kernel against its plain PyTorch version at main-path
-     shapes, bf16, max|err| <= 1e-2 * max|plain| + 1e-2: sconv_fused at
+     shapes, bf16, max|err| <= 1e-2 * max|plain| + 1e-2, after the launch
+     plan (tile rows, ring stages, shared bytes) of each direct conv at
+     that shape: sconv_fused at
      ResNet-50 shapes and at VGG-16 conv3_1, conv4_2 and conv5_2; bsc_spmm
      at ResNet-50 fc1000, VGG-16 fc6 and conv1_2's lowered im2col GEMM
      (64x64 blocks); sconv_gc at VGG-16 conv2_1, conv2_2 and conv3_2, and
@@ -31,10 +33,26 @@ Phases, one line each (any failure exits non-zero):
      TF32 off). Also the routing's host time per layer (``Net.routes``,
      host clock).
   5. times (CUDA events, after warm-up, cycling the 4 inputs): each net
-     sparse, dense-bf16 and dense-f32; each kernel beside its plain version,
-     and sconv_gc beside sconv_fused on the same layer.
-Then one JSON line with the kernels, and as the last line
-{"ok": true, "device": {...}}.
+     sparse, dense-bf16 and dense-f32, eager, and the sparse forward
+     replayed as a CUDA graph (its device time, without the host's
+     dispatch); then each layer's device time in one sparse forward (the
+     layer alone as a CUDA graph on its inputs), by route. Each kernel
+     beside its plain version, one PyTorch library call computing the same
+     function (``F.conv2d`` on the dense bf16 weight, channels_last, with
+     bias, for a conv; ``torch.addmm`` with the dense weight for an SpMM;
+     the port never calls either), and sconv_gc beside sconv_fused on the
+     same layer, each arm timed eager (20 calls between CUDA events, host
+     dispatch included) and as a CUDA graph of 20 calls (device time).
+     Each line also gives the case's bound: the larger of its bytes over
+     the card's memory rate and its FLOPs over the bf16 tensor-core rate
+     (``BOUND_RATES``). The bytes count, once each, the columns of x (or
+     of an SpMM's A) that some live weight block reads, the live weight
+     blocks, the output and the residual; the FLOPs count the live
+     blocks. Also the host time of one entry call of each direct conv.
+Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
+``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
+``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs. As
+the last line {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 device and nvcc; exits 1 without them.
@@ -58,6 +76,9 @@ N_INPUTS = 4
 TIMED_ITERS = 20
 PARITY_REL, PARITY_ABS = 1e-2, 1e-2
 LOGITS_REL_L2 = 5e-2
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16
+# tensor-core FLOP/s, at the full 700 W power limit
+BOUND_RATES = {"bytes": 3.35e12, "operations": 989e12}
 KERNELS = {  # name -> the TPU kernel it replaces
     "sconv_fused": "caffe_escoin_tpu/kernels/sconv_fused.py:263",
     "bsc_spmm": "caffe_escoin_tpu/kernels/bsc_pallas.py:125",
@@ -100,6 +121,66 @@ def _time_ms(fn, args, iters=TIMED_ITERS):
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, args, iters=TIMED_ITERS):
+    """Mean device ms per call: ``iters`` calls cycling ``args`` captured in
+    one CUDA graph, replayed between CUDA events after warm-up. The host's
+    dispatch drops out, so a short kernel is timed, not the Python that
+    launches it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in args:
+            fn(a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(args[i % len(args)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def _layer_split(layers, fwd, x):
+    """Device ms of each layer of one sparse forward on ``x``: every layer
+    replayed alone as a CUDA graph (``_graph_ms``) on the inputs it got in
+    that forward (recorded by module hooks)."""
+    import torch
+
+    calls, hooks = [], []
+    for layer in layers:
+        hooks.append(layer.register_forward_pre_hook(
+            lambda mod, args: calls.append((mod, args))))
+    try:
+        fwd(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.inference_mode():
+        return {mod.spec.name: _graph_ms(lambda a, mod=mod: mod(*a), [args],
+                                         iters=5)
+                for mod, args in calls}
+
+
+def _bound(nbytes, flops):
+    """(ms, what sets it): the least time the card could take for work
+    that moves ``nbytes`` and does ``flops`` bf16 tensor-core operations."""
+    ms = {k: v / BOUND_RATES[k] * 1e3
+          for k, v in (("bytes", nbytes), ("operations", flops))}
+    by = max(ms, key=ms.get)
+    return ms[by], by
+
+
 def _prune(net, params, keep_norm=False):
     """bench.py's pruning: conv and fc weights at SPARSITY in BLOCK blocks.
     The stem (3 input channels) stays dense. ``keep_norm`` scales each
@@ -133,6 +214,7 @@ def _prune(net, params, keep_norm=False):
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -174,21 +256,37 @@ def main() -> int:
           f"({'nvcc ' + format(built, '.1f') + ' s' if built else 'cached'}, "
           f"{_build.library_path().name}) {tag}")
     if _build.ptxas_log:
-        log = _build.ptxas_log
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", log)]
-        spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
-        print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-              f"registers, {min(smem)}-{max(smem)} B shared, {spill} B "
-              f"spilled {tag}")
+        # one summary per kernel template: the entries of nvcc's -Xptxas -v
+        # report, grouped by the template's name
+        fams = collections.defaultdict(lambda: dict(n=0, regs=[], smem=[],
+                                                    spill=0))
+        for entry in re.split(r"Compiling entry function", _build.ptxas_log
+                              )[1:]:
+            fam = fams[next((k for k in ("sconv_pipe_kernel",
+                                         "bsc_tile_kernel") if k in entry),
+                            "other")]
+            fam["n"] += 1
+            fam["regs"] += [int(r) for r in
+                            re.findall(r"Used (\d+) registers", entry)]
+            fam["smem"] += [int(b) for b in
+                            re.findall(r"(\d+) bytes smem", entry)] or [0]
+            fam["spill"] += sum(int(b) for b in
+                                re.findall(r"(\d+) bytes spill", entry))
+        print("ptxas: " + "; ".join(
+            f"{k} {f['n']} instances, {min(f['regs'])}-{max(f['regs'])} "
+            f"registers, {min(f['smem'])}-{max(f['smem'])} B static shared, "
+            f"{f['spill']} B spilled" for k, f in fams.items()) + f" {tag}")
 
     # ---- 3. kernel parity at main-path shapes -----------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng_np = np.random.default_rng(SEED)
     pol_block = ExecutionPolicy(block_shape=BLOCK)
-    results = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, launches=0)
+    results = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                       graph_ms=0.0, graph_plain_ms=0.0,
+                       graph_library_ms=0.0, bound_ms=0.0, launches=0,
+                       bound={"bytes": 0.0, "operations": 0.0})
                for k in KERNELS}
-    timed = []  # (kernel, label, {arm: fn}, args)
+    timed = []  # (kernel, label, {arm: fn}, args, bytes, flops)
 
     def check(kernel, label, out, ref):
         err = (out.float() - ref.float()).abs().max().item()
@@ -217,6 +315,44 @@ def main() -> int:
                            ).bfloat16() if with_res else None)
         return al, xs, res
 
+    def live_bytes(bsc):
+        bk, bn = bsc.block_shape
+        return bsc.nnz_blocks * bk * bn * 2
+
+    def live_cols(bsc, n_kb, width):
+        """Columns of the activation (x's channels, or A's K columns) that
+        some live block reads: the K-block rows with a live block in any
+        block-column, taken mod the ``n_kb`` K-blocks one row of the
+        activation spans (a 3x3 conv's nine offsets share x's channels),
+        each clipped to ``width``."""
+        bk = bsc.block_shape[0]
+        rows, nnz = bsc.block_row.cpu(), bsc.bcol_nnz.cpu()
+        live = torch.arange(rows.shape[1])[None, :] < nnz[:, None]
+        blocks = {int(r) % n_kb for r in rows[live].tolist()}
+        return sum(max(0, min(bk, width - b * bk)) for b in blocks)
+
+    def conv_work(al, x, with_res):
+        """(bytes, FLOPs) of a stride-1 same-size conv (every timed conv
+        keeps its spatial size): the channels of x that a live block reads,
+        the live blocks, out and the residual once each; two FLOPs per
+        multiply-add of the live blocks."""
+        bk, bn = al.bsc.block_shape
+        m = x.shape[0] * x.shape[1] * x.shape[2]
+        x_cols = live_cols(al.bsc, al.cin_pad // bk, al.cin)
+        out = m * al.cout * 2
+        return (m * x_cols * 2 + live_bytes(al.bsc)
+                + out * (2 if with_res else 1),
+                2 * m * al.bsc.nnz_blocks * bk * bn)
+
+    def conv_library(al, pad):
+        """cuDNN on the dense bf16 weight, channels_last, with bias: one
+        library call for the conv (no residual or ReLU)."""
+        w = al.dense.to(dev, torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b = al.bias.to(dev, torch.bfloat16)
+        return lambda x: F.conv2d(x.permute(0, 3, 1, 2), w, b,
+                                  padding=(pad, pad))
+
     sconv_shapes = [  # (label, batch, h, cin, cout, k, pad, relu, residual)
         ("b32 56x56 64->64 3x3", 32, 56, 64, 64, 3, 1, False, False),
         ("b32 14x14 1024->256 1x1", 32, 14, 1024, 256, 1, 0, False, False),
@@ -241,16 +377,21 @@ def main() -> int:
                                            relu=relu, residual=res,
                                            mxu_dtype="bfloat16")
 
+        print(f"plan sconv_fused {label}: "
+              f"{sconv_fused.launch_plan(xs[0].shape, al, (pad, pad))} {tag}")
         out = kern(xs[0])
         torch.cuda.synchronize()
         check("sconv_fused", label, out, plain(xs[0]))
         timed.append(("sconv_fused", label,
-                      {"kernel": kern, "plain": plain}, xs))
+                      {"kernel": kern, "plain": plain,
+                       "library": conv_library(al, pad)}, xs,
+                      *conv_work(al, xs[0], with_res)))
 
     def spmm_case(label, m, bsc, relu):
         bias = torch.randn(bsc.shape[1], generator=gen, device=dev) * 0.1
         a_list = [torch.randn((m, bsc.shape[0]), generator=gen, device=dev
                               ).bfloat16() for _ in range(N_INPUTS)]
+        w_dense, bias_bf16 = bsc.to_dense().to(torch.bfloat16), bias.bfloat16()
 
         def kern(a):
             return bsc_spmm.bsc_spmm(a, bsc, bias=bias, relu=relu)
@@ -259,11 +400,19 @@ def main() -> int:
             return bsc_spmm.bsc_spmm_plain(a, bsc, bias=bias, relu=relu,
                                            mxu_dtype="bfloat16")
 
+        def library(a):
+            return torch.addmm(bias_bf16, a, w_dense)
+
         out = kern(a_list[0])
         torch.cuda.synchronize()
         check("bsc_spmm", label, out, plain(a_list[0]))
-        timed.append(("bsc_spmm", label, {"kernel": kern, "plain": plain},
-                      a_list))
+        bk, bn = bsc.block_shape
+        a_cols = live_cols(bsc, bsc.n_brows, bsc.shape[0])
+        timed.append(("bsc_spmm", label, {"kernel": kern, "plain": plain,
+                                          "library": library}, a_list,
+                      m * a_cols * 2 + live_bytes(bsc)
+                      + m * bsc.shape[1] * 2,
+                      2 * m * bsc.nnz_blocks * bk * bn))
 
     for label, m, k, n, relu in [  # the fc layers, 128x128 blocks
             ("fc1000 32x2048->1000", 32, 2048, 1000, False),
@@ -295,6 +444,10 @@ def main() -> int:
         def fused_kern(x, al=al):
             return sconv_fused.sconv(x, al, padding=(1, 1), relu=True)
 
+        for name, mod in (("sconv_gc", sconv_gc),
+                          ("sconv_fused", sconv_fused)):
+            print(f"plan {name} {label}: "
+                  f"{mod.launch_plan(xs[0].shape, al, (1, 1))} {tag}")
         out, out_fused = gc_kern(xs[0]), fused_kern(xs[0])
         torch.cuda.synchronize()
         ref = gc_plain(xs[0])
@@ -302,7 +455,9 @@ def main() -> int:
         check("sconv_fused", label, out_fused, ref)
         timed.append(("sconv_gc", label, {"kernel": gc_kern,
                                           "plain": gc_plain,
-                                          "sconv_fused": fused_kern}, xs))
+                                          "library": conv_library(al, 1),
+                                          "sconv_fused": fused_kern}, xs,
+                      *conv_work(al, xs[0], False)))
 
     # ---- 4. the nets ------------------------------------------------------
     pol_s = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
@@ -383,32 +538,83 @@ def main() -> int:
               f"{peak:.3e} {'ok' if ok else 'FAIL'} {tag}")
         if not ok:
             raise SystemExit(f"sparse {model} disagrees with dense f32")
-        e2e.append((model, batch, {"sparse": fwd_s, "dense-bf16": fwd_db,
-                                   "dense-f32": fwd_d},
+        e2e.append((model, batch, fnet.layers, routes,
+                    {"sparse": fwd_s, "dense-bf16": fwd_db,
+                     "dense-f32": fwd_d},
                     [{"data": x} for x in xs],
                     [{"data": x.bfloat16()} for x in xs]))
         del sparse_out
 
     # ---- 5. times ---------------------------------------------------------
-    for model, batch, arms, inputs, inputs_bf16 in e2e:
+    for model, batch, layers, routes, arms, inputs, inputs_bf16 in e2e:
         ms = {arm: _time_ms(fn, inputs_bf16 if arm == "dense-bf16"
                             else inputs) for arm, fn in arms.items()}
+        ms["sparse as a CUDA graph"] = _graph_ms(arms["sparse"], inputs,
+                                                 N_INPUTS)
         print(f"time {model} b{batch}: " + ", ".join(
             f"{arm} {t:.3f} ms" for arm, t in ms.items()) + f" {tag}")
+        per = _layer_split(layers, arms["sparse"], inputs[0])
+        by_route = collections.Counter()
+        for name, t in per.items():
+            by_route[routes.get(name, "other")] += t
+        top = sorted(per.items(), key=lambda kv: -kv[1])
+        print(f"layers {model} sparse, device ms per forward, each layer "
+              f"alone as a CUDA graph: sum {sum(per.values()):.3f}; by route "
+              + ", ".join(f"{r} {t:.3f}" for r, t in by_route.most_common())
+              + "; by layer " + ", ".join(
+                  f"{n} ({routes.get(n, '-')}) {t:.4f}" for n, t in top)
+              + f" {tag}")
+    # host time of one entry call of each kernel: a 1x8x8 input, so each
+    # launch's device work ends before the host has issued the next one
+    tiny = torch.randn((1, 8, 8, 64), generator=gen, device=dev).bfloat16()
+    probes = {
+        "sconv_fused": (lambda al: lambda: sconv_fused.sconv(
+            tiny, al, padding=(1, 1), relu=True))(conv_weight(64, 64, 3)),
+        "sconv_gc": (lambda al: lambda: sconv_gc.sconv(
+            tiny, al, padding=(1, 1), relu=True))(conv_weight(64, 128, 3)),
+    }
+    for name, fn in probes.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ROUTE_REPS):
+            fn()
+        host_us = (time.perf_counter() - t0) / ROUTE_REPS * 1e6
+        torch.cuda.synchronize()
+        print(f"host {name} entry: {host_us:.2f} us per call (1x8x8x64 "
+              f"input, mean of {ROUTE_REPS}, host clock) {tag}")
     with torch.inference_mode():
-        for kernel, label, arms, args in timed:
-            ms = {arm: _time_ms(fn, args) for arm, fn in arms.items()}
-            results[kernel]["ms"] += ms["kernel"]
-            results[kernel]["plain_ms"] += ms["plain"]
-            print(f"time {kernel} {label}: " + ", ".join(
-                f"{arm} {t:.4f} ms" for arm, t in ms.items()) + f" {tag}")
+        for kernel, label, arms, args, nbytes, flops in timed:
+            graph = {arm: _graph_ms(fn, args) for arm, fn in arms.items()}
+            eager = {arm: _time_ms(fn, args) for arm, fn in arms.items()}
+            bound_ms, bound_by = _bound(nbytes, flops)
+            r = results[kernel]
+            for arm in ("kernel", "plain", "library"):
+                key = "ms" if arm == "kernel" else f"{arm}_ms"
+                r[key] += eager[arm]
+                r["graph_" + key] += graph[arm]
+            r["bound_ms"] += bound_ms
+            # which limit sets the kernel's summed bound
+            for k, v in (("bytes", nbytes), ("operations", flops)):
+                r["bound"][k] += v / BOUND_RATES[k] * 1e3
+            print(f"time {kernel} {label}, as a CUDA graph (eager): "
+                  + ", ".join(f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms"
+                              for arm in arms)
+                  + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), kernel "
+                  f"graph at {bound_ms / graph['kernel']:.1%} of it, "
+                  f"{graph['kernel'] / graph['library']:.2f}x the library "
+                  f"{tag}")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"caffe_escoin_tpu_torch/csrc/{k}.cu",
          "replaces": replaces, "launches": results[k]["launches"],
-         "max_abs_err": results[k]["err"], "ms": results[k]["ms"],
-         "plain_ms": results[k]["plain_ms"]}
+         "max_abs_err": results[k]["err"],
+         **{key: results[k][key] for key in (
+             "ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
+             "graph_plain_ms", "graph_library_ms")},
+         "bound_by": max(results[k]["bound"], key=results[k]["bound"].get)}
         for k, replaces in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

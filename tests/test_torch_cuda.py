@@ -9,6 +9,14 @@ Tolerance: max |kernel - plain| <= 1e-2 * max|plain| + 1e-2 in bf16 (the
 output's bf16 rounding and another order of the f32 sums; the plain version
 rounds the operands to bf16 as the kernel does), 2e-3 relative for f32
 activations (operands are still multiplied in bf16 on both sides).
+
+The direct-conv cases cover the edges of the pipelined tile loop
+(csrc/sconv_pipe.cuh): an empty block-column (bias, residual and ReLU
+only), more live K steps than ring stages, the M tail, the Cout tail with
+bn = 32, 64 and 128, a Cout that is not a multiple of 8 (the epilogue's
+scalar stores), bk = 16 with a Cin tail, Cin and bk that are not multiples
+of 8 (the wrapper pads them), 128-row tiles, and sconv_gc over several
+images of odd width, whose epilogue writes the exact output.
 """
 
 import numpy as np
@@ -33,6 +41,21 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _weight(rng, k, cin, cout, sp, block, empty_bcol, dev):
+    """A pruned conv weight aligned to BSC on ``dev``; ``empty_bcol`` zeroes
+    its last block-column, so the BSC has a column with no live block."""
+    wt = prune_conv_weight(
+        rng.standard_normal((k, k, cin, cout)).astype(np.float32) * 0.05, sp,
+        (min(block[0], cin), block[1]))
+    if empty_bcol:
+        wt[..., (cout - 1) // block[1] * block[1]:] = 0
+    b = rng.standard_normal(cout).astype(np.float32)
+    al = weight_align(wt, b, policy=ExecutionPolicy(block_shape=block))
+    if empty_bcol:
+        assert int(al.bsc.bcol_nnz[-1]) == 0
+    return al.to(dev, torch.bfloat16)
+
+
 def _close(out, ref, dtype):
     out, ref = out.float(), ref.float()
     err = (out - ref).abs().max().item()
@@ -42,28 +65,40 @@ def _close(out, ref, dtype):
     assert err <= bound, (err, bound)
 
 
-# (n, h, w, cin, cout, k, pad, sparsity, relu, residual, block)
+# (n, h, w, cin, cout, k, pad, sparsity, relu, residual, block, empty_bcol)
 SCONV_SHAPES = {
     "3x3_c64_res_relu": (2, 14, 14, 64, 64, 3, 1, 0.85, True, True,
-                         (128, 128)),
+                         (128, 128), False),
     "1x1_c256_to_200_bn128": (2, 7, 7, 256, 200, 1, 0, 0.75, False, False,
-                              (128, 128)),
+                              (128, 128), False),
     "3x3_c40_pad_tail_b16": (1, 9, 11, 40, 24, 3, 1, 0.7, True, False,
-                             (16, 16)),
+                             (16, 16), False),
+    "1x1_c256_to_256_empty_bcol_res": (2, 9, 9, 256, 256, 1, 0, 0.25, True,
+                                       True, (128, 128), True),
+    "3x3_c256_steps_gt_stages_res": (2, 8, 8, 256, 256, 3, 1, 0.5, True,
+                                     True, (128, 128), False),
+    "1x1_c128_to_200_bn32": (2, 7, 7, 128, 200, 1, 0, 0.6, False, True,
+                             (128, 32), False),
+    "3x3_c64_to_200_bn64": (1, 10, 9, 64, 200, 3, 1, 0.7, True, False,
+                            (64, 64), False),
+    "3x3_c30_cin_tail": (2, 6, 7, 30, 40, 3, 1, 0.6, True, True,
+                         (128, 128), False),
+    "3x3_c30_bk12": (1, 7, 6, 30, 32, 3, 1, 0.8, True, False, (12, 16),
+                     False),
+    "3x3_c64_tile128_res": (4, 96, 96, 64, 64, 3, 1, 0.85, True, True,
+                            (128, 128), False),
+    "3x3_c64_to_36_scalar_epilogue_res": (2, 6, 5, 64, 36, 3, 1, 0.7, True,
+                                          True, (128, 128), False),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", list(SCONV_SHAPES))
 def test_sconv_kernel_matches_plain(dev, name, dtype):
-    n, h, w, cin, cout, k, pad, sp, relu, with_res, block = SCONV_SHAPES[name]
+    n, h, w, cin, cout, k, pad, sp, relu, with_res, block, empty = \
+        SCONV_SHAPES[name]
     rng = np.random.default_rng(0)
-    wt = prune_conv_weight(
-        rng.standard_normal((k, k, cin, cout)).astype(np.float32) * 0.05, sp,
-        (min(block[0], cin), block[1]))
-    b = rng.standard_normal(cout).astype(np.float32)
-    al = weight_align(wt, b, policy=ExecutionPolicy(block_shape=block)).to(
-        dev, torch.bfloat16)
+    al = _weight(rng, k, cin, cout, sp, block, empty, dev)
     x = torch.from_numpy(rng.standard_normal((n, h, w, cin)).astype(
         np.float32)).to(dev, dtype)
     res = torch.randn((n, h, w, cout), device=dev).to(dtype) \
@@ -78,27 +113,38 @@ def test_sconv_kernel_matches_plain(dev, name, dtype):
     _close(out, ref, dtype)
 
 
-# (n, h, w, cin, cout, k, pad, sparsity, relu, block)
+# (n, h, w, cin, cout, k, pad, sparsity, relu, block, empty_bcol)
 GC_SHAPES = {
-    "3x3_c128_relu_odd_w": (2, 12, 9, 128, 128, 3, 1, 0.85, True, (128, 128)),
-    "1x1_c256_to_200": (2, 7, 7, 256, 200, 1, 0, 0.75, False, (128, 128)),
-    "3x3_c40_pad_tail_b16": (1, 9, 11, 40, 24, 3, 1, 0.7, True, (16, 16)),
+    "3x3_c128_relu_odd_w": (2, 12, 9, 128, 128, 3, 1, 0.85, True, (128, 128),
+                            False),
+    "1x1_c256_to_200": (2, 7, 7, 256, 200, 1, 0, 0.75, False, (128, 128),
+                        False),
+    "3x3_c40_pad_tail_b16": (1, 9, 11, 40, 24, 3, 1, 0.7, True, (16, 16),
+                             False),
     "5x5_c64_tiles_straddle_images": (3, 20, 17, 64, 64, 5, 2, 0.8, False,
-                                      (128, 128)),
+                                      (128, 128), False),
+    "3x3_c128_five_images_odd_w": (5, 10, 13, 128, 128, 3, 1, 0.8, True,
+                                   (128, 128), False),
+    "3x3_c128_to_256_empty_bcol": (2, 9, 7, 128, 256, 3, 1, 0.6, True,
+                                   (128, 128), True),
+    "3x3_c256_steps_gt_stages": (2, 8, 9, 256, 256, 3, 1, 0.5, True,
+                                 (128, 128), False),
+    "1x1_c128_to_200_bn32": (3, 7, 5, 128, 200, 1, 0, 0.6, False, (128, 32),
+                             False),
+    "3x3_c30_bk12": (2, 7, 9, 30, 32, 3, 1, 0.8, True, (12, 16), False),
+    "3x3_c64_tile128": (4, 96, 96, 64, 64, 3, 1, 0.85, True, (128, 128),
+                        False),
+    "3x3_c64_to_36_scalar_epilogue": (2, 6, 5, 64, 36, 3, 1, 0.7, True,
+                                      (128, 128), False),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", list(GC_SHAPES))
 def test_sconv_gc_kernel_matches_plain(dev, name, dtype):
-    n, h, w, cin, cout, k, pad, sp, relu, block = GC_SHAPES[name]
+    n, h, w, cin, cout, k, pad, sp, relu, block, empty = GC_SHAPES[name]
     rng = np.random.default_rng(2)
-    wt = prune_conv_weight(
-        rng.standard_normal((k, k, cin, cout)).astype(np.float32) * 0.05, sp,
-        (min(block[0], cin), block[1]))
-    b = rng.standard_normal(cout).astype(np.float32)
-    al = weight_align(wt, b, policy=ExecutionPolicy(block_shape=block)).to(
-        dev, torch.bfloat16)
+    al = _weight(rng, k, cin, cout, sp, block, empty, dev)
     x = torch.from_numpy(rng.standard_normal((n, h, w, cin)).astype(
         np.float32)).to(dev, dtype)
     launches = sconv_gc.launches
