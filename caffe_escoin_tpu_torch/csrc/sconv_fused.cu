@@ -19,7 +19,7 @@
 // has 0-4 live K-blocks, too few steps for one block to hide a load behind
 // the previous step's multiply. The 1x1 expand layers with a residual move
 // as many bytes in the epilogue (residual in, output out) as in the loop.
-// The first port (bsc_tile.cuh) lost most of its time to exactly these:
+// The first port's tile loop lost most of its time to exactly these:
 // synchronous 32-deep chunks, and an epilogue of 2-byte scalar stores and
 // residual reads that ran ResNet-50's res2 expand layers at ~400 GB/s
 // (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).

@@ -1,5 +1,6 @@
-// The pipelined tile loop and epilogue of the two direct sparse convolutions
-// (sconv_fused.cu, sconv_gc.cu), for an H100 (sm_90a).
+// The pipelined tile loop and epilogue of the three block-sparse kernels,
+// the two direct convolutions (sconv_fused.cu, sconv_gc.cu) and the SpMM
+// (bsc_spmm.cu), for an H100 (sm_90a).
 //
 // One block computes one output tile of tile_m rows (64 or 128) and one
 // weight block-column j: the sum over the column's live K-blocks of
@@ -9,10 +10,13 @@
 //
 // What bounds these layers: at 90% block sparsity they do 32-126 FLOP per
 // byte, below the ~295 at which an H100's bf16 tensor cores become the
-// limit, so memory traffic and latency bound them. A column has only 0-4
-// live K-blocks, so the loop is short and each load's latency shows unless
-// the next ones are already in flight, and the epilogue moves as many bytes
-// as the loop (output and residual).
+// limit, so memory traffic and latency bound them. A conv's column has only
+// 0-4 live K-blocks, so the loop is short and each load's latency shows
+// unless the next ones are already in flight, and the epilogue moves as many
+// bytes as the loop (output and residual). An fc layer at batch 16-32 is
+// the other way round: one M-tile, few block-columns, and up to ~30 live
+// K-blocks in a column, so (M-tile x block-column) blocks leave most SMs
+// idle, each on a long serial chain.
 //
 // What the design does about it:
 // * Grid: one dimension, block-column fastest (blockIdx.x = m_tile *
@@ -45,6 +49,15 @@
 //   ReLU, one cast, one 16-byte store. A warp writes whole 128-256 byte row
 //   segments. The Rows policy maps tile rows to output rows, so sconv_gc's
 //   garbage columns are skipped here and its output is exact.
+// * Split K, for the few-block launches of the fc layers (a separate kernel
+//   instance, kSplit, so the direct convs' instances are untouched): block
+//   (M-tile, share s, j) walks only slots [s*share, (s+1)*share) of column
+//   j's live K-blocks, and a share past the column's end exits at once. Each
+//   share writes its f32 partial tile (valid rows) to a global workspace,
+//   fences, and bumps a per-(M-tile, j) counter; the last share to arrive
+//   sums the partials in share order (deterministic; read through L2), runs
+//   the one epilogue above (bias, ReLU, one cast, 16-byte stores) and resets
+//   the counter to 0, so the counters stay zero between launches.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -177,11 +190,21 @@ struct Args {
   int n_out, bk, bn, n_bcols, max_bw, relu, stages;
 };
 
+// What a split-K launch passes besides (read by the kSplit instances only).
+struct Split {
+  float* ws;           // [split, rows, n_bcols * bn] f32 partial tiles
+  int* counters;       // [m_tiles * n_bcols], all zero between launches
+  long long rows;      // output rows: the workspace's second dimension
+  int split, share;    // shares per column, live slots per share
+  int n_counters;      // length of `counters`
+};
+
 // T: residual/output dtype. Rows: tile(mt, bm) / row(r) / block(kblk) /
-// at(row, block, kk) / out_row(r) (see sconv_fused.cu, sconv_gc.cu).
-template <typename T, int BM, int BN_T, class Rows>
+// at(row, block, kk) / out_row(r) (see sconv_fused.cu, sconv_gc.cu,
+// bsc_spmm.cu). kSplit: the split-K instance (Split above).
+template <typename T, int BM, int BN_T, class Rows, bool kSplit>
 __global__ void __launch_bounds__(2 * BM, 256 / BM)
-sconv_pipe_kernel(Rows rows, Args a) {
+sconv_pipe_kernel(Rows rows, Args a, Split sp) {
   constexpr int kThreads = 2 * BM;
   constexpr int kWN = BN_T / 2;       // warp tile width
   constexpr int kNF = kWN / 8;        // n8 fragments per warp (even)
@@ -202,11 +225,33 @@ sconv_pipe_kernel(Rows rows, Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int warp_m = warp >> 1, warp_n = warp & 1;
   const int j = blockIdx.x % a.n_bcols;
-  rows.tile(blockIdx.x / a.n_bcols, BM);
+  int tile_id = blockIdx.x / a.n_bcols;  // M-tile (times split, if kSplit)
+  int first = 0;  // first live slot of column j that this block walks
+  int col_nnz = 0, kblk0 = 0;
+  float bias_v = 0.f;
+  if constexpr (kSplit) {
+    // these few-block launches are latency-bound: the column's count, the
+    // share's first K-block (slot `first` < max_bw always exists) and the
+    // bias all go out at once, before anything waits on one of them
+    static_assert(BN_T <= kThreads, "one bias value per thread");
+    const int s = tile_id % sp.split;
+    tile_id /= sp.split;
+    first = s * sp.share;
+    col_nnz = __ldg(a.bcol_nnz + j);
+    kblk0 = __ldg(a.block_row + (size_t)j * a.max_bw + first);
+    const int col = j * a.bn + tid;
+    if (a.bias && tid < a.bn && col < a.n_out) bias_v = __ldg(a.bias + col);
+    // a share past the column's live slots has nothing to add; share 0
+    // always runs, so an empty column still gets its epilogue
+    if (s > 0 && first >= col_nnz) return;
+  }
+  rows.tile(tile_id, BM);
 
-  for (int c = tid; c < BN_T; c += kThreads) {
-    const int col = j * a.bn + c;
-    s_bias[c] = (a.bias && c < a.bn && col < a.n_out) ? a.bias[col] : 0.f;
+  if constexpr (!kSplit) {
+    for (int c = tid; c < BN_T; c += kThreads) {
+      const int col = j * a.bn + c;
+      s_bias[c] = (a.bias && c < a.bn && col < a.n_out) ? a.bias[col] : 0.f;
+    }
   }
 
   // copy roles: this thread copies 16-byte column chunk q of A rows
@@ -217,17 +262,25 @@ sconv_pipe_kernel(Rows rows, Args a) {
   for (int i = 0; i < kRowsPerThread; ++i)
     arow[i] = rows.row(tid / 8 + i * (kThreads / 8));
 
-  const int nnz = a.bcol_nnz[j];
+  int nnz;
+  if constexpr (kSplit)
+    nnz = min(sp.share, col_nnz - first);
+  else
+    nnz = a.bcol_nnz[j];
   const int cpb = (a.bk + kChunk - 1) / kChunk;  // steps per K-block
   const int nsteps = nnz * cpb;
-  const int* brow = a.block_row + (size_t)j * a.max_bw;
-  const __nv_bfloat16* wcol = a.blocks + (size_t)j * a.max_bw * a.bk * a.bn;
+  const int* brow = a.block_row + (size_t)j * a.max_bw + first;
+  const __nv_bfloat16* wcol =
+      a.blocks + ((size_t)j * a.max_bw + first) * a.bk * a.bn;
 
   // the copy side walks the steps in order: K-block ld_s, chunk ld_kc, into
   // ring stage ld_st; a K-block is decoded once, not once per chunk
   int ld_s = 0, ld_kc = 0, ld_st = 0;
   typename Rows::Blk ld_blk{};
-  if (nnz > 0) ld_blk = rows.block(__ldg(brow));
+  if constexpr (kSplit)
+    ld_blk = rows.block(kblk0);
+  else if (nnz > 0)
+    ld_blk = rows.block(__ldg(brow));
   auto load_next = [&]() {
     __nv_bfloat16* sa = ring + ld_st * kStage;
     __nv_bfloat16* sb = sa + kStageA;
@@ -321,6 +374,61 @@ sconv_pipe_kernel(Rows rows, Args a) {
     }
   __syncthreads();
 
+  if constexpr (kSplit) {
+    if (tid < BN_T) s_bias[tid] = bias_v;
+    const int parts = col_nnz > sp.share ? (col_nnz + sp.share - 1) / sp.share
+                                         : 1;
+    if (parts > 1) {
+      // the partial tile of this share: rows out_row(r), the block's bn
+      // columns, 8 floats (32 bytes) per group
+      const int ldw = a.n_bcols * a.bn;
+      const size_t part = (size_t)sp.rows * ldw;
+      float* wsj = sp.ws + (size_t)j * a.bn;
+      for (int g = tid; g < BM * kG; g += kThreads) {
+        const int r = g / kG, lc = (g - r * kG) * 8;
+        const long long m = rows.out_row(r);
+        if (m < 0 || lc >= a.bn) continue;
+        const float4* src = reinterpret_cast<const float4*>(sc + r * kCLd + lc);
+        float4* dst = reinterpret_cast<float4*>(
+            wsj + (first / sp.share) * part + (size_t)m * ldw + lc);
+        __stcg(dst, src[0]);
+        __stcg(dst + 1, src[1]);
+      }
+      __threadfence();
+      __syncthreads();
+      __shared__ int s_last;
+      if (tid == 0) {
+        __threadfence();
+        int* cnt = sp.counters + tile_id * a.n_bcols + j;
+        s_last = atomicAdd(cnt, 1) == parts - 1;
+        if (s_last) *cnt = 0;  // every share has arrived: ready for the next
+      }
+      __syncthreads();
+      if (!s_last) return;
+      __threadfence();
+      // the last share: the sum of the parts in share order, into the f32
+      // tile the epilogue reads
+      for (int g = tid; g < BM * kG; g += kThreads) {
+        const int r = g / kG, lc = (g - r * kG) * 8;
+        const long long m = rows.out_row(r);
+        if (m < 0 || lc >= a.bn) continue;
+        const float* p = wsj + (size_t)m * ldw + lc;
+        float4 lo = __ldcg(reinterpret_cast<const float4*>(p));
+        float4 hi = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+        for (int t = 1; t < parts; ++t) {
+          p += part;
+          const float4 l = __ldcg(reinterpret_cast<const float4*>(p));
+          const float4 h = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+          lo.x += l.x; lo.y += l.y; lo.z += l.z; lo.w += l.w;
+          hi.x += h.x; hi.y += h.y; hi.z += h.z; hi.w += h.w;
+        }
+        *reinterpret_cast<float4*>(sc + r * kCLd + lc) = lo;
+        *reinterpret_cast<float4*>(sc + r * kCLd + lc + 4) = hi;
+      }
+    }
+    __syncthreads();  // the bias; each thread reads back only its own sums
+  }
+
   // each thread takes groups g = tid + i*kThreads, 8 channels of one tile
   // row each; all its residual reads go out before any store, so their
   // latencies overlap instead of adding up
@@ -380,10 +488,10 @@ sconv_pipe_kernel(Rows rows, Args a) {
   }
 }
 
-template <typename T, int BM, int BN_T, class Rows>
-cudaError_t launch_one(const Rows& rows, const Args& a, int m_tiles, int smem,
-                       cudaStream_t st) {
-  auto* kern = sconv_pipe_kernel<T, BM, BN_T, Rows>;
+template <typename T, int BM, int BN_T, bool kSplit, class Rows>
+cudaError_t launch_one(const Rows& rows, const Args& a, const Split& sp,
+                       int m_tiles, int smem, cudaStream_t st) {
+  auto* kern = sconv_pipe_kernel<T, BM, BN_T, Rows, kSplit>;
   // dynamic shared bytes this instance may use, per device: the attribute
   // is set on the current device only
   constexpr int kMaxDevices = 64;
@@ -398,33 +506,68 @@ cudaError_t launch_one(const Rows& rows, const Args& a, int m_tiles, int smem,
     if (e != cudaSuccess) return e;
     opted[dev] = smem;
   }
-  kern<<<dim3((unsigned)m_tiles * a.n_bcols), 2 * BM, smem, st>>>(rows, a);
+  const long long split = kSplit ? sp.split : 1;
+  kern<<<dim3((unsigned)(m_tiles * a.n_bcols * split)), 2 * BM, smem, st>>>(
+      rows, a, sp);
   return cudaGetLastError();
 }
 
 // The launch plan (tile_m, stages, chunk, smem) comes from the wrapper
 // (kernels/sconv_pipe.py); it is checked here against what the compiled
 // kernel needs, and a plan it does not match is refused.
+inline bool plan_ok(const Args& a, int m_tiles, int tile_m, int chunk,
+                    int smem) {
+  return a.bn > 0 && a.bn <= 128 && a.bn % 8 == 0 && a.bk > 0 &&
+         a.bk % 8 == 0 && m_tiles > 0 && a.n_bcols > 0 && a.max_bw > 0 &&
+         (tile_m == 64 || tile_m == 128) && a.stages >= 2 &&
+         a.stages <= kMaxStages && chunk == kChunk &&
+         (long long)m_tiles * a.n_bcols <= 0x7fffffffLL &&
+         smem == smem_bytes(tile_m, bn_tile(a.bn), a.stages);
+}
+
 template <typename T, class Rows>
 cudaError_t launch_sconv_pipe(const Rows& rows, const Args& a, int m_tiles,
                               int tile_m, int chunk, int smem, void* stream) {
-  if (a.bn <= 0 || a.bn > 128 || a.bn % 8 != 0 || a.bk <= 0 ||
-      a.bk % 8 != 0 || m_tiles <= 0 || a.n_bcols <= 0 || a.max_bw <= 0 ||
-      (tile_m != 64 && tile_m != 128) || a.stages < 2 ||
-      a.stages > kMaxStages || chunk != kChunk ||
-      (long long)m_tiles * a.n_bcols > 0x7fffffffLL ||
-      smem != smem_bytes(tile_m, bn_tile(a.bn), a.stages))
+  if (!plan_ok(a, m_tiles, tile_m, chunk, smem)) return cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const Split sp{};
+  const int bn_t = bn_tile(a.bn);
+  if (tile_m == 128) {
+    if (bn_t == 32)
+      return launch_one<T, 128, 32, false>(rows, a, sp, m_tiles, smem, st);
+    if (bn_t == 64)
+      return launch_one<T, 128, 64, false>(rows, a, sp, m_tiles, smem, st);
+    return launch_one<T, 128, 128, false>(rows, a, sp, m_tiles, smem, st);
+  }
+  if (bn_t == 32)
+    return launch_one<T, 64, 32, false>(rows, a, sp, m_tiles, smem, st);
+  if (bn_t == 64)
+    return launch_one<T, 64, 64, false>(rows, a, sp, m_tiles, smem, st);
+  return launch_one<T, 64, 128, false>(rows, a, sp, m_tiles, smem, st);
+}
+
+// A split-K launch: 64-row tiles only (the plan splits only launches with
+// too few M-tiles to fill the card), shares that cover every column's live
+// slots with none wholly past max_bw, and a counter per (M-tile, column).
+template <typename T, class Rows>
+cudaError_t launch_sconv_pipe_split(const Rows& rows, const Args& a,
+                                    const Split& sp, int m_tiles, int tile_m,
+                                    int chunk, int smem, void* stream) {
+  if (!plan_ok(a, m_tiles, tile_m, chunk, smem) || tile_m != 64 ||
+      sp.split < 2 || sp.share < 1 ||
+      (long long)sp.split * sp.share < a.max_bw ||
+      (long long)(sp.split - 1) * sp.share >= a.max_bw || !sp.ws ||
+      !sp.counters || sp.rows <= 0 ||
+      (long long)m_tiles * a.n_bcols > sp.n_counters ||
+      (long long)m_tiles * a.n_bcols * sp.split > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int bn_t = bn_tile(a.bn);
-  if (tile_m == 128) {
-    if (bn_t == 32) return launch_one<T, 128, 32>(rows, a, m_tiles, smem, st);
-    if (bn_t == 64) return launch_one<T, 128, 64>(rows, a, m_tiles, smem, st);
-    return launch_one<T, 128, 128>(rows, a, m_tiles, smem, st);
-  }
-  if (bn_t == 32) return launch_one<T, 64, 32>(rows, a, m_tiles, smem, st);
-  if (bn_t == 64) return launch_one<T, 64, 64>(rows, a, m_tiles, smem, st);
-  return launch_one<T, 64, 128>(rows, a, m_tiles, smem, st);
+  if (bn_t == 32)
+    return launch_one<T, 64, 32, true>(rows, a, sp, m_tiles, smem, st);
+  if (bn_t == 64)
+    return launch_one<T, 64, 64, true>(rows, a, sp, m_tiles, smem, st);
+  return launch_one<T, 64, 128, true>(rows, a, sp, m_tiles, smem, st);
 }
 
 }  // namespace pipe

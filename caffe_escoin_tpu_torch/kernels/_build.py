@@ -30,15 +30,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P = ctypes.c_void_p
 _IP = ctypes.POINTER(ctypes.c_int)
 # argtypes of each C entry point: pointers and the stream as c_void_p; the
-# direct convs take their integer arguments as one int array (``c_ints``),
-# built once per layer shape, since ctypes converts each argument anew on
-# every call
+# integer arguments come as one int array (``c_ints``), built once per layer
+# shape, since ctypes converts each argument anew on every call
 SIGNATURES = {
     "cet_sconv_fused": [_P] * 7 + [_IP, _P],
-    "cet_bsc_spmm": [_P] * 6 + [_I] * 10 + [_P],
+    "cet_bsc_spmm": [_P] * 8 + [_IP, _P],
     "cet_sconv_gc": [_P] * 6 + [_IP, _P],
 }
 

@@ -5,6 +5,15 @@ Port of the Pallas kernel ``caffe_escoin_tpu/kernels/bsc_pallas.py``
 ReLU in its epilogue. Its plain version ``bsc_spmm_plain`` is the gather
 over block slots of ``caffe_escoin_tpu/kernels/spmm.py:82-107``.
 
+The kernel is the pipelined tile loop of ``csrc/sconv_pipe.cuh``. It copies
+A with ``cp.async``, which does not convert: ``bsc_spmm`` hands it A in bf16
+with K and bk multiples of 8 (``kernel_operands``). ``launch_plan`` is its
+tile size, split of K, ring depth and shared memory for a shape
+(``sconv_pipe.spmm_plan``). A split launch sums its shares through an f32
+workspace and a per-device counter buffer (``_counters``) that the kernel
+leaves at zero; two launches running at once on two streams of one device
+must therefore not both split.
+
 ``bsc_spmm`` runs the kernel for a CUDA tensor and the plain version for a
 CPU tensor. ``calls`` counts entry calls on any device; ``launches`` counts
 kernel launches only.
@@ -12,19 +21,24 @@ kernel launches only.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.engine.context import resolve_mxu_dtype
-from caffe_escoin_tpu_torch.kernels import _build
+from caffe_escoin_tpu_torch.kernels import _build, sconv_pipe
 from caffe_escoin_tpu_torch.sparse.formats import BSC
 
 calls = 0
 launches = 0
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
+# counters of one device: one per (M-tile, block-column) of a split launch,
+# which the plan makes only below one block per SM
+N_COUNTERS = 1024
+_counters = {}  # device index -> int32 [N_COUNTERS], zero between launches
 
 
 def reset_counts() -> None:
@@ -69,11 +83,76 @@ def bsc_spmm_plain(amat: torch.Tensor, bsc: BSC, *,
     return _epilogue_f32(out, bias, relu, amat.dtype)
 
 
+def kernel_operands(amat: torch.Tensor, bsc: BSC) -> Tuple[torch.Tensor,
+                                                          torch.Tensor, int]:
+    """(A, weight blocks, bk) as the kernel copies them: 16 bytes at a time
+    with ``cp.async``, which does not convert. So A is bf16 (an f32 A is
+    rounded to nearest-even here, as the MMA rounds it; the output keeps
+    A's dtype), its rows hold a multiple of 8 columns (zero columns
+    appended; they meet zero weight rows), and a K-block is a multiple of 8
+    deep: where bk is not, each K-block of A and each weight block is
+    zero-padded to the next multiple of 8. On the main path (bf16 A, K and
+    bk multiples of 8) nothing is copied."""
+    bk = bsc.block_shape[0]
+    blocks = bsc.blocks
+    # the dtype tests spare the main path the cost of a no-op .to()
+    if amat.dtype != torch.bfloat16:
+        amat = amat.to(torch.bfloat16)
+    if blocks.dtype != torch.bfloat16:
+        blocks = blocks.to(torch.bfloat16)
+    k = amat.shape[-1]
+    if bk % 8 == 0:
+        if k % 8:
+            amat = F.pad(amat, (0, -k % 8))
+        return (amat if amat.is_contiguous() else amat.contiguous()), \
+            blocks, bk
+    bk8 = bk + -bk % 8
+    a = F.pad(amat, (0, bsc.n_brows * bk - k)).unflatten(-1, (bsc.n_brows, bk))
+    return (F.pad(a, (0, bk8 - bk)).flatten(-2).contiguous(),
+            F.pad(blocks, (0, 0, 0, bk8 - bk)).contiguous(), bk8)
+
+
+def launch_plan(m: int, bsc: BSC) -> sconv_pipe.LaunchPlan:
+    """The kernel's launch plan for an A of ``m`` rows against ``bsc``, with
+    K-blocks as deep as ``kernel_operands`` hands them over."""
+    bk, bn = bsc.block_shape
+    return sconv_pipe.spmm_plan(m, (bk + -bk % 8, bn), bsc.n_bcols,
+                                bsc.max_bw)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch(m, k, n, bk, bn, n_bcols, max_bw, relu, bf16_io):
+    """(plan, the kernel's integer arguments in the order ``cet_bsc_spmm``
+    reads them) for an A of ``m`` x ``k`` in K-blocks ``bk`` deep, as
+    ``kernel_operands`` hands them over; built once per shape, since eager
+    dispatch asks again on every forward."""
+    p = sconv_pipe.spmm_plan(m, (bk, bn), n_bcols, max_bw)
+    return p, _build.c_ints(m, k, n, bk, bn, n_bcols, max_bw, relu, bf16_io,
+                            p.tile_m, p.stages, p.chunk, p.smem, p.split,
+                            p.share, N_COUNTERS)
+
+
+def _counter_buffer(dev: torch.device) -> torch.Tensor:
+    """The split launches' counters on ``dev``, zeroed once and kept: the
+    kernel resets each counter it uses, so eager calls and CUDA-graph
+    replays find them at zero."""
+    buf = _counters.get(dev.index)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bsc_spmm: call it once outside CUDA-graph "
+                               "capture first (its counters are made then)")
+        buf = _counters[dev.index] = torch.zeros(N_COUNTERS, dtype=torch.int32,
+                                                 device=dev)
+    return buf
+
+
 def bsc_spmm(amat: torch.Tensor, bsc: BSC, *,
              bias: Optional[torch.Tensor] = None, relu: bool = False,
              mxu_dtype: str = "auto") -> torch.Tensor:
     """amat [M, K] (f32 or bf16) @ bsc [K, N] (+ bias[N], ReLU) -> [M, N]
-    in amat's dtype, accumulated in f32."""
+    in amat's dtype, accumulated in f32. On CUDA, a launch the plan splits
+    uses the device's counter buffer: do not run two such launches at once
+    on two streams of one device."""
     global calls, launches
     calls += 1
     mxu = resolve_mxu_dtype(mxu_dtype, amat.device)
@@ -84,7 +163,7 @@ def bsc_spmm(amat: torch.Tensor, bsc: BSC, *,
     if mxu != "bfloat16":
         raise NotImplementedError(
             "bsc_spmm on CUDA multiplies in bf16 only (mxu_dtype='bfloat16')")
-    bk, bn = bsc.block_shape
+    bn = bsc.block_shape[1]
     m, k = amat.shape
     n = bsc.shape[1]
     if k != bsc.shape[0]:
@@ -92,24 +171,35 @@ def bsc_spmm(amat: torch.Tensor, bsc: BSC, *,
     if bn % 8 or bn > 128:
         raise ValueError(f"bsc_spmm kernel needs bn % 8 == 0 and bn <= 128, "
                          f"got bn={bn}")
+    if amat.dtype not in _IO_DTYPES:
+        raise TypeError(f"amat has dtype {amat.dtype}, expected one of "
+                        f"{_IO_DTYPES}")
     dev = amat.device
-    blocks = bsc.blocks.to(torch.bfloat16)  # the MXU dtype, as on the TPU
-    _build.check_operand(amat, "amat", dev, _IO_DTYPES)
+    a, blocks, bk = kernel_operands(amat, bsc)
+    _build.check_operand(a, "amat", dev, (torch.bfloat16,))
     _build.check_operand(blocks, "bsc.blocks", dev, (torch.bfloat16,))
     _build.check_operand(bsc.block_row, "bsc.block_row", dev, (torch.int32,))
     _build.check_operand(bsc.bcol_nnz, "bsc.bcol_nnz", dev, (torch.int32,))
     if bias is not None:
-        bias = bias.float()
+        if bias.dtype != torch.float32:
+            bias = bias.float()
         _build.check_operand(bias, "bias", dev, (torch.float32,))
         if bias.shape != (n,):
             raise ValueError(f"bias shape {tuple(bias.shape)} != ({n},)")
+    plan, dims = _launch(m, a.shape[1], n, bk, bn, bsc.n_bcols, bsc.max_bw,
+                         int(relu), int(amat.dtype == torch.bfloat16))
+    ws = counters = None
+    if plan.split > 1:
+        ws = torch.empty((plan.split, m, bsc.n_bcols * bn),
+                         dtype=torch.float32, device=dev)
+        counters = _counter_buffer(dev)
     out = torch.empty((m, n), dtype=amat.dtype, device=dev)
-    vec = int(k % 8 == 0 and bk % 8 == 0)
     rc = _build.load().cet_bsc_spmm(
-        amat.data_ptr(), blocks.data_ptr(), bsc.block_row.data_ptr(),
+        a.data_ptr(), blocks.data_ptr(), bsc.block_row.data_ptr(),
         bsc.bcol_nnz.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), m, k, n, bk, bn, bsc.n_bcols, bsc.max_bw, int(relu),
-        int(amat.dtype == torch.bfloat16), vec, _build.stream_of(amat))
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), dims,
+        _build.stream_of(amat))
     _build.check(rc, "cet_bsc_spmm")
     launches += 1
     return out

@@ -1,18 +1,25 @@
-"""Launch plan of the pipelined direct-conv tile loop (``csrc/sconv_pipe.cuh``),
-shared by ``sconv_fused`` and ``sconv_gc``.
+"""Launch plan of the pipelined tile loop (``csrc/sconv_pipe.cuh``), shared
+by ``sconv_fused``, ``sconv_gc`` and ``bsc_spmm``.
 
 The wrapper computes the plan from shapes as plain integers and passes it
 to the C entry, which refuses a plan its compiled kernel does not match.
 So the CPU tests can check what a launch would use on the card: its shared
-memory, its grid, and which output rows each tile covers.
+memory, its grid, and which output rows and live K-blocks each block
+covers.
 
 * ``tile_m``: 128 output rows per block when that makes at least one
   block for every other SM of the card, else 64, so the smallest layers
   (ResNet-50's res5 at b32: 52 blocks of 128 rows) make more blocks.
   Measured with ``plan_sweep.py`` at the repository root: 64-row tiles
-  win only there, and lose from about 98 blocks of 128 rows up.
+  win only there, and lose from about 98 blocks of 128 rows up. An SpMM
+  with at most 64 rows always takes 64.
+* ``split`` and ``share`` (``spmm_plan`` only): a launch with too few
+  M-tiles x block-columns to fill the card cuts each column's live
+  K-blocks into ``split`` shares of ``share`` slots, one block each, for
+  about three blocks per SM; the kernel sums the shares in the same launch.
 * ``stages``: the depth of the cp.async ring, 2-4: as many steps as the
-  longest block-column has, while two blocks still fit on one SM.
+  longest share of a block-column has, while two blocks still fit on one
+  SM.
 * ``chunk``: the K depth of one step (``kChunk`` of the kernel).
 * ``smem``: the dynamic shared bytes of one block: the ring or the f32
   accumulator tile that reuses it, whichever is larger, plus the bias.
@@ -49,11 +56,12 @@ def smem_bytes(tile_m: int, bn_t: int, stages: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """One launch: ``tiles_per_image * images`` M-tiles times ``n_bcols``
-    block-columns, block-column fastest. A tile never crosses an image:
-    with ``images == 1`` the rows run over the whole batch (``sconv_fused``,
-    whose rows decode their own image), else over one image each
-    (``sconv_gc``)."""
+    """One launch: ``tiles_per_image * images`` M-tiles times ``split``
+    shares times ``n_bcols`` block-columns, block-column fastest. A tile
+    never crosses an image: with ``images == 1`` the rows run over the
+    whole batch (``sconv_fused``, whose rows decode their own image, and
+    ``bsc_spmm``), else over one image each (``sconv_gc``). Share ``s`` of
+    a column walks its live slots ``[s * share, (s + 1) * share)``."""
 
     tile_m: int
     stages: int
@@ -62,6 +70,8 @@ class LaunchPlan:
     images: int
     rows_per_image: int
     n_bcols: int
+    split: int = 1
+    share: int = 0  # live slots per share; 0: the whole column (split 1)
 
     @property
     def tiles_per_image(self) -> int:
@@ -73,7 +83,7 @@ class LaunchPlan:
 
     @property
     def grid(self) -> int:
-        return self.m_tiles * self.n_bcols
+        return self.m_tiles * self.split * self.n_bcols
 
     @property
     def threads(self) -> int:
@@ -83,14 +93,35 @@ class LaunchPlan:
         """(image, first row, end row, block-column) that block ``b`` of the
         grid computes, as the kernel decodes ``blockIdx.x``."""
         mt, j = divmod(b, self.n_bcols)
-        img, t = divmod(mt, self.tiles_per_image)
+        img, t = divmod(mt // self.split, self.tiles_per_image)
         first = t * self.tile_m
         return img, first, min(first + self.tile_m, self.rows_per_image), j
 
+    def slots(self, b: int, nnz: int) -> range:
+        """The live slots of its column (``nnz`` of them) that block ``b``
+        walks: all of them unsplit, else its share's."""
+        if self.split == 1:
+            return range(nnz)
+        s = b // self.n_bcols % self.split
+        return range(min(nnz, s * self.share),
+                     min(nnz, (s + 1) * self.share))
+
     def __str__(self) -> str:
+        split = (f", split {self.split} x {self.share} slots"
+                 if self.split > 1 else "")
         return (f"tile_m {self.tile_m}, stages {self.stages}, chunk "
-                f"{self.chunk}, {self.smem} B shared, grid {self.grid} x "
-                f"{self.threads} threads")
+                f"{self.chunk}, {self.smem} B shared{split}, grid "
+                f"{self.grid} x {self.threads} threads")
+
+
+def _stages(tile_m: int, bn_t: int, steps: int) -> int:
+    """Ring depth: ``steps`` (those of a block's longest walk) within 2-4,
+    while two blocks still fit on one SM."""
+    stages = max(2, min(MAX_STAGES, steps))
+    while stages > 2 and 2 * (smem_bytes(tile_m, bn_t, stages)
+                              + SMEM_RESERVED) > SMEM_PER_SM:
+        stages -= 1
+    return stages
 
 
 @functools.lru_cache(maxsize=4096)
@@ -105,14 +136,49 @@ def plan(images: int, rows_per_image: int, block_shape: Tuple[int, int],
     tiles_128 = images * -(-rows_per_image // 128) * n_bcols
     tile_m = 128 if tiles_128 >= SMS // 2 else 64
     bn_t = bn_tile(bn)
-    steps = max_bw * -(-bk // CHUNK)
-    stages = max(2, min(MAX_STAGES, steps))
-    while stages > 2 and 2 * (smem_bytes(tile_m, bn_t, stages)
-                              + SMEM_RESERVED) > SMEM_PER_SM:
-        stages -= 1
+    stages = _stages(tile_m, bn_t, max_bw * -(-bk // CHUNK))
     return LaunchPlan(tile_m=tile_m, stages=stages, chunk=CHUNK,
                       smem=smem_bytes(tile_m, bn_t, stages), images=images,
                       rows_per_image=rows_per_image, n_bcols=n_bcols)
+
+
+@functools.lru_cache(maxsize=4096)
+def spmm_plan(m: int, block_shape: Tuple[int, int], n_bcols: int,
+              max_bw: int) -> LaunchPlan:
+    """The launch plan of ``bsc_spmm`` for an A of ``m`` rows against a BSC
+    weight of ``block_shape`` (bk, bn; bk as the kernel reads it),
+    ``n_bcols`` block-columns and at most ``max_bw`` live K-blocks in one.
+
+    Tile rows as ``plan``'s, but 64 whenever m <= 64. A launch of 64-row
+    tiles with fewer blocks than about three per SM is split: each
+    (M-tile, column) gets ``split`` blocks of ``share`` live slots and at
+    least two ring steps each, about three blocks per SM in all; a split
+    block's ring holds all of a short share's steps at once (steps + 1
+    stages). Large-M launches (the lowered and 1x1 conv routes) already
+    fill the card: split 1, stages as ``plan``'s. Measured with
+    ``plan_sweep.py spmm``: on fc6 (32 columns of up to 31 live K-blocks)
+    11 shares of 3 slots beat 8 of 4, the finer shares evening out columns
+    of uneven length; 3 stages beat 2 on the two-step shares of fc1000 and
+    fc8."""
+    bk, bn = block_shape
+    tiles_128 = -(-m // 128) * n_bcols
+    tile_m = 128 if m > 64 and tiles_128 >= SMS // 2 else 64
+    cpb = -(-bk // CHUNK)  # steps per K-block
+    tiles = -(-m // tile_m) * n_bcols
+    split, share, steps = 1, 0, max_bw * cpb
+    want = 3 * SMS // tiles
+    if tile_m == 64 and want >= 2:
+        share = min(max_bw, max(-(-max_bw // want), -(-2 // cpb)))
+        split = -(-max_bw // share)
+        steps = share * cpb + 1
+    if split == 1:
+        share, steps = 0, max_bw * cpb
+    bn_t = bn_tile(bn)
+    stages = _stages(tile_m, bn_t, steps)
+    return LaunchPlan(tile_m=tile_m, stages=stages, chunk=CHUNK,
+                      smem=smem_bytes(tile_m, bn_t, stages), images=1,
+                      rows_per_image=m, n_bcols=n_bcols, split=split,
+                      share=share)
 
 
 def kernel_operands(x: torch.Tensor, aligned) -> Tuple[torch.Tensor,

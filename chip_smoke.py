@@ -16,14 +16,16 @@ both weight-aligned to BSC and run in SCONV_PAR mode in bf16 on the card.
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
-  2. build: the three CUDA kernels from the sources in this checkout.
+  2. build: the three CUDA kernels from the sources in this checkout, and
+     nvcc's register and spill report per kernel template and Rows policy
+     (the direct convs' instances apart from the SpMM's).
   3. parity: each kernel against its plain PyTorch version at main-path
      shapes, bf16, max|err| <= 1e-2 * max|plain| + 1e-2, after the launch
      plan (tile rows, ring stages, shared bytes) of each direct conv at
-     that shape: sconv_fused at
-     ResNet-50 shapes and at VGG-16 conv3_1, conv4_2 and conv5_2; bsc_spmm
-     at ResNet-50 fc1000, VGG-16 fc6 and conv1_2's lowered im2col GEMM
-     (64x64 blocks); sconv_gc at VGG-16 conv2_1, conv2_2 and conv3_2, and
+     that shape: sconv_fused at ResNet-50 shapes and at VGG-16 conv3_1,
+     conv4_2 and conv5_2; bsc_spmm at ResNet-50 fc1000, VGG-16 fc6, fc7
+     and fc8 (128x128 blocks) and conv1_2's lowered im2col GEMM (64x64
+     blocks); sconv_gc at VGG-16 conv2_1, conv2_2 and conv3_2, and
      sconv_fused at those three too.
   4. nets, each on 4 distinct inputs with every launch counter set to 0
      just before and read just after: every kernel must have launched as
@@ -48,7 +50,7 @@ Phases, one line each (any failure exits non-zero):
      (``BOUND_RATES``). The bytes count, once each, the columns of x (or
      of an SpMM's A) that some live weight block reads, the live weight
      blocks, the output and the residual; the FLOPs count the live
-     blocks. Also the host time of one entry call of each direct conv.
+     blocks. Also the host time of one entry call of each kernel.
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs. As
@@ -256,15 +258,19 @@ def main() -> int:
           f"({'nvcc ' + format(built, '.1f') + ' s' if built else 'cached'}, "
           f"{_build.library_path().name}) {tag}")
     if _build.ptxas_log:
-        # one summary per kernel template: the entries of nvcc's -Xptxas -v
-        # report, grouped by the template's name
+        # one summary per kernel template and Rows policy (and split-K
+        # instance): the entries of nvcc's -Xptxas -v report, grouped by
+        # the names in their mangled symbol
         fams = collections.defaultdict(lambda: dict(n=0, regs=[], smem=[],
                                                     spill=0))
         for entry in re.split(r"Compiling entry function", _build.ptxas_log
                               )[1:]:
-            fam = fams[next((k for k in ("sconv_pipe_kernel",
-                                         "bsc_tile_kernel") if k in entry),
-                            "other")]
+            symbol = entry.split("\n", 1)[0]
+            kern = re.search(r"\d([a-z][a-z_]*_kernel)I", symbol)
+            rows = re.search(r"\d([A-Za-z]+Rows)", symbol)
+            fam = fams[(kern.group(1) if kern else "other")
+                       + (f"<{rows.group(1)}" if rows else "<")
+                       + (", split>" if "Lb1E" in symbol else ">")]
             fam["n"] += 1
             fam["regs"] += [int(r) for r in
                             re.findall(r"Used (\d+) registers", entry)]
@@ -416,7 +422,9 @@ def main() -> int:
 
     for label, m, k, n, relu in [  # the fc layers, 128x128 blocks
             ("fc1000 32x2048->1000", 32, 2048, 1000, False),
-            ("fc6 16x25088->4096 +relu", 16, 25088, 4096, True)]:
+            ("fc6 16x25088->4096 +relu", 16, 25088, 4096, True),
+            ("fc7 16x4096->4096 +relu", 16, 4096, 4096, True),
+            ("fc8 16x4096->1000", 16, 4096, 1000, False)]:
         w = prune_blocks(rng_np.standard_normal((k, n)).astype("float32")
                          * (3.0 / k) ** 0.5, SPARSITY, BLOCK)
         spmm_case(label, m, dense_to_bsc(w, BLOCK).to(dev, torch.bfloat16),
@@ -564,16 +572,22 @@ def main() -> int:
               + "; by layer " + ", ".join(
                   f"{n} ({routes.get(n, '-')}) {t:.4f}" for n, t in top)
               + f" {tag}")
-    # host time of one entry call of each kernel: a 1x8x8 input, so each
-    # launch's device work ends before the host has issued the next one
+    # host time of one entry call of each kernel on a tiny input, so each
+    # launch's device work ends before the host has issued the next one;
+    # the SpMM's splits K (4 shares), so its workspace is allocated too
     tiny = torch.randn((1, 8, 8, 64), generator=gen, device=dev).bfloat16()
-    probes = {
-        "sconv_fused": (lambda al: lambda: sconv_fused.sconv(
-            tiny, al, padding=(1, 1), relu=True))(conv_weight(64, 64, 3)),
-        "sconv_gc": (lambda al: lambda: sconv_gc.sconv(
-            tiny, al, padding=(1, 1), relu=True))(conv_weight(64, 128, 3)),
+    fused_w, gc_w = conv_weight(64, 64, 3), conv_weight(64, 128, 3)
+    fc_w = dense_to_bsc(rng_np.standard_normal((512, 128)).astype("float32"),
+                        BLOCK).to(dev, torch.bfloat16)
+    probes = {  # name -> (what it is handed, one entry call)
+        "sconv_fused": ("1x8x8x64 input", lambda: sconv_fused.sconv(
+            tiny, fused_w, padding=(1, 1), relu=True)),
+        "sconv_gc": ("1x8x8x64 input", lambda: sconv_gc.sconv(
+            tiny, gc_w, padding=(1, 1), relu=True)),
+        "bsc_spmm": ("8x512 A, 512x128 weight", lambda: bsc_spmm.bsc_spmm(
+            tiny.reshape(8, 512), fc_w, relu=True)),
     }
-    for name, fn in probes.items():
+    for name, (what, fn) in probes.items():
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -581,8 +595,8 @@ def main() -> int:
             fn()
         host_us = (time.perf_counter() - t0) / ROUTE_REPS * 1e6
         torch.cuda.synchronize()
-        print(f"host {name} entry: {host_us:.2f} us per call (1x8x8x64 "
-              f"input, mean of {ROUTE_REPS}, host clock) {tag}")
+        print(f"host {name} entry: {host_us:.2f} us per call ({what}, "
+              f"mean of {ROUTE_REPS}, host clock) {tag}")
     with torch.inference_mode():
         for kernel, label, arms, args, nbytes, flops in timed:
             graph = {arm: _graph_ms(fn, args) for arm, fn in arms.items()}

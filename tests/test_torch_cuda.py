@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
-from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
+from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, sconv_fused,
+                                            sconv_gc)
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
 from caffe_escoin_tpu_torch.utils.pruning import prune_blocks, prune_conv_weight
@@ -170,30 +171,135 @@ def test_sconv_gc_raises_on_what_the_kernel_does_not_take(dev):
         sconv_gc.sconv(x, al, padding=(1, 1), relu=False, mxu_dtype="float32")
 
 
-# (m, k, n, block, sparsity, relu)
+# (m, k, n, block, sparsity, relu, empty_bcol)
 SPMM_SHAPES = {
-    "fc1000": (32, 2048, 1000, (128, 128), 0.9, False),
-    "ragged_k_tail_relu": (300, 200, 72, (64, 64), 0.5, True),
+    "fc1000": (32, 2048, 1000, (128, 128), 0.9, False, False),
+    "ragged_k_tail_relu": (300, 200, 72, (64, 64), 0.5, True, False),
+    "fc6_like_split_long_column": (16, 5120, 512, (128, 128), 0.5, True,
+                                   False),
+    "split_empty_bcol_bias_relu": (16, 1024, 384, (128, 128), 0.5, True,
+                                   True),
+    "unsplit_empty_bcol_bias_relu": (9000, 512, 384, (128, 128), 0.5, True,
+                                     True),
+    "k_not_multiple_of_8": (40, 203, 72, (64, 64), 0.4, True, False),
+    "bk_12_not_multiple_of_8": (24, 100, 48, (12, 16), 0.5, False, False),
+    "bn8": (20, 256, 40, (32, 8), 0.6, True, False),
+    "bn32": (50, 512, 100, (64, 32), 0.7, False, False),
+    "bn64_split": (8, 1024, 200, (64, 64), 0.6, True, False),
+    "unsplit_large_m_300_tiles": (38400, 1024, 256, (128, 128), 0.5, True,
+                                  False),
 }
+
+
+def _spmm_case(name, dev, dtype, seed=1):
+    m, k, n, block, sp, relu, empty = SPMM_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    w = prune_blocks(rng.standard_normal((k, n)).astype(np.float32), sp, block)
+    if empty:
+        w[:, (n - 1) // block[1] * block[1]:] = 0
+    bsc = dense_to_bsc(w, block).to(dev, torch.bfloat16)
+    if empty:
+        assert int(bsc.bcol_nnz[-1]) == 0
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, dtype)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    return a, bsc, bias, relu
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", list(SPMM_SHAPES))
 def test_bsc_spmm_kernel_matches_plain(dev, name, dtype):
-    m, k, n, block, sp, relu = SPMM_SHAPES[name]
-    rng = np.random.default_rng(1)
-    w = prune_blocks(rng.standard_normal((k, n)).astype(np.float32), sp, block)
-    bsc = dense_to_bsc(w, block).to(dev, torch.bfloat16)
-    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
-        dev, dtype)
-    bias = torch.randn(n, device=dev)
+    a, bsc, bias, relu = _spmm_case(name, dev, dtype)
     launches = bsc_spmm.launches
     out = bsc_spmm.bsc_spmm(a, bsc, bias=bias, relu=relu)
     torch.cuda.synchronize()
     assert bsc_spmm.launches == launches + 1
+    assert out.dtype == dtype and out.shape == (a.shape[0], bsc.shape[1])
     ref = bsc_spmm.bsc_spmm_plain(a, bsc, bias=bias, relu=relu,
                                   mxu_dtype="bfloat16")
     _close(out, ref, dtype)
+
+
+def test_bsc_spmm_cases_take_the_paths_they_name(dev):
+    """The "split" cases split K, the "unsplit" ones do not."""
+    for name, (m, *_) in SPMM_SHAPES.items():
+        p = bsc_spmm.launch_plan(m, _spmm_case(name, dev, torch.bfloat16)[1])
+        if name.startswith("unsplit"):
+            assert p.split == 1, (name, p)
+        elif "split" in name:
+            assert p.split > 1, (name, p)
+        if "300_tiles" in name:
+            assert p.m_tiles >= 300, (name, p)
+
+
+def test_bsc_spmm_split_is_deterministic_and_leaves_counters_at_zero(dev):
+    """A split launch gives the same bits in two eager calls and in a
+    CUDA-graph replay, and leaves every counter at zero."""
+    a, bsc, bias, relu = _spmm_case("fc6_like_split_long_column", dev,
+                                    torch.bfloat16)
+    assert bsc_spmm.launch_plan(a.shape[0], bsc).split > 1
+
+    def run():
+        return bsc_spmm.bsc_spmm(a, bsc, bias=bias, relu=relu)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, first)
+    assert not bsc_spmm._counters[dev.index].any()
+    assert torch.equal(run(), first)
+
+
+def test_bsc_spmm_refuses_a_plan_the_kernel_does_not_match(dev):
+    """The C entry checks the plan it is handed against the compiled kernel:
+    wrong shared bytes, a split with 128-row tiles, shares that do not
+    cover the longest column, or a missing workspace are refused."""
+    a, bsc, bias, relu = _spmm_case("fc6_like_split_long_column", dev,
+                                    torch.bfloat16)
+    m, k = a.shape
+    bk, bn = bsc.block_shape
+    plan, dims = bsc_spmm._launch(m, k, bsc.shape[1], bk, bn, bsc.n_bcols,
+                                  bsc.max_bw, int(relu), 1)
+    assert plan.split > 1
+    ws = torch.empty((plan.split, m, bsc.n_bcols * bn), device=dev)
+    counters = bsc_spmm._counter_buffer(dev)
+    out = torch.empty((m, bsc.shape[1]), dtype=a.dtype, device=dev)
+    lib = _build.load()
+
+    def call(d, ws_ptr=ws.data_ptr()):
+        return lib.cet_bsc_spmm(
+            a.data_ptr(), bsc.blocks.data_ptr(), bsc.block_row.data_ptr(),
+            bsc.bcol_nnz.data_ptr(), bias.data_ptr(), out.data_ptr(), ws_ptr,
+            counters.data_ptr(), _build.c_ints(*d), _build.stream_of(a))
+
+    good = list(dims)
+    assert call(good) == 0
+    torch.cuda.synchronize()
+
+    def changed(i, v):  # tile_m, stages, chunk, smem, split, share at 9-14
+        d = list(good)
+        d[i] = v
+        return d
+
+    bad = [changed(12, good[12] + 16),  # shared bytes
+           changed(9, 128),  # a split with 128-row tiles
+           changed(13, good[13] - 1),  # shares short of the longest column
+           changed(11, 32)]  # another chunk depth
+    for d in bad:
+        assert call(d) != 0, d
+    assert call(good, ws_ptr=None) != 0
+    assert not counters.any()
 
 
 def test_f32_multiplies_are_not_implemented_on_cuda(dev):
