@@ -1,9 +1,12 @@
 """Execution policy (port of ``caffe_escoin_tpu/engine/context.py``).
 
 An explicit, per-net (or per-layer) object instead of Caffe's global
-``conv_mode`` singleton. The port carries only the fields its executors
-read: the XBSP arms, autotune, Pallas interpret and the native CPU route of
-the JAX policy are not ported yet, so their switches are absent here.
+``conv_mode`` singleton. The port carries the fields its executors read,
+with the JAX defaults: ``use_xla_sparse``, ``xbsp_arm``, ``autotune`` and
+``autotune_cache`` select the XBSP arms (kernels/xla_block_sparse.py) and
+their measured choice (engine/autotune.py). Pallas interpret, the Pallas
+SpMM tile and the native CPU route of the JAX policy have no counterpart
+here, so their switches are absent.
 """
 
 from __future__ import annotations
@@ -20,11 +23,12 @@ class ConvMode(enum.IntEnum):
 
     LOWERED_GEMM   -- dense convolution (``F.conv2d``).
     LOWERED_SPARSE -- im2col + block-sparse SpMM (kernels/bsc_spmm.py).
-    SCONV          -- direct sparse convolution (kernels/sconv_fused.py).
-    SCONV_PAR      -- batch-parallel direct sparse convolution. The fused
-                      kernel already folds the whole batch into its M
-                      dimension, so SCONV and SCONV_PAR take the same route
-                      until the per-image XBSP arms are ported.
+    SCONV          -- direct sparse convolution. On the XBSP branch
+                      (``use_xla_sparse``) the arm runs image by image, as
+                      the reference's ``forward_gpu_sconv`` loops over the
+                      batch; the direct kernels fold the batch into M.
+    SCONV_PAR      -- batch-parallel direct sparse convolution: the whole
+                      batch folds into every product's M dimension.
     """
 
     LOWERED_GEMM = 0
@@ -48,6 +52,15 @@ class ExecutionPolicy:
     always f32). "auto" is bf16 on a CUDA tensor and f32 on a CPU tensor.
     On CUDA only "bfloat16" is implemented: "float32" raises
     NotImplementedError there (the plain versions honour both on the CPU).
+
+    ``use_xla_sparse`` (the default) runs each sparse conv and fc through
+    the XBSP arms (kernels/xla_block_sparse.py: torch ops, the name kept
+    from the JAX package); False takes the hand-written kernels' routes.
+    ``xbsp_arm`` forces one arm ("unroll", "gathered", "gathered_cols",
+    "dense", "fused"); "auto" picks per shape. ``autotune`` measures the
+    candidate arms per (shape, pattern) on the device and caches the
+    winner (engine/autotune.py), in ``autotune_cache`` when it names a
+    JSON file.
     """
 
     conv_mode: ConvMode = ConvMode.LOWERED_GEMM
@@ -58,6 +71,10 @@ class ExecutionPolicy:
     compute_dtype: Optional[torch.dtype] = None
     cast_back: bool = True
     mxu_dtype: str = "auto"
+    use_xla_sparse: bool = True
+    xbsp_arm: str = "auto"
+    autotune: bool = False
+    autotune_cache: str = ""
 
 
 def resolve_mxu_dtype(mxu_dtype: str, device) -> str:

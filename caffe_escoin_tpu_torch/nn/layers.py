@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.engine.context import ConvMode
+from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.nn.fillers import fill
 from caffe_escoin_tpu_torch.nn.net import Layer, register_layer
 from caffe_escoin_tpu_torch.ops import activations as act
@@ -150,15 +151,16 @@ class ConvolutionReLULayer(ConvolutionLayer):
         self.p["fuse_relu"] = True
 
 
-# the kernel each ``Layer.route`` launches once per layer ("dense" launches
-# none): the conv routes' kernels and the fc's SpMM
+# the kernel each ``Layer.route`` launches once per layer: the conv routes'
+# kernels and the fc's SpMM ("dense" and the XBSP routes launch none)
 ROUTE_KERNELS = {**conv_ops.ROUTE_KERNELS, "spmm": "bsc_spmm"}
 
 
 @register_layer("InnerProduct")
 class InnerProductLayer(Layer):
-    """FC layer. Sparse execution runs the block-sparse SpMM over the 1x1
-    GEMM-view AlignedConvWeight."""
+    """FC layer. Sparse execution runs a block-sparse SpMM over the 1x1
+    GEMM-view AlignedConvWeight: the XBSP ``spmm`` with ``use_xla_sparse``,
+    else the SpMM kernel."""
 
     def init_params(self, gen, in_shapes):
         k = math.prod(in_shapes[0][1:])
@@ -181,15 +183,25 @@ class InnerProductLayer(Layer):
                             policy=self.policy)
 
     def route(self, params, in_shapes=None, in_dtype=None):
-        """"spmm" (the block-sparse SpMM) or "dense". Block-density gate, as
-        the conv dispatcher's: an element-sparse but block-dense pattern
-        runs the one dense matmul instead."""
-        if (isinstance(params, AlignedConvWeight) and params.bsc is not None
-                and params.sparsity >= self.policy.sparse_threshold
-                and params.block_density <= 0.5
-                and self.policy.conv_mode != ConvMode.LOWERED_GEMM):
-            return "spmm"
-        return "dense"
+        """"xbsp_spmm" (the XBSP unroll), "spmm" (the SpMM kernel, with
+        ``use_xla_sparse=False``) or "dense", by the JAX package's rule
+        (its ``nn/layers.py:291-314``): a forced ``xbsp_arm`` decides
+        first ("dense" forces the dense matmul, any other arm the sparse
+        one); else the block-density gate, as the conv dispatcher's, sends
+        an element-sparse but block-dense pattern to the one dense
+        matmul."""
+        pol = self.policy
+        if (not isinstance(params, AlignedConvWeight) or params.bsc is None
+                or pol.conv_mode == ConvMode.LOWERED_GEMM):
+            return "dense"
+        if pol.xbsp_arm != "auto":
+            sparse = pol.xbsp_arm != "dense"
+        else:
+            sparse = (params.sparsity >= pol.sparse_threshold
+                      and params.block_density <= 0.5)
+        if not sparse:
+            return "dense"
+        return "xbsp_spmm" if xbs.spmm_supported(params.bsc, pol) else "spmm"
 
     def forward(self, params, inputs, state=None):
         (x,) = inputs
@@ -202,7 +214,7 @@ class InnerProductLayer(Layer):
             params = _cast(params, cd)
         if isinstance(params, AlignedConvWeight):
             aligned = params
-            if self.route(aligned) == "spmm":
+            if self.route(aligned) != "dense":
                 if aligned.cin_pad != aligned.cin:
                     x2 = F.pad(x2, (0, aligned.cin_pad - aligned.cin))
                 out = linear_ops.linear_sparse(x2, aligned.bsc, aligned.bias,

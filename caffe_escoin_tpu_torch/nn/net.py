@@ -144,9 +144,14 @@ class Net(torch.nn.Module):
 
     def routes(self, aligned_params, input_shapes: Dict[str, Tuple[int, ...]],
                input_dtype: torch.dtype = torch.float32) -> Dict[str, str]:
-        """The kernel route of every conv and fc layer (``Layer.route``,
-        e.g. "fused", "gc", "lowered", "spmm", "dense") for inputs of these
-        shapes and dtype, from shapes alone: nothing runs."""
+        """The route of every conv and fc layer (``Layer.route``: e.g.
+        "unroll", "gathered", "fused", "xbsp_spmm", "dense", or with
+        ``use_xla_sparse=False`` "fused", "gc", "lowered", "spmm") for
+        inputs of these shapes and dtype, from shapes alone: nothing runs.
+        With ``autotune`` on, each sparse conv's arm is served from the
+        autotune cache (inside the ``net_scope`` the forward runs in), so
+        call it with the params on their device after calibration or a
+        forward; a key not in the cache yet would be measured first."""
         out = {}
         for layer, in_shapes in self.walk_shapes(input_shapes):
             r = layer.route(aligned_params.get(layer.spec.name), in_shapes,

@@ -2,19 +2,28 @@
 ``caffe_escoin_tpu/ops/conv.py``).
 
 * LOWERED_GEMM   -> ``F.conv2d`` (cuDNN on the card).
-* LOWERED_SPARSE -> im2col + block-sparse SpMM (kernels/bsc_spmm.py).
-* SCONV[_PAR]    -> the route the JAX package takes with
-                    ``use_xla_sparse=False`` (its ``ops/conv.py:188-210,
-                    314-381``): strided 1x1 convs subsample first, strided
-                    k>1 convs run lowered, and a stride-1 conv takes, in
-                    this order, the fused direct kernel
-                    (kernels/sconv_fused.py), the SpMM for a 1x1 conv, the
-                    garbage-column direct kernel (kernels/sconv_gc.py), or
-                    im2col + SpMM. ``conv_route`` names the route of a
-                    layer from shapes alone, and ``conv2d`` dispatches
-                    through it.
+* LOWERED_SPARSE -> im2col + block-sparse SpMM: the XBSP ``spmm``
+                    (kernels/xla_block_sparse.py) with ``use_xla_sparse``,
+                    else the SpMM kernel (kernels/bsc_spmm.py).
+* SCONV[_PAR]    -> with ``use_xla_sparse`` (the default), the JAX
+                    package's default executor (its ``ops/conv.py:188-203,
+                    256-312``): a strided 1x1 conv subsamples first, a
+                    strided k>1 conv runs dense, and a stride-1 conv runs
+                    the arm ``xla_block_sparse.best_arm`` picks ("unroll",
+                    "gathered", "gathered_cols", "dense" on the pruned
+                    weight, or "fused", the direct kernel); SCONV runs the
+                    arm image by image, SCONV_PAR on the whole batch.
+                    With ``use_xla_sparse=False``, the kernels' route (its
+                    ``ops/conv.py:188-210, 314-381``): strided 1x1 convs
+                    subsample first, strided k>1 convs run lowered, and a
+                    stride-1 conv takes, in this order, the fused direct
+                    kernel (kernels/sconv_fused.py), the SpMM for a 1x1
+                    conv, the garbage-column direct kernel
+                    (kernels/sconv_gc.py), or im2col + SpMM.
 
-A layer whose weight is denser than the policy's threshold runs dense.
+``conv_route`` names the route of a layer from shapes alone (with
+autotune on, from the autotune cache), and ``conv2d`` dispatches through
+it. A layer whose weight is denser than the policy's threshold runs dense.
 Activations are NHWC and weights HWIO, as in the JAX package.
 """
 
@@ -27,6 +36,7 @@ import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy
 from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
+from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
 
 
@@ -77,7 +87,8 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
                           dilation, relu, policy: ExecutionPolicy,
                           residual=None):
     """im2col + SpMM over the sparse GEMM-view weight (bias and ReLU in the
-    SpMM's epilogue, the residual after it)."""
+    SpMM's epilogue, the residual after it): the XBSP ``spmm`` with
+    ``use_xla_sparse``, else the SpMM kernel."""
     kh, kw = aligned.kernel_shape
     cols, (ho, wo) = im2col(x, (kh, kw), stride=stride, padding=padding,
                             dilation=dilation)
@@ -88,18 +99,55 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
         # offset-aligned
         cols2d = F.pad(cols2d, (0, aligned.cin_pad - aligned.cin))
     cols2d = cols2d.reshape(n * ho * wo, aligned.k)
-    out2d = bsc_spmm.bsc_spmm(cols2d, aligned.bsc, bias=aligned.bias,
-                              relu=relu and residual is None,
-                              mxu_dtype=policy.mxu_dtype)
+    if xbs.spmm_supported(aligned.bsc, policy):
+        out2d = xbs.spmm(cols2d, aligned.bsc, bias=aligned.bias,
+                         relu=relu and residual is None)
+    else:
+        out2d = bsc_spmm.bsc_spmm(cols2d, aligned.bsc, bias=aligned.bias,
+                                  relu=relu and residual is None,
+                                  mxu_dtype=policy.mxu_dtype)
     out = out2d.reshape(n, ho, wo, aligned.cout)
     if residual is not None:
         out = _epilogue(out, relu, residual)
     return out
 
 
-# the kernel each conv route launches once per layer ("dense" launches none)
+# the kernel each conv route launches once per layer; the rest ("dense",
+# the XBSP arms, "xbsp_lowered") launch none
 ROUTE_KERNELS = {"fused": "sconv_fused", "gc": "sconv_gc",
                  "spmm_1x1": "bsc_spmm", "lowered": "bsc_spmm"}
+# the XBSP arm functions by route name
+XBSP_ARMS = {"unroll": xbs.conv, "gathered": xbs.conv_gathered,
+             "gathered_cols": xbs.conv_gathered_cols}
+
+
+def _subsampled(x, stride, padding):
+    """A meta tensor of the map a strided 1x1 conv subsamples to."""
+    n, h, w, c = x.shape
+    return torch.empty((n, _out_spatial(h, 1, stride[0], padding[0], 1),
+                        _out_spatial(w, 1, stride[1], padding[1], 1), c),
+                       dtype=x.dtype, device="meta")
+
+
+def _xbsp_route(x, aligned: AlignedConvWeight, stride, padding, dilation,
+                policy: ExecutionPolicy) -> str:
+    """The SCONV route of the JAX package's ``conv2d_sconv`` with
+    ``use_xla_sparse`` (its ``ops/conv.py:188-203, 256-312``): "dense" for
+    a strided k>1 conv, else the arm of ``best_arm`` (a "fused" pick the
+    kernel cannot take runs the unroll, as there)."""
+    if stride != (1, 1):
+        if aligned.kernel_shape == (1, 1) and dilation == (1, 1):
+            return _xbsp_route(_subsampled(x, stride, padding), aligned,
+                               (1, 1), (0, 0), (1, 1), policy)
+        return "dense"
+    arm = xbs.best_arm(aligned, policy, x_shape=tuple(x.shape), stride=stride,
+                       padding=padding, dilation=dilation)
+    if arm == "dense":
+        return "dense"
+    if arm == "fused" and sconv_fused.supported(x, aligned,
+                                                dilation=dilation):
+        return "fused"
+    return arm if arm in XBSP_ARMS else "unroll"
 
 
 def _sconv_route(x, aligned: AlignedConvWeight, stride, padding,
@@ -112,12 +160,8 @@ def _sconv_route(x, aligned: AlignedConvWeight, stride, padding,
     if stride != (1, 1):
         if aligned.kernel_shape == (1, 1) and dilation == (1, 1):
             # routed as the stride-1 conv on the subsampled map
-            n, h, w, c = x.shape
-            sub = torch.empty(
-                (n, _out_spatial(h, 1, stride[0], padding[0], 1),
-                 _out_spatial(w, 1, stride[1], padding[1], 1), c),
-                dtype=x.dtype, device="meta")
-            return _sconv_route(sub, aligned, (1, 1), (0, 0), (1, 1))
+            return _sconv_route(_subsampled(x, stride, padding), aligned,
+                                (1, 1), (0, 0), (1, 1))
         return "lowered"
     if dilation != (1, 1):
         return "lowered"
@@ -140,10 +184,15 @@ def conv_route(x, aligned: AlignedConvWeight, *,
                dilation: Tuple[int, int] = (1, 1),
                mode: Optional[ConvMode] = None,
                policy: Optional[ExecutionPolicy] = None) -> str:
-    """The route ``conv2d`` takes for this layer: "dense", "lowered",
-    "fused", "spmm_1x1" or "gc". ``x`` needs only ``shape`` and ``dtype``
-    (a meta tensor will do); its dtype is the activation's after any
-    compute-dtype cast, since the size gates count its bytes."""
+    """The route ``conv2d`` takes for this layer. With ``use_xla_sparse``:
+    "dense", "xbsp_lowered", or an arm ("unroll", "gathered",
+    "gathered_cols", "fused"); without: "dense", "lowered", "fused",
+    "spmm_1x1" or "gc". ``x`` needs only ``shape`` and ``dtype`` (a meta
+    tensor will do); its dtype is the activation's after any compute-dtype
+    cast, since the size gates count its bytes and autotune's key holds
+    its shape. With ``policy.autotune`` the arm comes from the autotune
+    cache, and a key not in it yet is measured first on the weight's
+    device."""
     policy = policy or ExecutionPolicy()
     mode = policy.conv_mode if mode is None else mode
     if mode == ConvMode.LOWERED_SPARSE:
@@ -154,10 +203,13 @@ def conv_route(x, aligned: AlignedConvWeight, *,
         profitable = False
     if mode == ConvMode.LOWERED_GEMM or aligned.bsc is None or not profitable:
         return "dense"
+    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     if mode == ConvMode.LOWERED_SPARSE:
-        return "lowered"
-    return _sconv_route(x, aligned, tuple(stride), tuple(padding),
-                        tuple(dilation))
+        return ("xbsp_lowered" if xbs.spmm_supported(aligned.bsc, policy)
+                else "lowered")
+    if xbs.supported(aligned, policy):
+        return _xbsp_route(x, aligned, stride, padding, dilation, policy)
+    return _sconv_route(x, aligned, stride, padding, dilation)
 
 
 def _subsample_1x1(x, stride, padding):
@@ -168,15 +220,32 @@ def _subsample_1x1(x, stride, padding):
     return x[:, ::stride[0], ::stride[1], :].contiguous()
 
 
+def _run_xbsp(conv_fn, x, aligned: AlignedConvWeight, *, padding, dilation,
+              relu, residual, batch_parallel: bool):
+    """One stride-1 XBSP arm: on the whole batch (SCONV_PAR), or image by
+    image with each image's residual (SCONV, the reference's per-image
+    ``forward_gpu_sconv``)."""
+    def one(y, res):
+        return conv_fn(y, aligned, padding=padding, dilation=dilation,
+                       relu=relu, residual=res)
+
+    if batch_parallel or x.shape[0] == 1:
+        return one(x, residual)
+    return torch.cat([one(x[i:i + 1],
+                          None if residual is None else residual[i:i + 1])
+                      for i in range(x.shape[0])])
+
+
 def _run_route(route, x, aligned: AlignedConvWeight, *, stride, padding,
-               dilation, relu, policy: ExecutionPolicy, residual):
+               dilation, relu, policy: ExecutionPolicy, residual,
+               batch_parallel: bool = True):
     """Runs one conv on the route ``conv_route`` named for it."""
     if route == "dense":
         return conv2d_dense(
             x, aligned.dense, aligned.bias, stride=stride, padding=padding,
             dilation=dilation, groups=aligned.groups, relu=relu,
             residual=residual)
-    if route == "lowered":
+    if route in ("lowered", "xbsp_lowered"):
         return conv2d_lowered_sparse(
             x, aligned, stride=stride, padding=padding, dilation=dilation,
             relu=relu, policy=policy, residual=residual)
@@ -185,6 +254,10 @@ def _run_route(route, x, aligned: AlignedConvWeight, *, stride, padding,
     if route == "fused":
         return sconv_fused.sconv(x, aligned, padding=padding, relu=relu,
                                  residual=residual, mxu_dtype=policy.mxu_dtype)
+    if route in XBSP_ARMS:
+        return _run_xbsp(XBSP_ARMS[route], x, aligned, padding=padding,
+                         dilation=dilation, relu=relu, residual=residual,
+                         batch_parallel=batch_parallel)
     if route == "spmm_1x1":
         # a 1x1 conv is the SpMM itself: the batch folds into M
         n, h, w, c = x.shape
@@ -205,15 +278,19 @@ def _run_route(route, x, aligned: AlignedConvWeight, *, stride, padding,
 
 
 def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
-                 relu, policy: ExecutionPolicy, residual=None):
-    """Direct sparse convolution, whatever the weight's sparsity (the JAX
-    package's ``use_xla_sparse=False`` route, ``ops/conv.py:188-210,
-    314-381``)."""
+                 relu, policy: ExecutionPolicy, batch_parallel: bool = True,
+                 residual=None):
+    """Direct sparse convolution, whatever the weight's sparsity: the XBSP
+    arms with ``use_xla_sparse``, else the kernels' route (the JAX
+    package's ``ops/conv.py:167-381``)."""
     stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
-    return _run_route(_sconv_route(x, aligned, stride, padding, dilation), x,
-                      aligned, stride=stride, padding=padding,
+    if xbs.supported(aligned, policy):
+        route = _xbsp_route(x, aligned, stride, padding, dilation, policy)
+    else:
+        route = _sconv_route(x, aligned, stride, padding, dilation)
+    return _run_route(route, x, aligned, stride=stride, padding=padding,
                       dilation=dilation, relu=relu, policy=policy,
-                      residual=residual)
+                      residual=residual, batch_parallel=batch_parallel)
 
 
 def conv2d(x, aligned: AlignedConvWeight, *,
@@ -225,9 +302,11 @@ def conv2d(x, aligned: AlignedConvWeight, *,
     """Mode-dispatched convolution over an aligned weight: runs the route
     ``conv_route`` names."""
     policy = policy or ExecutionPolicy()
+    mode = policy.conv_mode if mode is None else mode
     stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     route = conv_route(x, aligned, stride=stride, padding=padding,
                        dilation=dilation, mode=mode, policy=policy)
     return _run_route(route, x, aligned, stride=stride, padding=padding,
                       dilation=dilation, relu=relu, policy=policy,
-                      residual=residual)
+                      residual=residual,
+                      batch_parallel=(mode == ConvMode.SCONV_PAR))

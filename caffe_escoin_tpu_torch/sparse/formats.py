@@ -10,7 +10,7 @@ arrays as the JAX package's ``dense_to_bsc``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +30,12 @@ class BSC:
     * ``bcol_nnz``  [n_bcols] int32: live slots per block column.
 
     ``nnz_blocks`` is kept on the host, so the profitability gates never
-    read a device tensor.
+    read a device tensor; so are numpy copies of ``block_row`` and
+    ``bcol_nnz`` (``pattern``), which the XBSP arms and autotune read on
+    every call: read from the device, each would wait for it. ``memo``
+    holds what the XBSP arms derive from this object once (its live lists,
+    the union-packed weight), so a forward copies nothing host to device;
+    ``to`` starts the copy with an empty one.
     """
 
     blocks: torch.Tensor
@@ -39,6 +44,12 @@ class BSC:
     shape: Tuple[int, int]
     block_shape: Tuple[int, int]
     nnz_blocks: int
+    block_row_np: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    bcol_nnz_np: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    memo: dict = dataclasses.field(default_factory=dict, init=False,
+                                   compare=False, repr=False)
 
     @property
     def n_bcols(self) -> int:
@@ -55,6 +66,16 @@ class BSC:
     @property
     def block_density(self) -> float:
         return self.nnz_blocks / max(1, self.n_brows * self.n_bcols)
+
+    def pattern(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(block_row, bcol_nnz) as host numpy arrays. A BSC built without
+        them (by hand, from tensors) reads them from its tensors once."""
+        if self.block_row_np is None or self.bcol_nnz_np is None:
+            object.__setattr__(self, "block_row_np",
+                               self.block_row.cpu().numpy())
+            object.__setattr__(self, "bcol_nnz_np",
+                               self.bcol_nnz.cpu().numpy())
+        return self.block_row_np, self.bcol_nnz_np
 
     def to(self, device=None, dtype=None) -> "BSC":
         """Move to ``device``; ``dtype`` casts the payloads only."""
@@ -105,4 +126,6 @@ def dense_to_bsc(w, block_shape: Tuple[int, int]) -> BSC:
         shape=(rows, cols),
         block_shape=(bk, bn),
         nnz_blocks=int(bcol_nnz.sum()),
+        block_row_np=block_row,
+        bcol_nnz_np=bcol_nnz,
     )

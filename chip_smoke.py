@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (caffe_escoin_tpu_torch) on one GPU.
 
-Drives the port's two inference paths the way ``bench.py``'s ``run_e2e``
-composes them (without autotune, calibration, packing or buckets):
+Drives the port's inference paths the way ``bench.py``'s ``run_e2e``
+composes them (without packing or buckets), first on the hand-written
+kernels' routes (``use_xla_sparse=False``):
 
 * ResNet-50 at batch 32, 224x224, conv and fc weights pruned to 90% in
   128x128 blocks (the 3-channel stem stays dense), BatchNorm/Scale/ReLU/
@@ -12,7 +13,9 @@ composes them (without autotune, calibration, packing or buckets):
   pruned convs and three pruned fcs), fc6/fc7 ReLU fused, Dropout kept as
   the inference identity;
 
-both weight-aligned to BSC and run in SCONV_PAR mode in bf16 on the card.
+both weight-aligned to BSC and run in SCONV_PAR mode in bf16 on the card;
+then ResNet-50 as a bare ``python bench.py`` runs it: the XBSP arms,
+measured autotune and whole-graph calibration (phase 4b).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -27,6 +30,13 @@ Phases, one line each (any failure exits non-zero):
      and fc8 (128x128 blocks) and conv1_2's lowered im2col GEMM (64x64
      blocks); sconv_gc at VGG-16 conv2_1, conv2_2 and conv3_2, and
      sconv_fused at those three too.
+  3b. the XBSP arms (torch ops, no kernel of this package): unroll,
+     gathered and gathered_cols at three ResNet-50 shapes (on the padded
+     3x3 one also in the ``CESCOIN_XBSP_NOPAD`` pad-free form) and spmm at
+     fc1000, in bf16, each against the f32 conv (``conv2d_dense``) or
+     matmul (``linear``) on the f32 dense pruned weight, TF32 off, within
+     the same limit; each timed eager and as a CUDA graph beside the dense
+     bf16 cuDNN conv (or ``torch.addmm``) and its bound.
   4. nets, each on 4 distinct inputs with every launch counter set to 0
      just before and read just after: every kernel must have launched as
      many times as the layers' routes (``Net.routes``, the function the
@@ -34,6 +44,21 @@ Phases, one line each (any failure exits non-zero):
      relative L2 of the same pruned, fused net run dense in f32 (cuDNN,
      TF32 off). Also the routing's host time per layer (``Net.routes``,
      host clock).
+  4b. ResNet-50 b32 autotuned, configured as bench.py's ``pol_sparse``:
+     the XBSP branch (``use_xla_sparse``) with ``autotune`` on and
+     ``CESCOIN_AUTOTUNE_FUSED=1`` (the fused kernel competes), on the same
+     pruned, fused weights and the same 4 inputs as the ResNet-50 row, the
+     cache in a fresh file under ``build/``. ``calibrate_graph`` with
+     polish 8 under ``net_scope("resnet50")`` (its ``time_fn`` is
+     ``device_time`` of the eager forward cycling the 4 inputs; the first
+     forward measures every key; an arm or a forward that raises fails the
+     run); then the ``calib`` line, every key's isolated arm times (each
+     key must hold every arm, ``fused`` wherever ``sconv_fused.supported``
+     takes the key), the routes served from the cache, launches
+     (``sconv_fused`` once per "fused" route), the logits against dense f32
+     (same limit), the forward eager and as a CUDA graph beside the
+     kernel-route row's, and the per-layer split by arm. No arm is measured
+     during a CUDA-graph capture: autotune raises if it would.
   5. times (CUDA events, after warm-up, cycling the 4 inputs): each net
      sparse, dense-bf16 and dense-f32, eager, and the sparse forward
      replayed as a CUDA graph (its device time, without the host's
@@ -53,8 +78,9 @@ Phases, one line each (any failure exits non-zero):
      blocks. Also the host time of one entry call of each kernel.
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
-``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs. As
-the last line {"ok": true, "device": {...}}.
+``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
+``launches`` sums the three nets' runs (phases 4 and 4b). As the last line
+{"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 device and nvcc; exits 1 without them.
@@ -64,6 +90,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import re
 import subprocess
 import sys
@@ -95,6 +122,11 @@ NETS = [
          input_scale=1.0, keep_norm=True),
 ]
 ROUTE_REPS = 100
+# the autotuned row: bench.py's calibration (polish 8, net scope), and a
+# cache file of this run's own (gitignored, deleted first)
+CALIB_POLISH = 8
+CALIB_REPS = 8
+AUTOTUNE_CACHE = "build/chip_smoke_autotune.json"
 
 
 def _card_line() -> str:
@@ -183,6 +215,60 @@ def _bound(nbytes, flops):
     return ms[by], by
 
 
+def _nopad(fn, x):
+    """``fn(x)`` with ``CESCOIN_XBSP_NOPAD=1``: the XBSP arms' pad-free
+    slab form, which they read per call."""
+    os.environ["CESCOIN_XBSP_NOPAD"] = "1"
+    try:
+        return fn(x)
+    finally:
+        del os.environ["CESCOIN_XBSP_NOPAD"]
+
+
+def _check_arms(net, params, shapes, measured):
+    """(keys, keys with "fused"): every arm competed on every measured key,
+    the fused kernel wherever ``sconv_fused.supported`` takes it. Each key
+    is mapped back to its conv as the dispatcher forms it (a strided 1x1
+    conv on its subsampled map); raises SystemExit otherwise."""
+    import torch
+
+    from caffe_escoin_tpu_torch.engine import autotune
+    from caffe_escoin_tpu_torch.kernels import sconv_fused
+    from caffe_escoin_tpu_torch.ops import conv as conv_ops
+    from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
+
+    dtype = net.policy.compute_dtype or torch.float32
+    seen, n_fused = set(), 0
+    for layer, in_shapes in net.walk_shapes(shapes):
+        al = params.get(layer.spec.name)
+        if (layer.spec.type not in ("Convolution", "ConvolutionReLU")
+                or not isinstance(al, AlignedConvWeight) or al.bsc is None):
+            continue
+        c = layer._conf(in_shapes[0])
+        stride, pad, dil = (tuple(c[k]) for k in ("stride", "pad",
+                                                  "dilation"))
+        x = torch.empty(in_shapes[0], dtype=dtype, device="meta")
+        if stride != (1, 1) and al.kernel_shape == (1, 1):
+            x = conv_ops._subsampled(x, stride, pad)
+            stride, pad = (1, 1), (0, 0)
+        key = autotune.cache_key(al, x.shape, stride, pad, dil, dtype)
+        if key not in measured or key in seen:
+            continue
+        seen.add(key)
+        want = {"unroll", "gathered", "gathered_cols", "dense"}
+        if sconv_fused.supported(x, al, stride=stride, dilation=dil):
+            want.add("fused")
+            n_fused += 1
+        if set(measured[key]) != want:
+            raise SystemExit(f"autotune: {layer.spec.name} measured "
+                             f"{sorted(measured[key])}, expected "
+                             f"{sorted(want)}")
+    if seen != set(measured):
+        raise SystemExit(f"autotune: {len(set(measured) - seen)} measured "
+                         f"keys belong to no conv of the net")
+    return len(seen), n_fused
+
+
 def _prune(net, params, keep_norm=False):
     """bench.py's pruning: conv and fc weights at SPARSITY in BLOCK blocks.
     The stem (3 input channels) stays dense. ``keep_norm`` scales each
@@ -223,8 +309,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
+        from caffe_escoin_tpu_torch.engine import autotune
         from caffe_escoin_tpu_torch.engine.context import (ConvMode,
                                                            ExecutionPolicy)
+        from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
+        from caffe_escoin_tpu_torch.ops import conv as conv_ops
+        from caffe_escoin_tpu_torch.ops import linear as linear_ops
+        from caffe_escoin_tpu_torch.utils.benchmark import device_time
         from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm,
                                                     sconv_fused, sconv_gc)
         from caffe_escoin_tpu_torch.models import ZOO
@@ -303,8 +394,10 @@ def main() -> int:
               f"(bound {bound:.3e}, max|ref| {scale:.3e}) "
               f"{'ok' if ok else 'FAIL'} {tag}")
         if not ok:
-            raise SystemExit(f"{kernel} {label}: kernel disagrees with plain")
-        results[kernel]["err"] = max(results[kernel]["err"], err)
+            raise SystemExit(f"{kernel} {label}: disagrees with its "
+                             f"reference")
+        if kernel in results:
+            results[kernel]["err"] = max(results[kernel]["err"], err)
 
     def conv_weight(cin, cout, k):
         w = prune_conv_weight(
@@ -467,10 +560,74 @@ def main() -> int:
                                           "sconv_fused": fused_kern}, xs,
                       *conv_work(al, xs[0], False)))
 
+    # ---- 3b. the XBSP arms against the f32 dense conv ----------------------
+    def time_line(what, label, arms, args, nbytes, flops):
+        """Each arm eager and as a CUDA graph, beside the bound."""
+        graph = {arm: _graph_ms(fn, args) for arm, fn in arms.items()}
+        eager = {arm: _time_ms(fn, args) for arm, fn in arms.items()}
+        bound_ms, bound_by = _bound(nbytes, flops)
+        print(f"time {what} {label}, as a CUDA graph (eager): "
+              + ", ".join(f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms"
+                          for arm in arms)
+              + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}) {tag}")
+
+    xbsp_cases = [  # (label, batch, h, cin, cout, k, pad, relu, residual)
+        sconv_shapes[0], sconv_shapes[1], sconv_shapes[2]]
+    # the nets below draw their inputs after this phase: keep the generators
+    # where the kernel phases left them
+    gen_state, np_state = gen.get_state(), rng_np.bit_generator.state
+    with torch.inference_mode():
+        for label, batch, h, cin, cout, k, pad, relu, with_res in xbsp_cases:
+            al, xs, res = conv_case(batch, h, cin, cout, k, with_res)
+            geo = dict(padding=(pad, pad), relu=relu)
+            ref = conv_ops.conv2d_dense(
+                xs[0].float(), al.dense.float(), al.bias,
+                residual=None if res is None else res.float(), **geo)
+            arms = {name: (lambda x, fn=fn, al=al, res=res, geo=geo:
+                           fn(x, al, residual=res, **geo))
+                    for name, fn in (("unroll", xbs.conv),
+                                     ("gathered", xbs.conv_gathered),
+                                     ("gathered_cols",
+                                      xbs.conv_gathered_cols))}
+            if pad:  # the CESCOIN_XBSP_NOPAD form differs only when padded
+                arms.update({f"{name} pad-free": (
+                    lambda x, fn=fn: _nopad(fn, x)) for name, fn in
+                    list(arms.items())})
+            for name, fn in arms.items():
+                out = fn(xs[0])
+                torch.cuda.synchronize()
+                check(f"xbsp {name}", label, out, ref)
+            arms["dense bf16 (cuDNN)"] = conv_library(al, pad)
+            time_line("xbsp", label, arms, xs,
+                      *conv_work(al, xs[0], with_res))
+        w = prune_blocks(rng_np.standard_normal((2048, 1000)).astype(
+            "float32") * (3.0 / 2048) ** 0.5, SPARSITY, BLOCK)
+        bsc = dense_to_bsc(w, BLOCK).to(dev, torch.bfloat16)
+        bias = torch.randn(1000, generator=gen, device=dev) * 0.1
+        a_list = [torch.randn((32, 2048), generator=gen, device=dev
+                              ).bfloat16() for _ in range(N_INPUTS)]
+        w_dense = bsc.to_dense()
+        out = xbs.spmm(a_list[0], bsc, bias=bias)
+        torch.cuda.synchronize()
+        check("xbsp spmm", "fc1000 32x2048->1000", out,
+              linear_ops.linear(a_list[0].float(), w_dense.float(), bias))
+        bias_bf16 = bias.bfloat16()
+        time_line("xbsp", "fc1000 32x2048->1000",
+                  {"spmm": lambda a: xbs.spmm(a, bsc, bias=bias),
+                   "addmm": lambda a: torch.addmm(bias_bf16, a, w_dense)},
+                  a_list,
+                  32 * live_cols(bsc, bsc.n_brows, 2048) * 2
+                  + live_bytes(bsc) + 32 * 1000 * 2,
+                  2 * 32 * bsc.nnz_blocks * BLOCK[0] * BLOCK[1])
+    gen.set_state(gen_state)
+    rng_np.bit_generator.state = np_state
+
     # ---- 4. the nets ------------------------------------------------------
     pol_s = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
-                            compute_dtype=torch.bfloat16, cast_back=False)
+                            compute_dtype=torch.bfloat16, cast_back=False,
+                            use_xla_sparse=False)
     e2e = []  # (model, batch, {arm: fn}, inputs f32, inputs bf16)
+    kept = {}  # model -> what the autotuned row reuses
     for cfg in NETS:
         model, batch = cfg["model"], cfg["batch"]
         logits_blob, width = cfg["logits"], cfg["width"]
@@ -546,12 +703,131 @@ def main() -> int:
               f"{peak:.3e} {'ok' if ok else 'FAIL'} {tag}")
         if not ok:
             raise SystemExit(f"sparse {model} disagrees with dense f32")
+        kept[model] = dict(specs=fnet.specs, params=sparse_params, xs=xs,
+                           shapes=shapes, fwd_s=fwd_s, fwd_d=fwd_d)
         e2e.append((model, batch, fnet.layers, routes,
                     {"sparse": fwd_s, "dense-bf16": fwd_db,
                      "dense-f32": fwd_d},
                     [{"data": x} for x in xs],
                     [{"data": x.bfloat16()} for x in xs]))
         del sparse_out
+
+    # ---- 4b. ResNet-50 b32 autotuned ---------------------------------------
+    row = kept["resnet50"]
+    os.environ["CESCOIN_AUTOTUNE_FUSED"] = "1"
+    if os.path.exists(AUTOTUNE_CACHE):
+        os.remove(AUTOTUNE_CACHE)
+    os.makedirs(os.path.dirname(AUTOTUNE_CACHE), exist_ok=True)
+    autotune.clear()
+    pol_at = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+                             compute_dtype=torch.bfloat16, cast_back=False,
+                             use_xla_sparse=True, autotune=True,
+                             autotune_cache=AUTOTUNE_CACHE)
+    at_net = Net(row["specs"], policy=pol_at)
+    at_inputs = [{"data": x} for x in row["xs"]]
+    at_fwd = at_net.inference_fn(row["params"], return_blobs=True)
+
+    def fwd_at(inputs):
+        with autotune.net_scope("resnet50"):
+            return at_fwd(inputs)
+
+    def time_sparse():
+        return device_time(lambda y: fwd_at({"data": y})["prob"],
+                           row["xs"][0], iters=CALIB_REPS,
+                           arg_sets=[(x,) for x in row["xs"]])
+
+    t0 = time.perf_counter()
+    calib = autotune.calibrate_graph(
+        time_sparse, polish=CALIB_POLISH, net_tag="resnet50",
+        cache_path=AUTOTUNE_CACHE,
+        log=lambda m: print(f"calib-log {m}", flush=True))
+    wall = time.perf_counter() - t0
+    measured = autotune.report()
+    x_mb = row["xs"][0].numel() * row["xs"][0].element_size() / 1e6
+    print(f"calib resnet50 b32 autotuned: t_first "
+          f"{calib['t_first'] * 1e3:.3f} ms, t_isolated "
+          f"{calib['t_isolated'] * 1e3:.3f} ms, t_dense "
+          f"{calib['t_dense'] * 1e3:.3f} ms, t_final "
+          f"{calib['t_final'] * 1e3:.3f} ms; flips {calib['flips']}, polish "
+          f"trials {calib.get('polish_trials', 0)}; {calib['keys']} keys, "
+          f"{calib['sparse_keys']} sparse; arms "
+          f"{dict(collections.Counter(calib['arms'].values()))}; "
+          f"{len(measured)} keys measured, measurement + calibration "
+          f"{wall:.1f} s wall; device_time: CUDA events per eager call, "
+          f"median, {CALIB_REPS} calls cycling {N_INPUTS} inputs of "
+          f"{x_mb:.1f} MB (measure_arms: 4 synthetic inputs per key) {tag}")
+    for key, times in sorted(measured.items()):
+        print(f"autotune key {key}: " + " ".join(
+            f"{arm}={t * 1e6:.1f}us" for arm, t in sorted(times.items()))
+            + f" -> {min(times, key=times.get)} {tag}")
+    n_keys, n_fused = _check_arms(at_net, row["params"], row["shapes"],
+                                  measured)
+    print(f"autotune: every arm measured on all {n_keys} keys, the fused "
+          f"kernel on the {n_fused} that sconv_fused.supported takes {tag}")
+    n_measured = len(measured)
+    with autotune.net_scope("resnet50"):
+        at_routes = at_net.routes(row["params"], row["shapes"])
+    if len(autotune.report()) != n_measured:
+        raise SystemExit("Net.routes measured an arm: the cache was not "
+                         "complete after calibration")
+    at_expect = collections.Counter(
+        ROUTE_KERNELS[r] for r in at_routes.values() if r in ROUTE_KERNELS)
+    print(f"net resnet50 autotuned routes (served from the cache): "
+          f"{dict(collections.Counter(at_routes.values()))}; "
+          + ", ".join(f"{n} {r}" for n, r in at_routes.items()) + f" {tag}")
+    for m in mods.values():
+        m.reset_counts()
+    at_out = [fwd_at(i) for i in at_inputs]
+    torch.cuda.synchronize()
+    at_launches = {k: m.launches for k, m in mods.items()}
+    print(f"net resnet50 autotuned launches over {N_INPUTS} forwards: "
+          f"{at_launches} (expected {N_INPUTS} x {dict(at_expect)}: one "
+          f"sconv_fused per \"fused\" route) {tag}")
+    for name, n in at_launches.items():
+        if n != N_INPUTS * at_expect[name]:
+            raise SystemExit(f"autotuned resnet50 launched {name} {n} "
+                             f"times, expected {N_INPUTS * at_expect[name]}")
+        results[name]["launches"] += n
+    num = den = 0.0
+    for inputs, out in zip(at_inputs, at_out):
+        logits = out["fc1000"].float()
+        if not torch.isfinite(logits).all() or \
+                not torch.isfinite(out["prob"].float()).all():
+            raise SystemExit("autotuned resnet50 output is not finite")
+        ref = row["fwd_d"](inputs)["fc1000"]
+        num += (logits - ref).pow(2).sum().item()
+        den += ref.pow(2).sum().item()
+    rel_l2 = (num / den) ** 0.5
+    ok = rel_l2 <= LOGITS_REL_L2
+    print(f"net resnet50 autotuned fc1000 logits vs dense f32: rel L2 "
+          f"{rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}) "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("autotuned resnet50 disagrees with dense f32")
+    del at_out
+    at_ms = {}
+    for label, fn in (("kernel routes", row["fwd_s"]), ("autotuned", fwd_at)):
+        at_ms[f"{label} eager"] = _time_ms(fn, at_inputs)
+        at_ms[f"{label} as a CUDA graph"] = _graph_ms(fn, at_inputs,
+                                                      N_INPUTS)
+    if len(autotune.report()) != n_measured:
+        raise SystemExit("an arm was measured after calibration")
+    print("time resnet50 b32: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in at_ms.items()) + f" {tag}")
+    with autotune.net_scope("resnet50"):
+        per = _layer_split(at_net.layers, fwd_at, at_inputs[0])
+    by_arm, n_arm = collections.Counter(), collections.Counter()
+    for name, t in per.items():
+        by_arm[at_routes.get(name, "other")] += t
+        n_arm[at_routes.get(name, "other")] += 1
+    print(f"layers resnet50 autotuned, device ms per forward, each layer "
+          f"alone as a CUDA graph: sum {sum(per.values()):.3f}; by arm "
+          + ", ".join(f"{r} {t:.3f} ({n_arm[r]} layers)"
+                      for r, t in by_arm.most_common())
+          + "; by layer " + ", ".join(
+              f"{n} ({at_routes.get(n, '-')}) {t:.4f}"
+              for n, t in sorted(per.items(), key=lambda kv: -kv[1]))
+          + f" {tag}")
 
     # ---- 5. times ---------------------------------------------------------
     for model, batch, layers, routes, arms, inputs, inputs_bf16 in e2e:

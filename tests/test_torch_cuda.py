@@ -17,17 +17,25 @@ bn = 32, 64 and 128, a Cout that is not a multiple of 8 (the epilogue's
 scalar stores), bk = 16 with a Cin tail, Cin and bk that are not multiples
 of 8 (the wrapper pads them), 128-row tiles, and sconv_gc over several
 images of odd width, whose epilogue writes the exact output.
+
+The XBSP arms (torch ops, no kernel of this package) run in bf16 on the
+card against the same arm in f32 on the CPU, on the same bf16-valued
+inputs and weights, within the bf16 rule: the card's products accumulate
+in f32 (cuBLAS ``out_dtype``), in place across the live blocks of a column.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
 from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, sconv_fused,
                                             sconv_gc)
+from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
+from caffe_escoin_tpu_torch.utils.benchmark import device_time
 from caffe_escoin_tpu_torch.utils.pruning import prune_blocks, prune_conv_weight
 
 pytestmark = pytest.mark.cuda
@@ -307,3 +315,148 @@ def test_f32_multiplies_are_not_implemented_on_cuda(dev):
     with pytest.raises(NotImplementedError):
         bsc_spmm.bsc_spmm(torch.ones((4, 16), device=dev), bsc,
                           mxu_dtype="float32")
+
+
+# (n, h, w, cin, cout, k, stride, pad, sparsity, block, residual)
+XBSP_SHAPES = {
+    "3x3_c64_res_relu": (2, 14, 14, 64, 64, 3, 1, 1, 0.8, (64, 64), True),
+    "3x3_c256_many_blocks_per_column": (2, 8, 8, 256, 256, 3, 1, 1, 0.6,
+                                        (128, 128), True),
+    "1x1_c256_to_1000_expand": (2, 7, 7, 256, 1000, 1, 1, 0, 0.8,
+                                (128, 128), False),
+    "3x3_s2_c40_tail": (1, 9, 11, 40, 24, 3, 2, 1, 0.7, (16, 16), False),
+}
+
+
+@pytest.mark.parametrize("arm", ["conv", "conv_gathered",
+                                 "conv_gathered_cols"])
+@pytest.mark.parametrize("name", list(XBSP_SHAPES))
+def test_xbsp_arm_bf16_on_cuda_matches_cpu_f32(dev, name, arm):
+    n, h, w, cin, cout, k, st, pad, sp, block, with_res = XBSP_SHAPES[name]
+    rng = np.random.default_rng(3)
+    al = _weight(rng, k, cin, cout, sp, block, False, dev)  # bf16 on dev
+    al_cpu = al.to("cpu", torch.float32)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin)).astype(
+        np.float32)).bfloat16()
+    ho = (h + 2 * pad - k) // st + 1
+    wo = (w + 2 * pad - k) // st + 1
+    res = (torch.randn((n, ho, wo, cout)).bfloat16() if with_res else None)
+    fn = getattr(xbs, arm)
+    kw = dict(stride=(st, st), padding=(pad, pad), relu=True)
+    out = fn(x.to(dev), al, residual=None if res is None else res.to(dev),
+             **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (n, ho, wo, cout)
+    ref = fn(x.float(), al_cpu,
+             residual=None if res is None else res.float(), **kw)
+    _close(out.cpu(), ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", ["fc1000", "ragged_k_tail_relu",
+                                  "split_empty_bcol_bias_relu"])
+def test_xbsp_spmm_bf16_on_cuda_matches_cpu_f32(dev, name):
+    a, bsc, bias, relu = _spmm_case(name, dev, torch.bfloat16)
+    out = xbs.spmm(a, bsc, bias=bias, relu=relu)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    ref = xbs.spmm(a.cpu().float(), bsc.to("cpu", torch.float32),
+                   bias=bias.cpu(), relu=relu)
+    _close(out.cpu(), ref, torch.bfloat16)
+
+
+def _mm_operands(layout, dev):
+    """(a [M, K], b [K, 128]) in bf16 on ``dev``, laid out as named. The
+    first five are layouts the XBSP arms pass to ``_mm`` (a slab's or an
+    fc input's columns, a channel tail); the rest are layouts they must
+    not pass to a product with ``out_dtype`` as they are."""
+    gen = torch.Generator().manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen).bfloat16().to(dev)
+
+    return {
+        "contiguous": lambda: (r(256, 128), r(128, 128)),
+        "column_slice": lambda: (r(256, 384)[:, 128:256], r(128, 128)),
+        # a 1x1 slab at ResNet-50 b32's 56x56: the cin-block of x it reads
+        "column_slice_b32_56x56": lambda: (
+            r(32 * 56 * 56, 256)[:, 128:256], r(128, 128)),
+        "channel_tail": lambda: (r(256, 3), r(128, 128)[:3]),
+        "row_block_of_weight": lambda: (r(256, 64), r(4, 128, 128)[2, :64]),
+        "unaligned_offset": lambda: (r(256, 130)[:, 1:129], r(128, 128)),
+        "transposed_a": lambda: (r(128, 256).t(), r(128, 128)),
+        "every_other_column": lambda: (r(256, 256)[:, ::2], r(128, 128)),
+        "transposed_b": lambda: (r(256, 128), r(128, 128).t()),
+    }[layout]()
+
+
+@pytest.mark.parametrize("layout", [
+    "contiguous", "column_slice", "column_slice_b32_56x56", "channel_tail",
+    "row_block_of_weight",
+    "unaligned_offset", "transposed_a", "every_other_column",
+    "transposed_b"])
+def test_xbsp_products_accumulate_in_f32_on_every_operand_layout(dev,
+                                                                 layout):
+    a, b = _mm_operands(layout, dev)
+    ref = a.cpu().float() @ b.cpu().float()
+    # what cuBLAS's out_dtype products give on the layout as it is (printed
+    # with -s: the layouts _mm must hand over as unit-stride rows)
+    try:
+        raw = torch.mm(a, b, out_dtype=torch.float32)
+        acc = torch.ones_like(raw)
+        torch.addmm(acc, a, b, out_dtype=torch.float32, out=acc)
+        said = (f"mm max err {(raw.cpu() - ref).abs().max().item():.3e}, "
+                f"addmm into out max err "
+                f"{(acc.cpu() - ref - 1).abs().max().item():.3e}")
+    except RuntimeError as e:
+        said = f"raises {e}"
+    print(f"out_dtype products on {layout} (strides a {a.stride()}, b "
+          f"{b.stride()}, offset a {a.storage_offset()}): {said}")
+    out = xbs._mm(a, b)
+    acc = xbs._mm(a, b, torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert out.dtype == acc.dtype == torch.float32
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(acc.cpu(), ref + 1, rtol=1e-4, atol=1e-4)
+
+
+def test_device_time_cycles_sets_and_returns_a_positive_median(dev):
+    seen = []
+    xs = [torch.full((256, 256), float(i), device=dev) for i in range(4)]
+
+    def f(y):
+        seen.append(int(y[0, 0].item()))
+        return y @ y
+
+    t = device_time(f, xs[0], iters=8, arg_sets=[(y,) for y in xs])
+    assert t > 0
+    assert seen == [0, 1, 2, 3] * 3
+
+
+def test_autotune_refuses_to_measure_during_graph_capture(dev, tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setenv("CESCOIN_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+    autotune.clear()
+    rng = np.random.default_rng(4)
+    al = _weight(rng, 3, 64, 64, 0.9, (64, 64), False, dev)
+    pol = ExecutionPolicy(block_shape=(64, 64), autotune=True,
+                          compute_dtype=torch.bfloat16)
+    shape = (1, 8, 8, 64)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    try:
+        with torch.cuda.stream(side):
+            with pytest.raises(RuntimeError, match="capture"):
+                with torch.cuda.graph(graph):
+                    autotune.choose_arm(al, pol, shape, (1, 1), (1, 1),
+                                        (1, 1))
+        # measured outside capture, then served from the cache
+        arm = autotune.choose_arm(al, pol, shape, (1, 1), (1, 1), (1, 1))
+        key = autotune.cache_key(al, shape, (1, 1), (1, 1), (1, 1),
+                                 torch.bfloat16)
+        assert key.startswith("('cuda:")
+        assert set(autotune.report()[key]) == {
+            "unroll", "gathered", "gathered_cols", "dense"}
+        assert arm == min(autotune.report()[key],
+                          key=autotune.report()[key].get)
+    finally:
+        autotune.clear()

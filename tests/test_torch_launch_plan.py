@@ -40,7 +40,8 @@ def layers(request):
     build, shapes = ZOO[model]
     shapes = {"data": (BATCH[model],) + tuple(shapes["data"][1:])}
     policy = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
-                             compute_dtype=torch.bfloat16, cast_back=False)
+                             compute_dtype=torch.bfloat16, cast_back=False,
+                             use_xla_sparse=False)
     net = Net(build(), policy=policy)
     rng = np.random.default_rng(0)
     aligned, convs = {}, {}

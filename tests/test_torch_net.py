@@ -102,7 +102,8 @@ def slice_run():
     np_params = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
                  for k, v in jparams.items()}
 
-    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK)
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+                          use_xla_sparse=False)
     net = Net(_narrow_resnet(resnet._conv_bn, resnet._bottleneck, LayerSpec),
               policy=pol)
     init_params = net.init(torch.Generator().manual_seed(0), SHAPES)

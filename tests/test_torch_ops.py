@@ -75,13 +75,86 @@ def test_conv2d_modes(name):
                        stride=(s, s), padding=(p, p), relu=relu,
                        policy=jpol,
                        residual=None if res is None else jnp.asarray(res))
-    pol = ExecutionPolicy(conv_mode=mode, block_shape=BLOCK)
+    pol = ExecutionPolicy(conv_mode=mode, block_shape=BLOCK,
+                          use_xla_sparse=False)
     counts = (sconv_fused.calls, bsc_spmm.calls)
     out = conv.conv2d(torch.from_numpy(x), weight_align(w, b, policy=pol),
                       stride=(s, s), padding=(p, p), relu=relu, policy=pol,
                       residual=None if res is None else torch.from_numpy(res))
     moved = (sconv_fused.calls - counts[0], bsc_spmm.calls - counts[1])
     assert moved == {None: (0, 0), "sconv": (1, 0), "spmm": (0, 1)}[route]
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# (mode, kernel, stride, pad, relu, residual, forced arm, expected route)
+XBSP_CASES = {
+    "lowered_3x3_residual": (ConvMode.LOWERED_SPARSE, 3, 1, 1, True, True,
+                             "auto", "xbsp_lowered"),
+    "sconv_par_3x3_unroll": (ConvMode.SCONV_PAR, 3, 1, 1, True, False,
+                             "auto", "unroll"),
+    "sconv_3x3_residual_per_image": (ConvMode.SCONV, 3, 1, 1, True, True,
+                                     "auto", "unroll"),
+    "sconv_par_1x1_s2_subsample": (ConvMode.SCONV_PAR, 1, 2, 0, False, True,
+                                   "gathered_cols", "gathered_cols"),
+    "sconv_par_3x3_s2_dense": (ConvMode.SCONV_PAR, 3, 2, 1, True, False,
+                               "auto", "dense"),
+    "sconv_gathered_residual": (ConvMode.SCONV, 1, 1, 0, True, True,
+                                "gathered", "gathered"),
+    "sconv_par_forced_dense": (ConvMode.SCONV_PAR, 3, 1, 1, False, True,
+                               "dense", "dense"),
+    "sconv_par_forced_fused": (ConvMode.SCONV_PAR, 3, 1, 1, True, True,
+                               "fused", "fused"),
+}
+
+
+@pytest.mark.parametrize("name", list(XBSP_CASES))
+def test_conv2d_xbsp_modes(name):
+    """The default policy's XBSP branch against the JAX dispatcher's (its
+    Pallas fused kernel in interpret mode where an arm is forced to it)."""
+    mode, k, s, p, relu, with_res, arm, route = XBSP_CASES[name]
+    rng = np.random.default_rng(12)
+    cin, cout, hw = 32, 48, 9
+    x = rng.standard_normal((3, hw, hw, cin)).astype(np.float32)
+    w = prune_conv_weight(rng.standard_normal((k, k, cin, cout)).astype(
+        np.float32) * 0.1, 0.9, (8, 8))
+    b = rng.standard_normal(cout).astype(np.float32)
+    ho = (hw + 2 * p - k) // s + 1
+    res = rng.standard_normal((3, ho, ho, cout)).astype(np.float32) \
+        if with_res else None
+    jpol = JPolicy(conv_mode=JConvMode(int(mode)), block_shape=(8, 8),
+                   xbsp_arm=arm, interpret=True, mxu_dtype="float32")
+    ref = jconv.conv2d(jnp.asarray(x), jweight_align(w, b, policy=jpol),
+                       stride=(s, s), padding=(p, p), relu=relu, policy=jpol,
+                       residual=None if res is None else jnp.asarray(res))
+    pol = ExecutionPolicy(conv_mode=mode, block_shape=(8, 8), xbsp_arm=arm)
+    al = weight_align(w, b, policy=pol)
+    xt = torch.from_numpy(x)
+    assert conv.conv_route(xt, al, stride=(s, s), padding=(p, p),
+                           policy=pol) == route
+    counts = (sconv_fused.calls, bsc_spmm.calls)
+    out = conv.conv2d(xt, al, stride=(s, s), padding=(p, p), relu=relu,
+                      policy=pol,
+                      residual=None if res is None else torch.from_numpy(res))
+    moved = (sconv_fused.calls - counts[0], bsc_spmm.calls - counts[1])
+    assert moved == ((1, 0) if route == "fused" else (0, 0))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_linear_sparse_xbsp(relu):
+    """The default policy's fc: the XBSP spmm, no kernel entry."""
+    rng = np.random.default_rng(4)
+    w = prune_blocks(rng.standard_normal((64, 40)).astype(np.float32), 0.75,
+                     BLOCK)
+    b = rng.standard_normal(40).astype(np.float32)
+    x = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    ref = jlinear.linear_sparse(jnp.asarray(x), jdense_to_bsc(w, BLOCK),
+                                jnp.asarray(b), relu=relu)
+    calls = bsc_spmm.calls
+    out = linear.linear_sparse(torch.from_numpy(x), dense_to_bsc(w, BLOCK),
+                               torch.from_numpy(b), relu=relu)
+    assert bsc_spmm.calls == calls
+    assert out.shape == (2, 3, 40)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
@@ -141,7 +214,8 @@ def test_linear_sparse(relu):
                                 policy=_jpol(ConvMode.LOWERED_SPARSE))
     calls = bsc_spmm.calls
     out = linear.linear_sparse(torch.from_numpy(x), dense_to_bsc(w, BLOCK),
-                               torch.from_numpy(b), relu=relu)
+                               torch.from_numpy(b), relu=relu,
+                               policy=ExecutionPolicy(use_xla_sparse=False))
     assert bsc_spmm.calls == calls + 1
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     dense = linear.linear(torch.from_numpy(x), torch.from_numpy(w),

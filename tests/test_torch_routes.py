@@ -40,7 +40,8 @@ JPOL = JPolicy(conv_mode=JConvMode.SCONV_PAR, block_shape=BLOCK,
 
 def _policy(dtype):
     return ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
-                           compute_dtype=dtype, cast_back=False)
+                           compute_dtype=dtype, cast_back=False,
+                           use_xla_sparse=False)
 
 
 @pytest.fixture(scope="module", params=["vgg16", "resnet50"])

@@ -28,7 +28,7 @@ from caffe_escoin_tpu_torch.utils.pruning import prune_conv_weight  # noqa: E402
 JPOL = JPolicy(block_shape=(128, 128), interpret=True, use_pallas=True,
                mxu_dtype="float32", use_xla_sparse=False,
                conv_mode=JConvMode.SCONV_PAR)
-POL = ExecutionPolicy(block_shape=(128, 128))
+POL = ExecutionPolicy(block_shape=(128, 128), use_xla_sparse=False)
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 

@@ -36,7 +36,7 @@ def _policies(block):
                    mxu_dtype="float32", use_xla_sparse=False,
                    conv_mode=JConvMode.SCONV_PAR, spmm_tile_m=64)
     return jpol, ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR,
-                                 block_shape=block)
+                                 block_shape=block, use_xla_sparse=False)
 
 
 def _weights(n, h, w, cin, cout, k, sparsity, bias, seed, empty_col, block):

@@ -90,7 +90,8 @@ def slice_run():
         jparams = jnet.init(jax.random.PRNGKey(0), SHAPES)
         np_params = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
                      for k, v in jparams.items()}
-        pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK)
+        pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+                              use_xla_sparse=False)
         net = Net(vgg.vgg16(num_classes=10), policy=pol)
         params, _ = params_from_jax(np_params)
 
