@@ -19,8 +19,9 @@ in a JSON file. The port differs from the JAX module in five ways:
   ``_key_traffic`` reads;
 * ``code_fingerprint`` hashes the port's own ``kernels/*.py`` and
   ``csrc/*`` and the toggles;
-* timing is ``utils/benchmark.device_time``: CUDA events around eager
-  calls, host dispatch included;
+* timing is ``utils/benchmark.device_time``: on the card, CUDA-graph
+  replays of each candidate (the device's time, as the JAX timer reads one
+  compiled program's device span), after eager warm-up calls;
 * ``calibrate_graph`` times each trial between two fresh readings of the
   assignment it would replace (its docstring says why);
 * an arm that raises while it is measured, or a whole-net forward that
@@ -35,8 +36,8 @@ fingerprint differs, and no key of it could match a port key.
 Switches, as in the JAX module: ``CESCOIN_AUTOTUNE_CACHE`` (the file when
 the policy names none), ``CESCOIN_AUTOTUNE_LOG_HITS`` (print each cached
 pick served outside ``record_keys``), ``CESCOIN_AUTOTUNE_FUSED`` (let the
-``sconv_fused`` kernel compete where ``sconv_fused.supported`` takes the
-shape).
+``sconv_fused`` kernel compete where the dispatcher would run it:
+``sconv_fused.supported`` and ``fits_budget``).
 
 Enabled by ``ExecutionPolicy(autotune=True)``; off by default.
 """
@@ -213,11 +214,13 @@ def measure_arms(aligned, policy, x_shape, stride, padding, dilation,
         "dense": lambda y: conv_ops.conv2d_dense(
             y, wd, aligned.bias, groups=aligned.groups, **geo),
     }
-    # the hand-written direct kernel competes only when opted in, as the
-    # JAX package's Pallas fused kernel does
+    # the hand-written direct kernel competes only when opted in, and only
+    # where the dispatcher would run it: the reference's gate, size budget
+    # included (as the JAX package's Pallas fused kernel)
     if (os.environ.get("CESCOIN_AUTOTUNE_FUSED")
             and sconv_fused.supported(x, aligned, stride=stride,
-                                      dilation=dilation)):
+                                      dilation=dilation)
+            and sconv_fused.fits_budget(x, aligned, padding)):
         cands["fused"] = lambda y: sconv_fused.sconv(
             y, aligned, padding=padding, relu=False,
             mxu_dtype=policy.mxu_dtype)
@@ -357,10 +360,13 @@ def calibrate_graph(time_fn: Callable[[], float], *,
     Unlike the JAX module, which compares each trial with the best time
     read so far, every comparison here (2-4) times the trial between two
     fresh readings of the assignment it would replace and takes the
-    faster of those: eager whole-net times drift between calls, and the
-    first reading after measurement reads high, so a stale best lets a
-    slower trial win. On a deterministic ``time_fn`` both rules decide
-    alike.
+    faster of those, so that a reading taken in another state of the
+    device (its clocks, its caches, the host beside it) does not decide
+    a trial. The rule was added when the port's readings were eager
+    times, which drifted by up to 45% between calls and read high just
+    after measurement; a ``time_fn`` of CUDA-graph replays
+    (``utils/benchmark.device_time``) leaves the host out of the reading.
+    On a deterministic ``time_fn`` both rules decide alike.
 
     Returns a report with the timings and the final arms.
     """

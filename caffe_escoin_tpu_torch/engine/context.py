@@ -18,11 +18,21 @@ from typing import Optional, Tuple
 import torch
 
 
+class SparseFormat(enum.Enum):
+    CSR = "csr"  # interchange only
+    ELL = "ell"  # unstructured: the gather SpMM (kernels/spmm.py)
+    BSR = "bsr"  # block-structured: the block-sparse executors
+
+
 class ConvMode(enum.IntEnum):
     """Convolution execution modes (same values as the JAX package).
 
     LOWERED_GEMM   -- dense convolution (``F.conv2d``).
-    LOWERED_SPARSE -- im2col + block-sparse SpMM (kernels/bsc_spmm.py).
+    LOWERED_SPARSE -- im2col + sparse SpMM: with ``sparse_format=ELL``
+                      (and the ELL artifact aligned) the gather SpMM of
+                      kernels/spmm.py over the row-sparse W^T, else the
+                      block-sparse SpMM (the XBSP ``spmm`` or
+                      kernels/bsc_spmm.py).
     SCONV          -- direct sparse convolution. On the XBSP branch
                       (``use_xla_sparse``) the arm runs image by image, as
                       the reference's ``forward_gpu_sconv`` loops over the
@@ -53,6 +63,10 @@ class ExecutionPolicy:
     On CUDA only "bfloat16" is implemented: "float32" raises
     NotImplementedError there (the plain versions honour both on the CPU).
 
+    ``sparse_format``: ELL makes ``weight_align`` build the row-sparse
+    W^T (``AlignedConvWeight.ell_t``) and LOWERED_SPARSE run it through
+    the gather SpMM; BSR (the default) keeps the block-sparse executors.
+
     ``use_xla_sparse`` (the default) runs each sparse conv and fc through
     the XBSP arms (kernels/xla_block_sparse.py: torch ops, the name kept
     from the JAX package); False takes the hand-written kernels' routes.
@@ -64,6 +78,7 @@ class ExecutionPolicy:
     """
 
     conv_mode: ConvMode = ConvMode.LOWERED_GEMM
+    sparse_format: SparseFormat = SparseFormat.BSR
     block_shape: Tuple[int, int] = (8, 128)  # (cin-block, cout-block)
     sparse_threshold: float = 0.5
     sconv_threshold: float = 0.5

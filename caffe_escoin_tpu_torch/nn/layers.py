@@ -40,7 +40,8 @@ def _cast(params, dtype):
     caller already cast them, e.g. with nn.net.params_to)."""
     if isinstance(params, AlignedConvWeight):
         if params.dense.dtype == dtype and (
-                params.bsc is None or params.bsc.blocks.dtype == dtype):
+                params.bsc is None or params.bsc.blocks.dtype == dtype) and (
+                params.ell_t is None or params.ell_t.values.dtype == dtype):
             return params
         return params.to(dtype=dtype)
     return {k: v.to(dtype) if v.is_floating_point() else v
@@ -97,6 +98,8 @@ class ConvolutionLayer(Layer):
                  conv_ops._out_spatial(w, kw, sw, pw, dw), c["cout"])]
 
     def align(self, params):
+        """``weight_align`` under the layer's policy: the BSC, and the ELL
+        of W^T where the policy's ``sparse_format`` is ELL."""
         if isinstance(params, AlignedConvWeight):
             return params
         return weight_align(params["w"], params.get("b"),

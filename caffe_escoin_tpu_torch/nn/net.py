@@ -145,7 +145,8 @@ class Net(torch.nn.Module):
     def routes(self, aligned_params, input_shapes: Dict[str, Tuple[int, ...]],
                input_dtype: torch.dtype = torch.float32) -> Dict[str, str]:
         """The route of every conv and fc layer (``Layer.route``: e.g.
-        "unroll", "gathered", "fused", "xbsp_spmm", "dense", or with
+        "unroll", "gathered", "fused", "xbsp_spmm", "dense", "ell" in
+        LOWERED_SPARSE with the ELL format, or with
         ``use_xla_sparse=False`` "fused", "gc", "lowered", "spmm") for
         inputs of these shapes and dtype, from shapes alone: nothing runs.
         With ``autotune`` on, each sparse conv's arm is served from the
@@ -201,11 +202,45 @@ class Net(torch.nn.Module):
 
     def inference_fn(self, aligned_params, *,
                      state: Optional[Dict[str, Any]] = None,
-                     return_blobs: bool = False):
-        """Forward over fixed (aligned) params, under inference mode."""
+                     return_blobs: bool = False, cuda_graph: bool = False):
+        """Forward over fixed (aligned) params, under inference mode.
+
+        ``cuda_graph=True`` gives the counterpart of the JAX package's
+        jitted forward: on CUDA inputs, the first call for a set of input
+        names, shapes and dtypes runs eagerly (which fills the autotune
+        cache; autotune raises if it would measure during a capture) and
+        then captures the forward as a CUDA graph over static copies of the
+        inputs. Later calls with that signature copy their inputs in and
+        replay the graph. A replay returns the graph's own output tensors:
+        they stay valid until the next call with the same signature
+        overwrites them, so clone what must outlive it. CPU inputs run
+        eagerly."""
         def run(inputs):
             with torch.inference_mode():
                 return self.forward(aligned_params, inputs, state=state,
                                     return_blobs=return_blobs)
 
-        return run
+        if not cuda_graph:
+            return run
+        graphs: Dict[Any, Any] = {}
+
+        def replay(inputs):
+            if not all(v.is_cuda for v in inputs.values()):
+                return run(inputs)
+            sig = tuple(sorted((k, tuple(v.shape), v.dtype, v.device)
+                               for k, v in inputs.items()))
+            if sig not in graphs:
+                out = run(inputs)
+                static = {k: v.clone() for k, v in inputs.items()}
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    captured = run(static)
+                graphs[sig] = (graph, static, captured)
+                return out
+            graph, static, captured = graphs[sig]
+            for k, v in inputs.items():
+                static[k].copy_(v)
+            graph.replay()
+            return captured
+
+        return replay

@@ -2,9 +2,13 @@
 ``caffe_escoin_tpu/ops/conv.py``).
 
 * LOWERED_GEMM   -> ``F.conv2d`` (cuDNN on the card).
-* LOWERED_SPARSE -> im2col + block-sparse SpMM: the XBSP ``spmm``
-                    (kernels/xla_block_sparse.py) with ``use_xla_sparse``,
-                    else the SpMM kernel (kernels/bsc_spmm.py).
+* LOWERED_SPARSE -> im2col + SpMM: with ``sparse_format=ELL`` and the
+                    ELL artifact aligned, the gather SpMM over the
+                    row-sparse W^T (kernels/spmm.ell_spmm, torch ops, as
+                    the JAX package's ``ops/conv.py:146-149``); else the
+                    XBSP ``spmm`` (kernels/xla_block_sparse.py) with
+                    ``use_xla_sparse``, else the SpMM kernel
+                    (kernels/bsc_spmm.py).
 * SCONV[_PAR]    -> with ``use_xla_sparse`` (the default), the JAX
                     package's default executor (its ``ops/conv.py:188-203,
                     256-312``): a strided 1x1 conv subsamples first, a
@@ -34,8 +38,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy
+from caffe_escoin_tpu_torch.engine.context import (ConvMode, ExecutionPolicy,
+                                                   SparseFormat)
 from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
+from caffe_escoin_tpu_torch.kernels import spmm as spmm_kernels
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
 
@@ -86,9 +92,11 @@ def conv2d_dense(x, w_hwio, bias=None, *, stride=(1, 1), padding=(0, 0),
 def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
                           dilation, relu, policy: ExecutionPolicy,
                           residual=None):
-    """im2col + SpMM over the sparse GEMM-view weight (bias and ReLU in the
-    SpMM's epilogue, the residual after it): the XBSP ``spmm`` with
-    ``use_xla_sparse``, else the SpMM kernel."""
+    """im2col + SpMM over the sparse GEMM-view weight: the ELL gather SpMM
+    (``_uses_ell``; bias, residual and ReLU in f32 after it, then one cast
+    to x's dtype), else the XBSP ``spmm`` with ``use_xla_sparse``, else the
+    SpMM kernel (bias and ReLU in the SpMM's epilogue, the residual after
+    it)."""
     kh, kw = aligned.kernel_shape
     cols, (ho, wo) = im2col(x, (kh, kw), stride=stride, padding=padding,
                             dilation=dilation)
@@ -99,6 +107,21 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
         # offset-aligned
         cols2d = F.pad(cols2d, (0, aligned.cin_pad - aligned.cin))
     cols2d = cols2d.reshape(n * ho * wo, aligned.k)
+    if _uses_ell(aligned, policy):
+        # the reference's CSR orientation: rows are output channels
+        out = spmm_kernels.ell_spmm(aligned.ell_t, cols2d.T).T
+        if aligned.bias is not None:
+            out = out + aligned.bias.float()
+        out = out.reshape(n, ho, wo, aligned.cout)
+        if residual is not None:
+            out = out + residual.float()
+        if relu:
+            out = torch.relu(out)
+        # out is still laid out as ell_spmm's [Cout, M]: one cast and
+        # transpose
+        return torch.empty_like(out, dtype=x.dtype,
+                                memory_format=torch.contiguous_format
+                                ).copy_(out)
     if xbs.spmm_supported(aligned.bsc, policy):
         out2d = xbs.spmm(cols2d, aligned.bsc, bias=aligned.bias,
                          relu=relu and residual is None)
@@ -112,8 +135,15 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
     return out
 
 
+def _uses_ell(aligned: AlignedConvWeight, policy: ExecutionPolicy) -> bool:
+    """LOWERED_SPARSE runs the ELL gather SpMM: the policy asks for ELL and
+    the weight was aligned with it."""
+    return (policy.sparse_format == SparseFormat.ELL
+            and aligned.ell_t is not None)
+
+
 # the kernel each conv route launches once per layer; the rest ("dense",
-# the XBSP arms, "xbsp_lowered") launch none
+# the XBSP arms, "xbsp_lowered", "ell") launch none
 ROUTE_KERNELS = {"fused": "sconv_fused", "gc": "sconv_gc",
                  "spmm_1x1": "bsc_spmm", "lowered": "bsc_spmm"}
 # the XBSP arm functions by route name
@@ -133,8 +163,11 @@ def _xbsp_route(x, aligned: AlignedConvWeight, stride, padding, dilation,
                 policy: ExecutionPolicy) -> str:
     """The SCONV route of the JAX package's ``conv2d_sconv`` with
     ``use_xla_sparse`` (its ``ops/conv.py:188-203, 256-312``): "dense" for
-    a strided k>1 conv, else the arm of ``best_arm`` (a "fused" pick the
-    kernel cannot take runs the unroll, as there)."""
+    a strided k>1 conv, else the arm of ``best_arm``. A "fused" pick runs
+    the kernel only where the reference's gate holds, the kernel's own
+    limits and the TPU kernel's size budget (``sconv_fused.fits_budget``,
+    part of the reference's ``supported``); elsewhere it runs the unroll,
+    as there."""
     if stride != (1, 1):
         if aligned.kernel_shape == (1, 1) and dilation == (1, 1):
             return _xbsp_route(_subsampled(x, stride, padding), aligned,
@@ -144,8 +177,9 @@ def _xbsp_route(x, aligned: AlignedConvWeight, stride, padding, dilation,
                        padding=padding, dilation=dilation)
     if arm == "dense":
         return "dense"
-    if arm == "fused" and sconv_fused.supported(x, aligned,
-                                                dilation=dilation):
+    if (arm == "fused" and sconv_fused.supported(x, aligned,
+                                                 dilation=dilation)
+            and sconv_fused.fits_budget(x, aligned, padding)):
         return "fused"
     return arm if arm in XBSP_ARMS else "unroll"
 
@@ -184,11 +218,14 @@ def conv_route(x, aligned: AlignedConvWeight, *,
                dilation: Tuple[int, int] = (1, 1),
                mode: Optional[ConvMode] = None,
                policy: Optional[ExecutionPolicy] = None) -> str:
-    """The route ``conv2d`` takes for this layer. With ``use_xla_sparse``:
-    "dense", "xbsp_lowered", or an arm ("unroll", "gathered",
-    "gathered_cols", "fused"); without: "dense", "lowered", "fused",
-    "spmm_1x1" or "gc". ``x`` needs only ``shape`` and ``dtype`` (a meta
-    tensor will do); its dtype is the activation's after any compute-dtype
+    """The route ``conv2d`` takes for this layer: in LOWERED_SPARSE "ell"
+    (``sparse_format=ELL`` with the ELL artifact aligned), else
+    "xbsp_lowered" with ``use_xla_sparse`` or "lowered" without; in SCONV
+    with ``use_xla_sparse``, "dense" or an arm ("unroll", "gathered",
+    "gathered_cols", "fused"); without, "dense", "lowered", "fused",
+    "spmm_1x1" or "gc". A layer with no sparse artifact, or denser than
+    the mode's threshold, runs "dense". ``x`` needs only ``shape`` and
+    ``dtype`` (a meta tensor will do); its dtype is the activation's after any compute-dtype
     cast, since the size gates count its bytes and autotune's key holds
     its shape. With ``policy.autotune`` the arm comes from the autotune
     cache, and a key not in it yet is measured first on the weight's
@@ -201,10 +238,13 @@ def conv_route(x, aligned: AlignedConvWeight, *,
         profitable = aligned.sparsity >= policy.sconv_threshold
     else:
         profitable = False
-    if mode == ConvMode.LOWERED_GEMM or aligned.bsc is None or not profitable:
+    sparse_ready = aligned.bsc is not None or aligned.ell_t is not None
+    if mode == ConvMode.LOWERED_GEMM or not sparse_ready or not profitable:
         return "dense"
     stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     if mode == ConvMode.LOWERED_SPARSE:
+        if _uses_ell(aligned, policy):
+            return "ell"
         return ("xbsp_lowered" if xbs.spmm_supported(aligned.bsc, policy)
                 else "lowered")
     if xbs.supported(aligned, policy):
@@ -245,7 +285,7 @@ def _run_route(route, x, aligned: AlignedConvWeight, *, stride, padding,
             x, aligned.dense, aligned.bias, stride=stride, padding=padding,
             dilation=dilation, groups=aligned.groups, relu=relu,
             residual=residual)
-    if route in ("lowered", "xbsp_lowered"):
+    if route in ("lowered", "xbsp_lowered", "ell"):
         return conv2d_lowered_sparse(
             x, aligned, stride=stride, padding=padding, dilation=dilation,
             relu=relu, policy=policy, residual=residual)

@@ -15,7 +15,9 @@ kernels' routes (``use_xla_sparse=False``):
 
 both weight-aligned to BSC and run in SCONV_PAR mode in bf16 on the card;
 then ResNet-50 as a bare ``python bench.py`` runs it: the XBSP arms,
-measured autotune and whole-graph calibration (phase 4b).
+measured autotune and whole-graph calibration (phase 4b); then ResNet-50
+as ``bench.py --granularity unstructured`` prunes it, element-wise, run
+through the ELL gather SpMM (phase 4c).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -36,7 +38,13 @@ Phases, one line each (any failure exits non-zero):
      fc1000, in bf16, each against the f32 conv (``conv2d_dense``) or
      matmul (``linear``) on the f32 dense pruned weight, TF32 off, within
      the same limit; each timed eager and as a CUDA graph beside the dense
-     bf16 cuDNN conv (or ``torch.addmm``) and its bound.
+     bf16 cuDNN conv (or ``torch.addmm``) and its bound. Also the ELL gather
+     SpMM (kernels/spmm.ell_spmm, torch ops) at res2's 3x3 (the ELL of
+     W^T, 64 x 576 pruned element-wise to 90%, against the im2col's
+     transpose, M = 32*56*56) in bf16 against the f32 product, timed
+     beside ``torch.sparse.mm`` on a CSR of the same weight (cuSPARSE, the
+     library the reference's csrmm2 path calls; never on the port's path)
+     and its bound.
   4. nets, each on 4 distinct inputs with every launch counter set to 0
      just before and read just after: every kernel must have launched as
      many times as the layers' routes (``Net.routes``, the function the
@@ -49,16 +57,36 @@ Phases, one line each (any failure exits non-zero):
      ``CESCOIN_AUTOTUNE_FUSED=1`` (the fused kernel competes), on the same
      pruned, fused weights and the same 4 inputs as the ResNet-50 row, the
      cache in a fresh file under ``build/``. ``calibrate_graph`` with
-     polish 8 under ``net_scope("resnet50")`` (its ``time_fn`` is
-     ``device_time`` of the eager forward cycling the 4 inputs; the first
-     forward measures every key; an arm or a forward that raises fails the
-     run); then the ``calib`` line, every key's isolated arm times (each
-     key must hold every arm, ``fused`` wherever ``sconv_fused.supported``
-     takes the key), the routes served from the cache, launches
-     (``sconv_fused`` once per "fused" route), the logits against dense f32
-     (same limit), the forward eager and as a CUDA graph beside the
-     kernel-route row's, and the per-layer split by arm. No arm is measured
-     during a CUDA-graph capture: autotune raises if it would.
+     polish 8 under ``net_scope("resnet50")``, three times, each from an
+     emptied cache (``autotune.clear()``, the file removed). Its
+     ``time_fn`` is ``device_time`` of the whole forward, which captures
+     the forward anew on each call (the trials change the routes) and
+     times CUDA-graph replays cycling the 4 inputs; ``measure_arms`` times
+     every candidate the same way. The first forward of each run measures
+     every key; an arm or a forward that raises fails the run. Each run's
+     ``calib`` line, every key's isolated arm times (each key must hold
+     every arm, ``fused`` wherever ``sconv_fused.supported`` and the
+     reference's size gate ``fits_budget`` take the key), each key's arm
+     in the three runs and whether they agree. Then, on the last run's
+     picks: the routes served from the cache, launches (``sconv_fused``
+     once per "fused" route), the logits against dense f32 (same limit),
+     the forward eager, as a CUDA graph and through
+     ``inference_fn(cuda_graph=True)``, beside the kernel-route row's; the
+     run fails if the autotuned CUDA graph takes more than
+     ``AUTOTUNED_GRAPH_LIMIT`` times the kernel route's. Then the
+     per-layer split by arm. No arm is measured during a CUDA-graph
+     capture: autotune raises if it would.
+  4c. ResNet-50 b32 unstructured: the kernel-route row's random weights
+     (seed 0), its conv weights (the stem stays dense) pruned element-wise
+     to 90% with ``prune_conv_weight(w, 0.9, None)`` and fc1000 with
+     ``prune_magnitude``, fused, aligned under LOWERED_SPARSE with
+     ``sparse_format=ELL`` (128x128 blocks for the BSC it also builds), in
+     bf16. Routes (``Net.routes``): conv1 dense, the other 52 convs "ell",
+     fc1000 dense (every 128x128 block of it is live). Every launch counter
+     must read 0 over the 4 forwards: this path runs no hand kernel. The
+     logits within 5e-2 relative L2 of the same pruned net run dense in
+     f32; the forward eager, each layer alone as a CUDA graph, and each ELL
+     layer's width and nnz.
   5. times (CUDA events, after warm-up, cycling the 4 inputs): each net
      sparse, dense-bf16 and dense-f32, eager, and the sparse forward
      replayed as a CUDA graph (its device time, without the host's
@@ -79,7 +107,7 @@ Phases, one line each (any failure exits non-zero):
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
-``launches`` sums the three nets' runs (phases 4 and 4b). As the last line
+``launches`` sums the nets' runs (phases 4, 4b and 4c). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -126,7 +154,12 @@ ROUTE_REPS = 100
 # cache file of this run's own (gitignored, deleted first)
 CALIB_POLISH = 8
 CALIB_REPS = 8
+CALIB_RUNS = 3
 AUTOTUNE_CACHE = "build/chip_smoke_autotune.json"
+# the autotuned forward as a CUDA graph may take at most this many times the
+# kernel route's: its router reads device time, and the fused kernel is
+# among its candidates
+AUTOTUNED_GRAPH_LIMIT = 1.15
 
 
 def _card_line() -> str:
@@ -227,9 +260,11 @@ def _nopad(fn, x):
 
 def _check_arms(net, params, shapes, measured):
     """(keys, keys with "fused"): every arm competed on every measured key,
-    the fused kernel wherever ``sconv_fused.supported`` takes it. Each key
-    is mapped back to its conv as the dispatcher forms it (a strided 1x1
-    conv on its subsampled map); raises SystemExit otherwise."""
+    the fused kernel wherever the dispatcher would run it
+    (``sconv_fused.supported`` and the reference's size gate
+    ``fits_budget``). Each key is mapped back to its conv as the
+    dispatcher forms it (a strided 1x1 conv on its subsampled map); raises
+    SystemExit otherwise."""
     import torch
 
     from caffe_escoin_tpu_torch.engine import autotune
@@ -256,7 +291,8 @@ def _check_arms(net, params, shapes, measured):
             continue
         seen.add(key)
         want = {"unroll", "gathered", "gathered_cols", "dense"}
-        if sconv_fused.supported(x, al, stride=stride, dilation=dil):
+        if (sconv_fused.supported(x, al, stride=stride, dilation=dil)
+                and sconv_fused.fits_budget(x, al, pad)):
             want.add("fused")
             n_fused += 1
         if set(measured[key]) != want:
@@ -269,15 +305,18 @@ def _check_arms(net, params, shapes, measured):
     return len(seen), n_fused
 
 
-def _prune(net, params, keep_norm=False):
-    """bench.py's pruning: conv and fc weights at SPARSITY in BLOCK blocks.
-    The stem (3 input channels) stays dense. ``keep_norm`` scales each
-    pruned weight back to its Frobenius norm, which bench.py does not: it
-    keeps the signal alive through VGG-16's sixteen pruned layers."""
+def _prune(net, params, keep_norm=False, block=BLOCK):
+    """bench.py's pruning: conv and fc weights at SPARSITY in ``block``
+    blocks, or element-wise with ``block=None`` (``--granularity
+    unstructured``). The stem (3 input channels) stays dense.
+    ``keep_norm`` scales each pruned weight back to its Frobenius norm,
+    which bench.py does not: it keeps the signal alive through VGG-16's
+    sixteen pruned layers."""
     import torch
 
     from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
-                                                      prune_conv_weight)
+                                                      prune_conv_weight,
+                                                      prune_magnitude)
 
     out = dict(params)
     for layer in net.layers:
@@ -288,9 +327,10 @@ def _prune(net, params, keep_norm=False):
         q = dict(out[name])
         w = q["w"].numpy()
         if kind == "InnerProduct":
-            wp = prune_blocks(w, SPARSITY, BLOCK)
+            wp = (prune_magnitude(w, SPARSITY) if block is None
+                  else prune_blocks(w, SPARSITY, block))
         elif w.shape[2] >= 32:
-            wp = prune_conv_weight(w, SPARSITY, BLOCK)
+            wp = prune_conv_weight(w, SPARSITY, block)
         else:
             continue
         if keep_norm:
@@ -321,10 +361,13 @@ def main() -> int:
         from caffe_escoin_tpu_torch.models import ZOO
         from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
         from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
-        from caffe_escoin_tpu_torch.sparse import dense_to_bsc
+        from caffe_escoin_tpu_torch.engine.context import SparseFormat
+        from caffe_escoin_tpu_torch.kernels.spmm import ell_spmm
+        from caffe_escoin_tpu_torch.sparse import dense_to_bsc, dense_to_ell
         from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
         from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
-                                                          prune_conv_weight)
+                                                          prune_conv_weight,
+                                                          prune_magnitude)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run from "
               f"the repository root", file=sys.stderr)
@@ -619,6 +662,32 @@ def main() -> int:
                   32 * live_cols(bsc, bsc.n_brows, 2048) * 2
                   + live_bytes(bsc) + 32 * 1000 * 2,
                   2 * 32 * bsc.nnz_blocks * BLOCK[0] * BLOCK[1])
+        # the ELL gather SpMM at res2's 3x3: the ELL of W^T [64, 576]
+        # against the im2col's transpose [576, 32*56*56]
+        m_ell = 32 * 56 * 56
+        w_t = torch.from_numpy(prune_magnitude(
+            rng_np.standard_normal((64, 576)).astype("float32")
+            * (2.0 / 576) ** 0.5, SPARSITY)).bfloat16()
+        ell = dense_to_ell(w_t.float().numpy(), lane_pad=8).to(
+            dev, torch.bfloat16)
+        w_t = w_t.to(dev)
+        w_csr = w_t.to_sparse_csr()
+        b_list = [torch.randn((576, m_ell), generator=gen, device=dev
+                              ).bfloat16() for _ in range(N_INPUTS)]
+        out = ell_spmm(ell, b_list[0])
+        torch.cuda.synchronize()
+        label = f"res2 3x3 W^T 64x576 ({ell.nnz} nnz, width {ell.width}) @ " \
+                f"576x{m_ell}"
+        check("ell_spmm", label, out, w_t.float() @ b_list[0].float())
+        live_k = int((w_t != 0).any(dim=0).sum())
+        time_line("ell", label,
+                  {"ell_spmm": lambda b: ell_spmm(ell, b),
+                   "torch.sparse.mm (cuSPARSE CSR)":
+                       lambda b: torch.sparse.mm(w_csr, b)},
+                  b_list,
+                  live_k * m_ell * 2 + ell.values.numel() * 6
+                  + 64 * m_ell * 4, 2 * ell.nnz * m_ell)
+        del b_list, out
     gen.set_state(gen_state)
     rng_np.bit_generator.state = np_state
 
@@ -703,7 +772,8 @@ def main() -> int:
               f"{peak:.3e} {'ok' if ok else 'FAIL'} {tag}")
         if not ok:
             raise SystemExit(f"sparse {model} disagrees with dense f32")
-        kept[model] = dict(specs=fnet.specs, params=sparse_params, xs=xs,
+        kept[model] = dict(net=net, init=params, specs=fnet.specs,
+                           params=sparse_params, xs=xs,
                            shapes=shapes, fwd_s=fwd_s, fwd_d=fwd_d)
         e2e.append((model, batch, fnet.layers, routes,
                     {"sparse": fwd_s, "dense-bf16": fwd_db,
@@ -715,10 +785,7 @@ def main() -> int:
     # ---- 4b. ResNet-50 b32 autotuned ---------------------------------------
     row = kept["resnet50"]
     os.environ["CESCOIN_AUTOTUNE_FUSED"] = "1"
-    if os.path.exists(AUTOTUNE_CACHE):
-        os.remove(AUTOTUNE_CACHE)
     os.makedirs(os.path.dirname(AUTOTUNE_CACHE), exist_ok=True)
-    autotune.clear()
     pol_at = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
                              compute_dtype=torch.bfloat16, cast_back=False,
                              use_xla_sparse=True, autotune=True,
@@ -732,39 +799,55 @@ def main() -> int:
             return at_fwd(inputs)
 
     def time_sparse():
+        # captures the forward anew: the trials change its routes
         return device_time(lambda y: fwd_at({"data": y})["prob"],
                            row["xs"][0], iters=CALIB_REPS,
                            arg_sets=[(x,) for x in row["xs"]])
 
-    t0 = time.perf_counter()
-    calib = autotune.calibrate_graph(
-        time_sparse, polish=CALIB_POLISH, net_tag="resnet50",
-        cache_path=AUTOTUNE_CACHE,
-        log=lambda m: print(f"calib-log {m}", flush=True))
-    wall = time.perf_counter() - t0
-    measured = autotune.report()
     x_mb = row["xs"][0].numel() * row["xs"][0].element_size() / 1e6
-    print(f"calib resnet50 b32 autotuned: t_first "
-          f"{calib['t_first'] * 1e3:.3f} ms, t_isolated "
-          f"{calib['t_isolated'] * 1e3:.3f} ms, t_dense "
-          f"{calib['t_dense'] * 1e3:.3f} ms, t_final "
-          f"{calib['t_final'] * 1e3:.3f} ms; flips {calib['flips']}, polish "
-          f"trials {calib.get('polish_trials', 0)}; {calib['keys']} keys, "
-          f"{calib['sparse_keys']} sparse; arms "
-          f"{dict(collections.Counter(calib['arms'].values()))}; "
-          f"{len(measured)} keys measured, measurement + calibration "
-          f"{wall:.1f} s wall; device_time: CUDA events per eager call, "
-          f"median, {CALIB_REPS} calls cycling {N_INPUTS} inputs of "
-          f"{x_mb:.1f} MB (measure_arms: 4 synthetic inputs per key) {tag}")
-    for key, times in sorted(measured.items()):
-        print(f"autotune key {key}: " + " ".join(
-            f"{arm}={t * 1e6:.1f}us" for arm, t in sorted(times.items()))
-            + f" -> {min(times, key=times.get)} {tag}")
-    n_keys, n_fused = _check_arms(at_net, row["params"], row["shapes"],
-                                  measured)
-    print(f"autotune: every arm measured on all {n_keys} keys, the fused "
-          f"kernel on the {n_fused} that sconv_fused.supported takes {tag}")
-    n_measured = len(measured)
+    picks = []  # per run: key -> arm
+    for run in range(CALIB_RUNS):
+        if os.path.exists(AUTOTUNE_CACHE):
+            os.remove(AUTOTUNE_CACHE)
+        autotune.clear()
+        t0 = time.perf_counter()
+        calib = autotune.calibrate_graph(
+            time_sparse, polish=CALIB_POLISH, net_tag="resnet50",
+            cache_path=AUTOTUNE_CACHE,
+            log=lambda m: print(f"calib-log {m}", flush=True))
+        wall = time.perf_counter() - t0
+        measured = autotune.report()
+        picks.append(calib["arms"])
+        print(f"calib resnet50 b32 autotuned, run {run + 1} of {CALIB_RUNS} "
+              f"from an empty cache: t_first {calib['t_first'] * 1e3:.3f} "
+              f"ms, t_isolated {calib['t_isolated'] * 1e3:.3f} ms, t_dense "
+              f"{calib['t_dense'] * 1e3:.3f} ms, t_final "
+              f"{calib['t_final'] * 1e3:.3f} ms; flips {calib['flips']}, "
+              f"polish trials {calib.get('polish_trials', 0)}; "
+              f"{calib['keys']} keys, {calib['sparse_keys']} sparse; arms "
+              f"{dict(collections.Counter(calib['arms'].values()))}; "
+              f"{len(measured)} keys measured, measurement + calibration "
+              f"{wall:.1f} s wall; device_time: CUDA-graph replays, median "
+              f"of {CALIB_REPS}, cycling {N_INPUTS} inputs of {x_mb:.1f} MB "
+              f"(measure_arms: 4 synthetic inputs per key) {tag}")
+        for key, times in sorted(measured.items()):
+            print(f"autotune run {run + 1} key {key}: " + " ".join(
+                f"{arm}={t * 1e6:.1f}us" for arm, t in sorted(times.items()))
+                + f" -> {min(times, key=times.get)} {tag}")
+        n_keys, n_fused = _check_arms(at_net, row["params"], row["shapes"],
+                                      measured)
+        print(f"autotune run {run + 1}: every arm measured on all {n_keys} "
+              f"keys, the fused kernel on the {n_fused} the dispatcher "
+              f"would run it on {tag}")
+    keys = sorted(set().union(*picks))
+    agree = [k for k in keys if len({p.get(k) for p in picks}) == 1]
+    for k in keys:
+        print(f"calib arms per run, key {k}: "
+              + ", ".join(str(p.get(k)) for p in picks) + f" {tag}")
+    print(f"calib: the {CALIB_RUNS} runs picked the same arm on "
+          f"{len(agree)} of {len(keys)} keys: "
+          f"{'agree' if len(agree) == len(keys) else 'DIFFER'} {tag}")
+    n_measured = len(autotune.report())
     with autotune.net_scope("resnet50"):
         at_routes = at_net.routes(row["params"], row["shapes"])
     if len(autotune.report()) != n_measured:
@@ -772,8 +855,8 @@ def main() -> int:
                          "complete after calibration")
     at_expect = collections.Counter(
         ROUTE_KERNELS[r] for r in at_routes.values() if r in ROUTE_KERNELS)
-    print(f"net resnet50 autotuned routes (served from the cache): "
-          f"{dict(collections.Counter(at_routes.values()))}; "
+    print(f"net resnet50 autotuned routes (served from the last run's "
+          f"cache): {dict(collections.Counter(at_routes.values()))}; "
           + ", ".join(f"{n} {r}" for n, r in at_routes.items()) + f" {tag}")
     for m in mods.values():
         m.reset_counts()
@@ -804,16 +887,40 @@ def main() -> int:
           f"{'ok' if ok else 'FAIL'} {tag}")
     if not ok:
         raise SystemExit("autotuned resnet50 disagrees with dense f32")
+    # the graph form of inference_fn: its first call per input shape runs
+    # eagerly and captures, later calls copy the input in and replay
+    at_graph_fwd = at_net.inference_fn(row["params"], cuda_graph=True)
+
+    def fwd_at_graph(inputs):
+        with autotune.net_scope("resnet50"):
+            return at_graph_fwd(inputs)
+
+    for inputs, out in zip(at_inputs[:2] * 2, at_out[:2] * 2):
+        got = fwd_at_graph(inputs)["prob"].float()
+        err = (got - out["prob"].float()).abs().max().item()
+        if err > PARITY_REL * out["prob"].float().abs().max().item():
+            raise SystemExit(f"inference_fn(cuda_graph=True) differs from "
+                             f"the eager forward by {err:.3e}")
     del at_out
     at_ms = {}
     for label, fn in (("kernel routes", row["fwd_s"]), ("autotuned", fwd_at)):
         at_ms[f"{label} eager"] = _time_ms(fn, at_inputs)
         at_ms[f"{label} as a CUDA graph"] = _graph_ms(fn, at_inputs,
                                                       N_INPUTS)
+    at_ms["autotuned through inference_fn(cuda_graph=True)"] = _time_ms(
+        fwd_at_graph, at_inputs)
     if len(autotune.report()) != n_measured:
         raise SystemExit("an arm was measured after calibration")
+    ratio = (at_ms["autotuned as a CUDA graph"]
+             / at_ms["kernel routes as a CUDA graph"])
+    ok = ratio <= AUTOTUNED_GRAPH_LIMIT
     print("time resnet50 b32: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in at_ms.items()) + f" {tag}")
+        f"{k} {v:.3f} ms" for k, v in at_ms.items())
+        + f"; autotuned graph / kernel-route graph {ratio:.3f} (limit "
+        f"{AUTOTUNED_GRAPH_LIMIT}) {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit(f"the autotuned forward as a CUDA graph takes "
+                         f"{ratio:.2f}x the kernel route's")
     with autotune.net_scope("resnet50"):
         per = _layer_split(at_net.layers, fwd_at, at_inputs[0])
     by_arm, n_arm = collections.Counter(), collections.Counter()
@@ -828,6 +935,80 @@ def main() -> int:
               f"{n} ({at_routes.get(n, '-')}) {t:.4f}"
               for n, t in sorted(per.items(), key=lambda kv: -kv[1]))
           + f" {tag}")
+    del at_graph_fwd
+
+    # ---- 4c. ResNet-50 b32 unstructured, through ELL -----------------------
+    t0 = time.perf_counter()
+    pruned = _prune(row["net"], row["init"], block=None)
+    fnet, fparams = fuse_inference(row["net"], pruned,
+                                   state=row["net"].state0)
+    pol_ell = ExecutionPolicy(conv_mode=ConvMode.LOWERED_SPARSE,
+                              sparse_format=SparseFormat.ELL,
+                              block_shape=BLOCK, compute_dtype=torch.bfloat16,
+                              cast_back=False)
+    ell_net = Net(fnet.specs, policy=pol_ell)
+    aligned = ell_net.weight_align(fparams)
+    ell_routes = ell_net.routes(aligned, row["shapes"])
+    n_ell = sum(r == "ell" for r in ell_routes.values())
+    print(f"net resnet50 b32 unstructured: {SPARSITY:.0%} element-wise, "
+          f"LOWERED_SPARSE with ELL, set-up {time.perf_counter() - t0:.1f} "
+          f"s; routes {dict(collections.Counter(ell_routes.values()))} "
+          f"{tag}")
+    if (ell_routes["conv1"], ell_routes["fc1000"], n_ell) != (
+            "dense", "dense", len(ell_routes) - 2):
+        raise SystemExit(f"unstructured resnet50 routes: conv1 "
+                         f"{ell_routes['conv1']}, fc1000 "
+                         f"{ell_routes['fc1000']}, {n_ell} ell")
+    print("net resnet50 unstructured ELL layers (width, nnz): " + ", ".join(
+        f"{n} ({aligned[n].ell_t.width}, {aligned[n].ell_t.nnz})"
+        for n, r in ell_routes.items() if r == "ell") + f" {tag}")
+    ell_params = params_to(aligned, dev, torch.bfloat16)
+    ell_fwd = ell_net.inference_fn(ell_params, return_blobs=True)
+    ell_dense = Net(fnet.specs, policy=ExecutionPolicy()).inference_fn(
+        params_to(fparams, dev), return_blobs=True)
+    for m in mods.values():
+        m.reset_counts()
+    ell_out = [ell_fwd(i) for i in at_inputs]
+    torch.cuda.synchronize()
+    ell_launches = {k: m.launches for k, m in mods.items()}
+    print(f"net resnet50 unstructured launches over {N_INPUTS} forwards: "
+          f"{ell_launches} (expected none: the ELL path runs no hand "
+          f"kernel) {tag}")
+    if any(ell_launches.values()):
+        raise SystemExit("the ELL path launched a kernel")
+    num = den = 0.0
+    for inputs, out in zip(at_inputs, ell_out):
+        logits = out["fc1000"].float()
+        if (out["prob"].shape != (32, 1000)
+                or not torch.isfinite(logits).all()
+                or not torch.isfinite(out["prob"].float()).all()):
+            raise SystemExit("unstructured resnet50 output is not finite "
+                             "[32, 1000]")
+        ref = ell_dense(inputs)["fc1000"]
+        num += (logits - ref).pow(2).sum().item()
+        den += ref.pow(2).sum().item()
+    del ell_out
+    rel_l2 = (num / den) ** 0.5
+    ok = rel_l2 <= LOGITS_REL_L2
+    print(f"net resnet50 unstructured fc1000 logits vs dense f32: rel L2 "
+          f"{rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}) "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("unstructured resnet50 disagrees with dense f32")
+    ell_ms = _time_ms(ell_fwd, at_inputs, iters=2 * N_INPUTS)
+    per = _layer_split(ell_net.layers, ell_fwd, at_inputs[0])
+    by_route = collections.Counter()
+    for name, t in per.items():
+        by_route[ell_routes.get(name, "other")] += t
+    print(f"time resnet50 b32 unstructured ELL: eager {ell_ms:.3f} ms; "
+          f"layers, device ms per forward, each layer alone as a CUDA "
+          f"graph: sum {sum(per.values()):.3f}; by route "
+          + ", ".join(f"{r} {t:.3f}" for r, t in by_route.most_common())
+          + "; by layer " + ", ".join(
+              f"{n} ({ell_routes.get(n, '-')}) {t:.4f}"
+              for n, t in sorted(per.items(), key=lambda kv: -kv[1]))
+          + f" {tag}")
+    del ell_fwd, ell_params
 
     # ---- 5. times ---------------------------------------------------------
     for model, batch, layers, routes, arms, inputs, inputs_bf16 in e2e:

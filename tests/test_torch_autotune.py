@@ -378,18 +378,24 @@ def test_choose_arm_is_not_reentrant(fresh, monkeypatch):
     assert xbs.best_arm(al, POL, x_shape=(1, 6, 6, 32)) == "unroll"
 
 
-@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("fused", [False, True, "over_budget"])
 def test_measure_arms_times_every_candidate(fresh, monkeypatch, fused):
     """On CPU tensors (host clock): the four arms, and the direct kernel's
-    plain version with CESCOIN_AUTOTUNE_FUSED; each time positive."""
+    plain version with CESCOIN_AUTOTUNE_FUSED where the dispatcher would
+    run it (not on a shape over the reference's size budget); each time
+    positive."""
+    from caffe_escoin_tpu_torch.kernels import sconv_fused
+
     if fused:
         monkeypatch.setenv("CESCOIN_AUTOTUNE_FUSED", "1")
+    if fused == "over_budget":
+        monkeypatch.setattr(sconv_fused, "VMEM_BUDGET", 1024)
     rng = np.random.default_rng(5)
     _, al = _aligned(rng, 16, 16, 3)
     times = autotune.measure_arms(al, POL, (1, 5, 5, 16), (1, 1), (1, 1),
                                   (1, 1), iters=2)
     expect = {"unroll", "gathered", "gathered_cols", "dense"}
-    assert set(times) == (expect | {"fused"} if fused else expect)
+    assert set(times) == (expect | {"fused"} if fused is True else expect)
     assert all(t > 0 for t in times.values())
 
 

@@ -22,6 +22,11 @@ The XBSP arms (torch ops, no kernel of this package) run in bf16 on the
 card against the same arm in f32 on the CPU, on the same bf16-valued
 inputs and weights, within the bf16 rule: the card's products accumulate
 in f32 (cuBLAS ``out_dtype``), in place across the live blocks of a column.
+The ELL gather SpMM likewise, at one ResNet-50 shape.
+
+The timer and the graph forward: ``device_time`` replays CUDA graphs,
+``Net.inference_fn(cuda_graph=True)`` replays the eager forward's results,
+and a capture that would have to measure an autotune key raises.
 """
 
 import numpy as np
@@ -420,16 +425,145 @@ def test_xbsp_products_accumulate_in_f32_on_every_operand_layout(dev,
 
 
 def test_device_time_cycles_sets_and_returns_a_positive_median(dev):
-    seen = []
+    """Each set runs once eagerly, then once more while its graph is
+    captured; the timed calls are replays, which run no Python."""
     xs = [torch.full((256, 256), float(i), device=dev) for i in range(4)]
+    seen = []
 
     def f(y):
-        seen.append(int(y[0, 0].item()))
+        seen.append(next(i for i, x in enumerate(xs) if x is y))
         return y @ y
 
     t = device_time(f, xs[0], iters=8, arg_sets=[(y,) for y in xs])
     assert t > 0
-    assert seen == [0, 1, 2, 3] * 3
+    assert seen == [0, 1, 2, 3] * 2
+
+
+def test_device_time_reads_a_graph_replay(dev):
+    """device_time's median equals CUDA events around a manual replay of
+    the same captured work, within noise (25%)."""
+    xs = [torch.randn((2048, 2048), device=dev) for _ in range(4)]
+
+    def f(y):
+        for _ in range(20):
+            y = y * 1.0001
+        return y @ y
+
+    t = device_time(f, xs[0], iters=20, arg_sets=[(y,) for y in xs])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        f(xs[1])
+    graph.replay()
+    manual = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        manual.append(start.elapsed_time(end) * 1e-3)
+    manual = sorted(manual)[len(manual) // 2]
+    assert abs(t - manual) <= 0.25 * manual, (t, manual)
+
+
+def _small_resnet(dev, policy):
+    """The narrow ResNet of tests/test_torch_net.py on ``dev`` (random
+    weights, pruned to 90% in 8x8 blocks, fused and aligned)."""
+    from caffe_escoin_tpu_torch.models import resnet
+    from caffe_escoin_tpu_torch.nn import (LayerSpec, Net, fuse_inference,
+                                           params_to)
+
+    specs, top = resnet._conv_bn("conv1", "data", 16, 7, s=2, p=3)
+    for stage, mid, cout, stride in (("2", 16, 32, 1), ("3", 16, 64, 2)):
+        blk, top = resnet._bottleneck(stage, 0, top, mid, cout, stride)
+        specs += blk
+    specs += [LayerSpec("pool5", "Pooling", (top,),
+                        params=dict(mode="avg", global_pooling=True)),
+              LayerSpec("fc", "InnerProduct", ("pool5",),
+                        params=dict(num_output=24)),
+              LayerSpec("prob", "Softmax", ("fc",))]
+    shapes = {"data": (2, 32, 32, 3)}
+    net = Net(specs, policy=policy)
+    params = net.init(torch.Generator().manual_seed(0), shapes)
+    for name, p in params.items():
+        w = p.get("w")
+        if w is not None and w.dim() == 4 and w.shape[2] >= 8:
+            p["w"] = torch.from_numpy(prune_conv_weight(w.numpy(), 0.9,
+                                                        (8, 8)))
+    fnet, fparams = fuse_inference(net, params, state=net.state0)
+    return fnet, params_to(fnet.weight_align(fparams), dev, torch.bfloat16)
+
+
+def test_inference_fn_graph_form_matches_eager(dev):
+    """The graph form on two successive, different inputs gives what the
+    eager forward gives (the first call runs eagerly, the second replays),
+    and the replay's outputs are overwritten by the next replay."""
+    from caffe_escoin_tpu_torch.engine.context import ConvMode
+
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=(8, 8),
+                          compute_dtype=torch.bfloat16, cast_back=False)
+    fnet, aligned = _small_resnet(dev, pol)
+    eager = fnet.inference_fn(aligned)
+    graphed = fnet.inference_fn(aligned, cuda_graph=True)
+    xs = [torch.randn((2, 32, 32, 3), device=dev) for _ in range(3)]
+    outs = [graphed({"data": x})["prob"].clone() for x in xs[:2]]
+    for x, out in zip(xs, outs):
+        torch.testing.assert_close(out, eager({"data": x})["prob"])
+    assert not torch.equal(outs[0], outs[1])
+    replayed = graphed({"data": xs[2]})["prob"]
+    assert replayed is graphed({"data": xs[1]})["prob"]
+    torch.testing.assert_close(replayed, eager({"data": xs[1]})["prob"])
+
+
+def test_graph_capture_with_an_incomplete_autotune_cache_raises(
+        dev, tmp_path, monkeypatch):
+    """Capturing a forward whose autotune keys are not all cached raises;
+    after one eager forward the same capture succeeds."""
+    from caffe_escoin_tpu_torch.engine.context import ConvMode
+
+    monkeypatch.setenv("CESCOIN_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+    autotune.clear()
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=(8, 8),
+                          compute_dtype=torch.bfloat16, cast_back=False,
+                          autotune=True)
+    try:
+        fnet, aligned = _small_resnet(dev, pol)
+        fwd = fnet.inference_fn(aligned)
+        x = torch.randn((2, 32, 32, 3), device=dev)
+        with pytest.raises(RuntimeError, match="capture"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                fwd({"data": x})
+        fwd({"data": x})
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fwd({"data": x})
+        graph.replay()
+        torch.cuda.synchronize()
+    finally:
+        autotune.clear()
+
+
+def test_ell_spmm_on_cuda_matches_cpu(dev):
+    """ResNet-50 b32 res3's 3x3 conv as the ELL path runs it: the ELL of
+    W^T [128, 1152] (element-wise 90%) against the im2col's transpose
+    [1152, 32*28*28], bf16 on the card against the same values in f32 on
+    the CPU. Both accumulate exact products in f32: only the order of the
+    sums differs."""
+    from caffe_escoin_tpu_torch.kernels import spmm
+    from caffe_escoin_tpu_torch.sparse import dense_to_ell
+    from caffe_escoin_tpu_torch.utils.pruning import prune_magnitude
+
+    rng = np.random.default_rng(9)
+    w = prune_magnitude(rng.standard_normal((128, 1152)).astype(np.float32),
+                        0.9)
+    ell = dense_to_ell(w, lane_pad=8).to(dtype=torch.bfloat16)
+    b = torch.randn((1152, 32 * 28 * 28)).bfloat16()
+    out = spmm.ell_spmm(ell.to(dev), b.to(dev))
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (128, 32 * 28 * 28)
+    ref = spmm.ell_spmm(ell.to("cpu", torch.float32), b.float())
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
 
 
 def test_autotune_refuses_to_measure_during_graph_capture(dev, tmp_path,

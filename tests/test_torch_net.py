@@ -193,3 +193,16 @@ def test_every_sparse_layer_took_the_kernel_entries(slice_run):
     assert slice_run["counts"] == dict(
         sconv_calls=len(sparse_convs), sconv_launches=0, spmm_calls=1,
         spmm_launches=0)
+
+
+def test_inference_fn_graph_form_runs_cpu_inputs_eagerly(slice_run):
+    """The CUDA-graph form captures only CUDA inputs; on the CPU it is the
+    eager forward (the card tests hold its replays)."""
+    x = np.random.default_rng(1).standard_normal(SHAPES["data"]).astype(
+        np.float32)
+    fwd = slice_run["fnet"].inference_fn(slice_run["aligned"],
+                                         cuda_graph=True)
+    for _ in range(2):
+        out = fwd({"data": torch.from_numpy(x)})
+        np.testing.assert_array_equal(out["prob"].numpy(),
+                                      slice_run["blobs"]["prob"].numpy())

@@ -174,8 +174,15 @@ POOL_CASES = {
     # start in the padding (_pooled_size: 5 -> 2, not 3)
     "max_3x3_s3_p1_drop": dict(kernel=(3, 3), stride=(3, 3), padding=(1, 1),
                                mode="max", hw=5),
+    # its last row and column of windows run past the padded input: held to
+    # Caffe's divisor (_caffe_avg_pool), where JAX divides by kh*kw
     "avg_3x3_s2_p1": dict(kernel=(3, 3), stride=(2, 2), padding=(1, 1),
-                          mode="avg", hw=8),
+                          mode="avg", hw=8, caffe=True),
+    # cifar10_quick's pool2 and pool3 (caffe_escoin_tpu/models/cifar.py)
+    "avg_3x3_s2_cifar_pool2": dict(kernel=(3, 3), stride=(2, 2), mode="avg",
+                                   hw=16, caffe=True),
+    "avg_3x3_s2_cifar_pool3": dict(kernel=(3, 3), stride=(2, 2), mode="avg",
+                                   hw=8, caffe=True),
     "avg_2x2_floor": dict(kernel=(2, 2), stride=(2, 2), mode="avg", hw=7,
                           ceil_mode=False),
     "global_avg": dict(kernel=(1, 1), mode="avg", global_pool=True, hw=7),
@@ -183,17 +190,50 @@ POOL_CASES = {
 }
 
 
+def _caffe_avg_pool(x, kernel, stride, padding=(0, 0)):
+    """Caffe's AVE pooling (pooling_layer.cpp), in numpy: ceil sizing with
+    the last window starting inside the padded input, and each window
+    divided by its size clipped at the input plus padding."""
+    n, h, w, c = x.shape
+    (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
+
+    def pooled(size, k, s, p):
+        out = -(-(size + 2 * p - k) // s) + 1
+        return out - 1 if p and (out - 1) * s >= size + p else out
+
+    ho, wo = pooled(h, kh, sh, ph), pooled(w, kw, sw, pw)
+    out = np.zeros((n, ho, wo, c), np.float64)
+    for i in range(ho):
+        for j in range(wo):
+            hs, ws = i * sh - ph, j * sw - pw
+            he, we = min(hs + kh, h + ph), min(ws + kw, w + pw)
+            size = (he - hs) * (we - ws)
+            hs, ws, he, we = max(hs, 0), max(ws, 0), min(he, h), min(we, w)
+            out[:, i, j] = x[:, hs:he, ws:we].sum(axis=(1, 2)) / size
+    return out.astype(np.float32)
+
+
 @pytest.mark.parametrize("name", list(POOL_CASES))
 def test_pool2d(name):
+    """Against the JAX function, or where a window runs past the padded
+    input (``caffe``), against Caffe's rule, which JAX does not follow."""
     kw = dict(POOL_CASES[name])
     hw = kw.pop("hw")
     kernel = kw.pop("kernel")
+    caffe = kw.pop("caffe", False)
     x = np.random.default_rng(3).standard_normal((2, hw, hw, 4)).astype(
         np.float32)
-    ref = jpool.pool2d(jnp.asarray(x), kernel, **kw)
-    out = pool.pool2d(torch.from_numpy(x), kernel, **kw)
-    assert out.shape == tuple(ref.shape)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    jax_out = np.asarray(jpool.pool2d(jnp.asarray(x), kernel, **kw))
+    out = pool.pool2d(torch.from_numpy(x), kernel, **kw).numpy()
+    if caffe:
+        ref = _caffe_avg_pool(x, kernel, kw["stride"],
+                              kw.get("padding", (0, 0)))
+        # the case reaches a window JAX divides by the full kernel size
+        assert not np.allclose(jax_out, ref, **TOL)
+    else:
+        ref = jax_out
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, **TOL)
 
 
 def test_pooled_size_drops_window_starting_in_padding():

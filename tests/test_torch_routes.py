@@ -7,6 +7,9 @@ stem dense), in bf16 and f32, the port's ``conv_route`` (through
 The JAX side runs its real ``conv2d`` under ``jax.eval_shape`` on a
 ``jax.ShapeDtypeStruct``, so its size gates see the full shapes and nothing
 is computed; spies on its kernel entries record which one it reached.
+
+The same at VGG-16 b16 and ResNet-50 b32 on the XBSP branch with the fused
+arm forced: the reference's size gate decides where the fused kernel runs.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from caffe_escoin_tpu.engine.context import ExecutionPolicy as JPolicy  # noqa: 
 from caffe_escoin_tpu.kernels import bsc_pallas as jbsc_pallas  # noqa: E402
 from caffe_escoin_tpu.kernels import sconv_fused as jsconv_fused  # noqa: E402
 from caffe_escoin_tpu.kernels import sconv_pallas as jsconv_pallas  # noqa: E402
+from caffe_escoin_tpu.kernels import xla_block_sparse as jxbs  # noqa: E402
 from caffe_escoin_tpu.ops import conv as jconv  # noqa: E402
 from caffe_escoin_tpu.sparse.weight_align import weight_align as jweight_align  # noqa: E402
 
@@ -118,3 +122,53 @@ def test_port_routes_match_jax_dispatch(model, dtype, monkeypatch):
         assert sorted(k for k, r in expect.items() if r == "dense") == [
             "conv1", "res2a_branch2a"]
         assert ported == expect
+
+
+XBSP_SPIES = ((jconv, "conv2d_dense", "dense"),
+              (jxbs, "conv", "unroll"),
+              (jsconv_fused, "sconv", "fused"))
+
+
+def test_forced_fused_arm_keeps_the_reference_size_gate(model, monkeypatch):
+    """The XBSP branch with ``xbsp_arm="fused"`` in bf16: the JAX dispatcher
+    (Pallas on) runs its fused kernel only where ``sconv_fused.supported``
+    holds, size budget included, and the unroll elsewhere; the port's
+    routes follow it. On VGG-16 b16 five convs miss the budget; every conv
+    of ResNet-50 b32 fits."""
+    name, shapes, convs = model
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+                          compute_dtype=torch.bfloat16, cast_back=False,
+                          xbsp_arm="fused")
+    jpol = JPolicy(conv_mode=JConvMode.SCONV_PAR, block_shape=BLOCK,
+                   use_pallas=True, xbsp_arm="fused")
+    net = Net(ZOO[name][0](), policy=pol)
+    routes = net.routes({k: c["aligned"] for k, c in convs.items()}, shapes)
+    ported = {k: routes[k] for k in convs}
+    seen = []
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            seen.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    jax_routes = {}
+    for k, c in convs.items():
+        p = c["spec"].params
+        stride, pad = p.get("stride", 1), p.get("pad", 0)
+        seen.clear()
+        for mod, attr, arm in XBSP_SPIES:
+            monkeypatch.setattr(mod, attr, spy(arm, getattr(mod, attr)))
+        jax.eval_shape(
+            lambda x: jconv.conv2d(x, c["jaligned"], stride=(stride, stride),
+                                   padding=(pad, pad), policy=jpol),
+            jax.ShapeDtypeStruct(c["x"], jnp.bfloat16))
+        monkeypatch.undo()
+        jax_routes[k] = seen[0]
+    assert ported == jax_routes
+    if name == "vgg16":
+        assert sorted(k for k, r in ported.items() if r == "unroll") == [
+            "conv1_2", "conv2_1", "conv2_2", "conv3_2", "conv3_3"]
+        assert sum(r == "fused" for r in ported.values()) == 7
+    else:
+        assert "unroll" not in ported.values()
