@@ -1,5 +1,6 @@
-"""Inference-time graph fusion (port of ``caffe_escoin_tpu/nn/fuse.py:1-244``,
-passes A and B; ``pack_narrow_chains`` and ``fold_stem_s2d`` wait).
+"""Inference-time graph passes (port of ``caffe_escoin_tpu/nn/fuse.py:1-473``:
+the fusion passes A and B and the packed-layout pass ``pack_narrow_chains``;
+``fold_stem_s2d`` waits).
 
 * Pass A, affine fold: Conv -> [BatchNorm] -> [Scale] -> [ReLU] chains
   collapse into one conv whose weight and bias absorb the affine
@@ -11,6 +12,9 @@ passes A and B; ``pack_narrow_chains`` and ``fold_stem_s2d`` wait).
   collapses into the producing conv (``fuse_add``): the conv takes the
   shortcut as a second bottom and adds it in its epilogue.
 
+* ``pack_narrow_chains``: marks the narrow-channel towers that run on the
+  W-pair packed layout (ops/wpack.py).
+
 The fold arithmetic is numpy float32, as in the JAX package, so both give
 the same folded weights. Run before ``weight_align``.
 """
@@ -18,12 +22,14 @@ the same folded weights. Run before ``weight_align``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from caffe_escoin_tpu_torch.nn.net import LayerSpec, Net
+from caffe_escoin_tpu_torch.ops import wpack
 
 CONV_TYPES = ("Convolution", "ConvolutionReLU")
 FOLDABLE_TYPES = CONV_TYPES + ("InnerProduct",)
@@ -207,4 +213,204 @@ def fuse_inference(net: Net, params: Dict[str, Any],
     names = {s.name for s in specs}
     # carry the state of BatchNorm layers that did not fold
     fused.state0 = {k: v for k, v in state.items() if k in names}
+    fused.blob_shapes = dict(net.blob_shapes)
     return fused, new_params
+
+
+def _wdim(s: LayerSpec, key: str, default: int) -> int:
+    """The W entry of a spec's scalar or per-dimension parameter."""
+    v = s.params.get(key, default)
+    return int(v[-1]) if isinstance(v, (tuple, list)) else int(v)
+
+
+def _pool_geom(s: LayerSpec):
+    """(kernel_w, stride_w) of a Pooling spec (Caffe defaults)."""
+    k = _wdim(s, "kernel", 2)
+    return k, _wdim(s, "stride", k)
+
+
+def _conv_geom(s: LayerSpec):
+    """(kernel_w, stride_w, dilation_w, groups) of a 2-D conv spec."""
+    return (_wdim(s, "kernel", 3), _wdim(s, "stride", 1),
+            _wdim(s, "dilation", 1), int(s.params.get("group", 1)))
+
+
+def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
+    """W-pair packed-layout pass (ops/wpack.py; the JAX package's
+    ``nn/fuse.py:269-473``, the same fixpoint): finds maximal subgraphs
+    where r adjacent W-pixels ride the channel dimension, with pack and
+    unpack folded into the boundary layers, so no retile pass runs:
+
+    * seeds: interior 4-D blobs with pack_factor(C, W) > 1;
+    * producers: convs emit packed via ``repack_weight`` (any stride), max
+      and average pools via ``pool2d_packed``;
+    * consumers: convs consume packed when the packed stride
+      sw*r_out/r_in is integral, so strided stage-boundary convs end
+      chains (e.g. a 1x1/s2 consumer of an r=2 blob);
+    * residual (fuse_add) second bottoms must match the conv's output
+      layout, which grows the packed set across whole residual stages;
+    * blobs whose layout cannot be closed (pooling, concat or loss
+      consumers, final tops, more than 512 packed channels) are dropped,
+      and the constraints solved again, to a fixpoint.
+
+    Runs after ``fuse_inference`` (it keys on fuse_add residual bottoms)
+    and reads ``net.blob_shapes``. Params are untouched: the layers repack
+    their logical weights when they align or run, so params stay in the
+    public layout. Returns a new net with ``packed_blobs`` (blob -> r) and
+    packed ``blob_shapes``, or ``net`` itself when nothing packs.
+
+    The branches for LRN layers and the refusals of shared params and
+    space-to-depth stems are carried over; the port registers no LRN layer
+    and no s2d fold yet, and its LayerSpec has no ``share_params``, so they
+    only read specs. Packing on the card is not a default: the JAX package
+    packs for TPU lane padding, which a GPU does not have."""
+    specs = list(net.specs)
+    shapes: Dict[str, Tuple[int, ...]] = dict(net.blob_shapes)
+    if not shapes:
+        return net  # no shape information: nothing to do
+    finals = _final_tops(specs)
+    producer: Dict[str, int] = {}
+    consumers = _consumers(specs)
+    for i, s in enumerate(specs):
+        for t in s.tops:
+            producer[t] = i
+
+    def shared(s):
+        return getattr(s, "share_params", None)
+
+    # params shared across layers cannot repack: align() is per layer and
+    # the sharing twin may run unpacked geometry on the same weights
+    share_targets = {shared(s) for s in specs if shared(s)}
+
+    def markable(b, r):
+        shp = shapes.get(b)
+        return (b in producer and b not in finals and shp is not None
+                and len(shp) == 4 and shp[2] % r == 0
+                and shp[3] * r <= 512)  # keep packed lanes a sane width
+
+    packed: Dict[str, int] = {}
+    for b, shp in shapes.items():
+        if b in producer and b not in finals and len(shp) == 4:
+            r = wpack.pack_factor(shp[3], shp[2], lanes=lanes)
+            if r > 1:
+                packed[b] = r
+
+    dead: set = set()
+
+    def conv_ok(s):
+        if s.params.get("s2d_r"):
+            return False  # s2d stem convs keep their own layout
+        if len(shapes.get(s.bottoms[0], ())) != 4:
+            return False
+        if shared(s) is not None or s.name in share_targets:
+            return False
+        _, _, dil, g = _conv_geom(s)
+        return dil == 1 and g == 1
+
+    def pool_ok(s):
+        p = s.params
+        return (not p.get("global_pooling")
+                and p.get("mode", "max") in ("max", "avg"))
+
+    def check(b, r):
+        """(ok, [(blob, required_r), ...]) for blob b packed at r."""
+        needs = []
+        if not markable(b, r):
+            return False, needs
+        ps = specs[producer[b]]
+        if ps.type in CONV_TYPES:
+            if not conv_ok(ps):
+                return False, needs
+            _, sw, _, _ = _conv_geom(ps)
+            if (sw * r) % packed.get(ps.bottoms[0], 1) != 0:
+                return False, needs
+            if len(ps.bottoms) > 1:  # a fuse_add residual rides the output
+                if not ps.params.get("fuse_add"):
+                    return False, needs
+                needs.append((ps.bottoms[1], r))
+        elif ps.type == "Pooling":
+            if not pool_ok(ps):
+                return False, needs
+            _, sw = _pool_geom(ps)
+            if (sw * r) % packed.get(ps.bottoms[0], 1) != 0:
+                return False, needs
+        elif ps.type == "LRN":
+            # layout-transparent per (pixel, channel window)
+            needs.append((ps.bottoms[0], r))
+        else:
+            return False, needs
+        for ci in consumers.get(b, []):
+            cs = specs[ci]
+            if cs.type in CONV_TYPES:
+                if not conv_ok(cs):
+                    return False, needs
+                _, sw, _, _ = _conv_geom(cs)
+                if cs.bottoms[0] == b:
+                    r_out = packed.get(cs.tops[0], 1)
+                    if (sw * r_out) % r != 0:
+                        needs.append((cs.tops[0], r // math.gcd(sw, r)))
+                if len(cs.bottoms) > 1 and cs.bottoms[1] == b:
+                    if not cs.params.get("fuse_add"):
+                        return False, needs
+                    needs.append((cs.tops[0], r))
+            elif cs.type == "Pooling":
+                if not pool_ok(cs):
+                    return False, needs
+                _, sw = _pool_geom(cs)
+                r_out = packed.get(cs.tops[0], 1)
+                if (sw * r_out) % r != 0:
+                    # a packed-output pool needs its own top markable
+                    needs.append((cs.tops[0], r // math.gcd(sw, r)))
+            elif cs.type == "LRN":
+                needs.append((cs.tops[0], r))
+            else:
+                return False, needs
+        return True, needs
+
+    stable = False
+    while not stable:
+        stable = True
+        for b in sorted(packed):
+            r = packed[b]
+            ok, needs = check(b, r)
+            if ok:
+                for nb, nr in needs:
+                    cur = packed.get(nb)
+                    if cur == nr:
+                        continue
+                    if nb in dead or cur is not None or not markable(nb, nr):
+                        ok = False
+                        break
+                    packed[nb] = nr
+                    stable = False
+            if not ok:
+                del packed[b]
+                dead.add(b)
+                stable = False
+
+    if not packed:
+        return net
+
+    new_specs = []
+    for s in specs:
+        r_in = packed.get(s.bottoms[0], 1) if s.bottoms else 1
+        r_out = packed.get(s.tops[0], 1)
+        if s.type in CONV_TYPES and (r_in > 1 or r_out > 1):
+            s = dataclasses.replace(s, params=dict(
+                s.params, pack_in=r_in, pack_out=r_out,
+                pack_w=int(shapes[s.bottoms[0]][2])))
+        elif s.type == "Pooling" and (r_in > 1 or r_out > 1):
+            s = dataclasses.replace(s, params=dict(s.params, pack_in=r_in,
+                                                   pack_out=r_out))
+        elif s.type == "LRN" and r_in > 1:
+            s = dataclasses.replace(s, params=dict(s.params, pack_in=r_in))
+        new_specs.append(s)
+
+    out = Net(new_specs, policy=net.policy, phase=net.phase)
+    out.state0 = net.state0
+    out.blob_shapes = {
+        b: ((shp[0], shp[1], shp[2] // packed[b], shp[3] * packed[b])
+            if b in packed and len(shp) == 4 else shp)
+        for b, shp in shapes.items()}
+    out.packed_blobs = dict(packed)
+    return out

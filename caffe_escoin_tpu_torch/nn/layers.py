@@ -2,8 +2,10 @@
 Input, Convolution, ConvolutionReLU, InnerProduct, Pooling, ReLU, Dropout,
 Softmax, BatchNorm at global statistics, Scale, Eltwise). Convolution and
 InnerProduct carry the sparse machinery (weight_align -> AlignedConvWeight
--> mode dispatch) and name the kernel route they take (``route``); the rest
-are thin. The other registered types of the JAX package wait.
+-> mode dispatch) and name the kernel route they take (``route``).
+Convolution and Pooling also run on the W-pair packed layout that
+nn/fuse.pack_narrow_chains marks. The rest are thin. The other registered
+types of the JAX package wait.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from caffe_escoin_tpu_torch.ops import linear as linear_ops
 from caffe_escoin_tpu_torch.ops import norm as norm_ops
 from caffe_escoin_tpu_torch.ops import pool as pool_ops
 from caffe_escoin_tpu_torch.ops import structural as struct_ops
+from caffe_escoin_tpu_torch.ops import wpack
 from caffe_escoin_tpu_torch.sparse.weight_align import (AlignedConvWeight,
                                                         weight_align)
 
@@ -33,6 +36,12 @@ def _pair(v):
             return (v[0], v[0])
         return tuple(v)
     return (v, v)
+
+
+def _pack(p):
+    """(r_in, r_out) W-pack factors of a conv or pool (set by
+    nn/fuse.pack_narrow_chains); (1, 1) is unpacked execution."""
+    return p.get("pack_in", 1), p.get("pack_out", 1)
 
 
 def _cast(params, dtype):
@@ -63,7 +72,11 @@ class InputLayer(Layer):
 class ConvolutionLayer(Layer):
     """Mode-dispatched 2-D conv. params keys: num_output, kernel, stride,
     pad, dilation, group, bias_term, weight_filler, bias_filler, fuse_relu,
-    and fuse_add (set by nn/fuse.py: a second bottom is the residual)."""
+    fuse_add (set by nn/fuse.py: a second bottom is the residual), and
+    pack_in, pack_out, pack_w (set by nn/fuse.pack_narrow_chains: the conv
+    reads and writes the W-pair packed layout of ops/wpack.py; pack_w is the
+    logical input width). The params stay logical: a packed conv repacks
+    its weight when it aligns it, or per call on the dense path."""
 
     def _conf(self, in_shape):
         p = self.p
@@ -75,7 +88,22 @@ class ConvolutionLayer(Layer):
                     pad=_pair(p.get("pad", 0)),
                     dilation=_pair(p.get("dilation", 1)),
                     groups=p.get("group", 1), cout=p["num_output"],
-                    bias=p.get("bias_term", True), cin=in_shape[-1])
+                    bias=p.get("bias_term", True),
+                    # logical channels of a packed input
+                    cin=in_shape[-1] // p.get("pack_in", 1))
+
+    def _geometry(self, in_shape):
+        """(stride, padding, dilation) of the conv as it runs on an input of
+        ``in_shape``: the spec's, or on the packed layout the packed W
+        stride and padding of ``wpack.repack_geometry``."""
+        c = self._conf(in_shape)
+        r_in, r_out = _pack(self.p)
+        if r_in == 1 and r_out == 1:
+            return c["stride"], c["pad"], c["dilation"]
+        (sh, sw), (ph, pw) = c["stride"], c["pad"]
+        _, (pl, _), s_p, _, _ = wpack.repack_geometry(
+            c["kernel"][1], r_in, r_out, sw, pw, in_shape[2] * r_in)
+        return (sh, s_p), (ph, pl), (1, 1)
 
     def init_params(self, gen, in_shapes):
         c = self._conf(in_shapes[0])
@@ -91,37 +119,54 @@ class ConvolutionLayer(Layer):
 
     def out_shapes(self, in_shapes):
         c = self._conf(in_shapes[0])
+        r_in, r_out = _pack(self.p)
         n, h, w, _ = in_shapes[0]
         (kh, kw), (sh, sw) = c["kernel"], c["stride"]
         (ph, pw), (dh, dw) = c["pad"], c["dilation"]
-        return [(n, conv_ops._out_spatial(h, kh, sh, ph, dh),
-                 conv_ops._out_spatial(w, kw, sw, pw, dw), c["cout"])]
+        wo = conv_ops._out_spatial(w * r_in, kw, sw, pw, dw)
+        return [(n, conv_ops._out_spatial(h, kh, sh, ph, dh), wo // r_out,
+                 c["cout"] * r_out)]
 
     def align(self, params):
         """``weight_align`` under the layer's policy: the BSC, and the ELL
-        of W^T where the policy's ``sparse_format`` is ELL."""
+        of W^T where the policy's ``sparse_format`` is ELL. A packed conv
+        aligns its packed weight (``wpack.repack_weight``, the bias tiled
+        per output phase): the BSC is the packed weight's own zero
+        structure."""
         if isinstance(params, AlignedConvWeight):
             return params
-        return weight_align(params["w"], params.get("b"),
-                            groups=self.p.get("group", 1), policy=self.policy)
+        r_in, r_out = _pack(self.p)
+        if r_in == 1 and r_out == 1:
+            return weight_align(params["w"], params.get("b"),
+                                groups=self.p.get("group", 1),
+                                policy=self.policy)
+        wp, _, _ = wpack.repack_weight(
+            torch.as_tensor(params["w"]).detach().cpu(), r_in, r_out,
+            _pair(self.p.get("stride", 1))[1], _pair(self.p.get("pad", 0))[1],
+            int(self.p["pack_w"]))
+        b = params.get("b")
+        if b is not None:
+            b = torch.as_tensor(b).detach().cpu().repeat(r_out)
+        return weight_align(wp, b, groups=1, policy=self.policy)
 
     def route(self, params, in_shapes, in_dtype):
         """``ops.conv.conv_route`` of this layer for an input of
         ``in_shapes[0]`` and ``in_dtype``, from shapes alone."""
         if not isinstance(params, AlignedConvWeight):
             return "dense"
-        c = self._conf(in_shapes[0])
+        stride, pad, dil = self._geometry(in_shapes[0])
         x = torch.empty(in_shapes[0], dtype=self.policy.compute_dtype
                         or in_dtype, device="meta")
-        return conv_ops.conv_route(x, params, stride=c["stride"],
-                                   padding=c["pad"], dilation=c["dilation"],
-                                   policy=self.policy)
+        return conv_ops.conv_route(x, params, stride=stride, padding=pad,
+                                   dilation=dil, policy=self.policy)
 
     def forward(self, params, inputs, state=None):
         x = inputs[0]
+        # the residual arrives in the output's layout, packed or not
         residual = (inputs[1] if len(inputs) > 1 and self.p.get("fuse_add")
                     else None)
         c = self._conf(x.shape)
+        stride, pad, dil = self._geometry(x.shape)
         fuse_relu = self.p.get("fuse_relu", False) and self.policy.fuse_relu
         cd = self.policy.compute_dtype
         in_dtype = x.dtype
@@ -131,15 +176,19 @@ class ConvolutionLayer(Layer):
             if residual is not None:
                 residual = residual.to(cd)
         if isinstance(params, AlignedConvWeight):
-            out = conv_ops.conv2d(x, params, stride=c["stride"],
-                                  padding=c["pad"], dilation=c["dilation"],
-                                  relu=fuse_relu, policy=self.policy,
-                                  residual=residual)
+            out = conv_ops.conv2d(x, params, stride=stride, padding=pad,
+                                  dilation=dil, relu=fuse_relu,
+                                  policy=self.policy, residual=residual)
         else:
+            w, b = params["w"], params.get("b")
+            r_in, r_out = _pack(self.p)
+            if r_in > 1 or r_out > 1:
+                w, _, _ = wpack.repack_weight(w, r_in, r_out, c["stride"][1],
+                                              c["pad"][1], x.shape[2] * r_in)
+                b = None if b is None else b.repeat(r_out)
             out = conv_ops.conv2d_dense(
-                x, params["w"], params.get("b"), stride=c["stride"],
-                padding=c["pad"], dilation=c["dilation"], groups=c["groups"],
-                relu=fuse_relu, residual=residual)
+                x, w, b, stride=stride, padding=pad, dilation=dil,
+                groups=c["groups"], relu=fuse_relu, residual=residual)
         if cd is not None and self.policy.cast_back:
             out = out.to(in_dtype)
         return [out]
@@ -236,6 +285,10 @@ class InnerProductLayer(Layer):
 
 @register_layer("Pooling")
 class PoolingLayer(Layer):
+    """Max, average and global pooling. ``pack_in``/``pack_out`` (set by
+    nn/fuse.pack_narrow_chains) make it pool between W-pair packed layouts
+    (ops/wpack.py), so packed chains flow through it."""
+
     def _args(self):
         p = self.p
         kernel = _pair(p.get("kernel", 2))
@@ -247,17 +300,23 @@ class PoolingLayer(Layer):
         n, h, w, c = in_shapes[0]
         if self.p.get("global_pooling", False):
             return [(n, 1, 1, c)]
+        r_in, r_out = _pack(self.p)
         a = self._args()
+        wo = pool_ops._pooled_size(w * r_in, a["kernel"][1], a["stride"][1],
+                                   a["padding"][1], a["ceil_mode"])
         return [(n, pool_ops._pooled_size(h, a["kernel"][0], a["stride"][0],
                                           a["padding"][0], a["ceil_mode"]),
-                 pool_ops._pooled_size(w, a["kernel"][1], a["stride"][1],
-                                       a["padding"][1], a["ceil_mode"]), c)]
+                 wo // r_out, c // r_in * r_out)]
 
     def forward(self, params, inputs, state=None):
         (x,) = inputs
         if self.p.get("global_pooling", False):
             return [pool_ops.pool2d(x, (1, 1), mode=self.p.get("mode", "avg"),
                                     global_pool=True)]
+        r_in, r_out = _pack(self.p)
+        if r_in > 1 or r_out > 1:
+            return [pool_ops.pool2d_packed(x, **self._args(), r_in=r_in,
+                                           r_out=r_out)]
         return [pool_ops.pool2d(x, **self._args())]
 
 

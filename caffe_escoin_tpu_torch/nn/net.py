@@ -116,25 +116,34 @@ class Net(torch.nn.Module):
             layers.append(LAYER_REGISTRY[s.type](s, self.policy))
         self.layers = torch.nn.ModuleList(layers)
         self.state0: Dict[str, Any] = {}
+        # blob name -> shape, set by init and carried by the graph passes
+        self.blob_shapes: Dict[str, Tuple[int, ...]] = {}
 
     def init(self, gen: torch.Generator,
              input_shapes: Dict[str, Tuple[int, ...]]):
         """Returns params (layer name -> dict of CPU tensors); also sets
-        ``state0`` (initial BatchNorm buffers)."""
+        ``state0`` (initial BatchNorm buffers) and ``blob_shapes`` (every
+        blob's shape, inputs included, which nn/fuse.pack_narrow_chains
+        reads)."""
         params: Dict[str, Any] = {}
         state0: Dict[str, Any] = {}
-        for layer, in_shapes in self.walk_shapes(input_shapes):
+        shapes: Dict[str, Tuple[int, ...]] = {}
+        for layer, in_shapes in self.walk_shapes(input_shapes, shapes):
             p = layer.init_params(gen, in_shapes)
             if p:
                 params[layer.spec.name] = p
             if layer.has_state:
                 state0[layer.spec.name] = layer.init_state(in_shapes)
         self.state0 = state0
+        self.blob_shapes = shapes
         return params
 
-    def walk_shapes(self, input_shapes):
-        """Each layer in order with the shapes of its bottoms."""
-        shapes = {k: tuple(v) for k, v in input_shapes.items()}
+    def walk_shapes(self, input_shapes, shapes: Optional[Dict] = None):
+        """Each layer in order with the shapes of its bottoms; ``shapes``,
+        when given, is filled with every blob's shape."""
+        if shapes is None:
+            shapes = {}
+        shapes.update({k: tuple(v) for k, v in input_shapes.items()})
         for layer in self.layers:
             spec = layer.spec
             in_shapes = [shapes[b] for b in spec.bottoms]

@@ -1,21 +1,25 @@
-"""Pooling, max / average / global, with Caffe's semantics (port of
-``caffe_escoin_tpu/ops/pool.py:20-110``; stochastic and packed pooling
-wait).
+"""Pooling, max / average / global, with Caffe's semantics, and pooling
+between W-pair packed layouts (port of ``caffe_escoin_tpu/ops/pool.py:20-252``;
+stochastic pooling and SPP wait).
 
 * ceil-mode output sizing, with the last window required to start inside
   the padded input (``_pooled_size``);
 * average pooling divides each window by its size clipped at the input
   plus padding (``pooling_layer.cpp``: ``hend = min(hstart + k, H + pad)``):
   the padding counts, the ceil-extended edge beyond it does not. The JAX
-  package divides every window by kh*kw (its ``ops/pool.py:79-83``), which
-  differs from Caffe on a window that runs past the padded input.
+  package divides every window by kh*kw (its ``ops/pool.py:79-83, 141,
+  190``), which differs from Caffe on a window that runs past the padded
+  input. The packed pools divide as the unpacked one does.
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
 import torch.nn.functional as F
+
+from caffe_escoin_tpu_torch.ops import wpack
 
 
 def _pooled_size(size, k, s, p, ceil_mode):
@@ -62,3 +66,117 @@ def pool2d(x, kernel, *, stride=None, padding=(0, 0), mode="max",
     xp = F.pad(x, (0, 0, pw, pad_w2, ph, pad_h2), value=float("-inf"))
     out = F.max_pool2d(xp.permute(0, 3, 1, 2), (kh, kw), (sh, sw))
     return out.permute(0, 2, 3, 1)[:, :ho, :wo, :].contiguous()
+
+
+def _check_mode(mode, who):
+    if mode not in ("max", "avg"):
+        raise ValueError(f"{who}: unsupported mode {mode!r}")
+
+
+def pool2d_packed_out(x, kernel, *, stride=None, padding=(0, 0), mode="max",
+                      ceil_mode=True, r: int = 2):
+    """Pooling that emits the W-pair packed layout (ops/wpack.py):
+    [N, H, W, C] -> [N, Ho, Wo//r, r*C] with out_p[..., v, j*C+c] =
+    pool_out[..., r*v + j, c]. Max and average only.
+
+    The JAX package pools each output phase separately and concatenates
+    the phases on the lane axis, so that no TPU retile of the pooled map
+    materializes. On the card the packed layout is a row-major reshape of
+    the contiguous pooled map, a view, so this is ``pool2d`` then
+    ``pack_nhwc``."""
+    _check_mode(mode, "pool2d_packed_out")
+    out = pool2d(x, kernel, stride=stride, padding=padding, mode=mode,
+                 ceil_mode=ceil_mode)
+    if out.shape[2] % r:
+        raise ValueError(f"pooled width {out.shape[2]} not divisible by "
+                         f"pack {r}")
+    return wpack.pack_nhwc(out, r)
+
+
+def pool2d_packed(x, kernel, *, stride=None, padding=(0, 0), mode="max",
+                  ceil_mode=True, r_in: int = 1, r_out: int = 1):
+    """Pooling between W-pair packed layouts (ops/wpack.py):
+    [N, H, W/r_in, r_in*C] -> [N, Ho, Wo/r_out, r_out*C]. Max and average
+    only.
+
+    The tap algebra of ``repack_weight``: output phase j's tap dx reads
+    packed pixel offset du = floor((sw*j + dx - pw)/r_in), lane block
+    i = (sw*j + dx - pw) mod r_in; valid iff the packed W stride
+    s' = sw*r_out/r_in is integral. H pools first, as one pooling with a
+    (kh, 1) window on the channels_last view; then each output phase
+    reduces its (W-shifted, lane-block) views. Where sw == r_in (ResNet-50's
+    and VGG-16's packed pools), every phase's taps are phase 0's shifted by
+    j packed pixels, so one reduction over unit-stride shifted views serves
+    all phases and the packed output is its lane-merge reshape.
+
+    Average pooling divides by Caffe's clipped window, as ``pool2d``: the H
+    pass divides by the window's H extent, the W pass by its W extent."""
+    if r_in == 1 and r_out > 1:
+        return pool2d_packed_out(x, kernel, stride=stride, padding=padding,
+                                 mode=mode, ceil_mode=ceil_mode, r=r_out)
+    _check_mode(mode, "pool2d_packed")
+    n, h, wp, cc = x.shape
+    kh, kw = kernel
+    sh, sw = stride or kernel
+    ph, pw = padding
+    if (sw * r_out) % r_in:
+        raise ValueError(f"packed pool stride {sw}*{r_out}/{r_in} not "
+                         f"integral")
+    s_p = sw * r_out // r_in
+    c = cc // r_in
+    w_log = wp * r_in
+    ho = _pooled_size(h, kh, sh, ph, ceil_mode)
+    wo = _pooled_size(w_log, kw, sw, pw, ceil_mode)
+    if wo % r_out:
+        raise ValueError(f"pooled width {wo} not divisible by {r_out}")
+    # H pass: one (kh, 1) pooling on the channels_last view of x
+    xv = x.permute(0, 3, 1, 2)
+    if mode == "max":
+        xh = F.max_pool2d(xv, (kh, 1), (sh, 1), padding=(ph, 0),
+                          ceil_mode=ceil_mode)
+        init, op = float("-inf"), torch.maximum
+    else:
+        xh = F.avg_pool2d(xv, (kh, 1), (sh, 1), padding=(ph, 0),
+                          ceil_mode=ceil_mode, count_include_pad=True)
+        init, op = 0.0, torch.add
+    if xh.shape[2] != ho:
+        raise ValueError(f"{mode} pool sized {xh.shape[2]} rows, Caffe "
+                         f"sizes {ho}")
+    xh = xh.permute(0, 2, 3, 1)
+    # W pass: taps (du, i) per output phase j
+    taps = [[((sw * j + dx - pw) // r_in, (sw * j + dx - pw) % r_in)
+             for dx in range(kw)] for j in range(r_out)]
+    dus = [du for tl in taps for du, _ in tl]
+    pl_p = max(0, -min(dus))
+    if sw == r_in:
+        # out_j[v] = U[r_out*v + j]: U reduces phase 0's taps over
+        # unit-stride shifted views, one per logical output column
+        pr_p = max(0, (wo - 1) + max(du for du, _ in taps[0]) - (wp - 1))
+        xw = F.pad(xh, (0, 0, pl_p, pr_p), value=init)
+        acc = None
+        for du, i in taps[0]:
+            sl = xw[:, :, pl_p + du:pl_p + du + wo, i * c:(i + 1) * c]
+            acc = sl if acc is None else op(acc, sl)
+        out = acc.reshape(n, ho, wo // r_out, r_out * c)
+    else:
+        vmax = wo // r_out - 1
+        pr_p = max(0, s_p * vmax + max(dus) - (wp - 1))
+        xw = F.pad(xh, (0, 0, pl_p, pr_p), value=init)
+        phases = []
+        for tl in taps:
+            acc = None
+            for du, i in tl:
+                u0 = pl_p + du
+                sl = xw[:, :, u0:u0 + s_p * vmax + 1:s_p, i * c:(i + 1) * c]
+                acc = sl if acc is None else op(acc, sl)
+            phases.append(acc)
+        out = torch.cat(phases, dim=-1)
+    if mode == "avg":
+        out = out / kw
+        # the windows at the right edge that run past the padded input:
+        # Caffe divides by the part inside it
+        for w in range(max(0, (w_log + 2 * pw - kw) // sw + 1), wo):
+            extent = w_log + 2 * pw - w * sw
+            v, j = divmod(w, r_out)
+            out[:, :, v, j * c:(j + 1) * c] *= kw / extent
+    return out.contiguous()

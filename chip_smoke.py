@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (caffe_escoin_tpu_torch) on one GPU.
 
 Drives the port's inference paths the way ``bench.py``'s ``run_e2e``
-composes them (without packing or buckets), first on the hand-written
-kernels' routes (``use_xla_sparse=False``):
+composes them (without buckets), first on the hand-written kernels' routes
+(``use_xla_sparse=False``), unpacked:
 
 * ResNet-50 at batch 32, 224x224, conv and fc weights pruned to 90% in
   128x128 blocks (the 3-channel stem stays dense), BatchNorm/Scale/ReLU/
@@ -17,7 +17,9 @@ both weight-aligned to BSC and run in SCONV_PAR mode in bf16 on the card;
 then ResNet-50 as a bare ``python bench.py`` runs it: the XBSP arms,
 measured autotune and whole-graph calibration (phase 4b); then ResNet-50
 as ``bench.py --granularity unstructured`` prunes it, element-wise, run
-through the ELL gather SpMM (phase 4c).
+through the ELL gather SpMM (phase 4c); then both nets with the W-pair
+packed layout that a bare ``bench.py`` applies (``--pack``), against the
+unpacked rows (phase 4d).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -31,7 +33,13 @@ Phases, one line each (any failure exits non-zero):
      conv4_2 and conv5_2; bsc_spmm at ResNet-50 fc1000, VGG-16 fc6, fc7
      and fc8 (128x128 blocks) and conv1_2's lowered im2col GEMM (64x64
      blocks); sconv_gc at VGG-16 conv2_1, conv2_2 and conv3_2, and
-     sconv_fused at those three too.
+     sconv_fused at those three too; then at the packed layout's shapes
+     (``PACKED_SHAPES``), each weight repacked (``wpack.repack_weight``)
+     from a logical weight pruned as the nets' are: sconv_fused at packed
+     ResNet-50 b32's res2 3x3 [56, 28, 128] -> 128, its 1x1s 128 -> 512
+     with the residual and 512 -> 128, res3a_branch1 512 -> 512 after its
+     stride-(2, 1) subsampling, and sconv_gc (and sconv_fused) at packed
+     VGG-16 b16's conv2_1 [112, 56, 128] -> 256.
   3b. the XBSP arms (torch ops, no kernel of this package): unroll,
      gathered and gathered_cols at three ResNet-50 shapes (on the padded
      3x3 one also in the ``CESCOIN_XBSP_NOPAD`` pad-free form) and spmm at
@@ -87,6 +95,19 @@ Phases, one line each (any failure exits non-zero):
      logits within 5e-2 relative L2 of the same pruned net run dense in
      f32; the forward eager, each layer alone as a CUDA graph, and each ELL
      layer's width and nnz.
+  4d. packed: ``pack_narrow_chains`` on each fused sparse net, as bench.py
+     packs its sparse arm, weight-aligned again (the packed weights) on
+     the kernel routes; the packed blobs, routes and launches (which must
+     be what ``Net.routes`` names and ``PACKED_LAUNCHES``), the logits
+     within 5e-2 relative L2 of the unpacked dense f32 net (packing is
+     exact), the forward eager and as a CUDA graph beside the unpacked
+     kernel-route row in this call, and the layers packing changed, each
+     alone as a CUDA graph, packed beside unpacked. For ResNet-50 b32 also
+     the autotuned row packed: one ``calibrate_graph`` (polish 8) from an
+     emptied cache under ``net_scope("resnet50_packed")``, every arm
+     measured on every key, launches, logits, and its CUDA graph beside
+     phase 4b's. The phase prints the packed / unpacked graph-time ratios;
+     it fails on parity, launches or logits, never on speed.
   5. times (CUDA events, after warm-up, cycling the 4 inputs): each net
      sparse, dense-bf16 and dense-f32, eager, and the sparse forward
      replayed as a CUDA graph (its device time, without the host's
@@ -107,7 +128,7 @@ Phases, one line each (any failure exits non-zero):
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
-``launches`` sums the nets' runs (phases 4, 4b and 4c). As the last line
+``launches`` sums the nets' runs (phases 4, 4b, 4c and 4d). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -160,6 +181,27 @@ AUTOTUNE_CACHE = "build/chip_smoke_autotune.json"
 # kernel route's: its router reads device time, and the fused kernel is
 # among its candidates
 AUTOTUNED_GRAPH_LIMIT = 1.15
+# the packed layout (phase 4d): the kernels' packed shapes, (label, batch,
+# h, packed w, logical cin, logical cout, k, r_in, r_out, logical W stride,
+# relu, residual, kernels that take it, the first timed as "kernel")
+PACKED_SHAPES = [
+    ("packed res2 3x3 b32 56x28 128->128 +relu", 32, 56, 28, 64, 64, 3, 2,
+     2, 1, True, False, ("sconv_fused",)),
+    ("packed res2 expand 1x1 b32 56x28 128->512 +res+relu", 32, 56, 28, 64,
+     256, 1, 2, 2, 1, True, True, ("sconv_fused",)),
+    ("packed res2 reduce 1x1 b32 56x28 512->128 +relu", 32, 56, 28, 256, 64,
+     1, 2, 2, 1, True, False, ("sconv_fused",)),
+    ("packed res3a_branch1 1x1 stride (2,1), subsampled b32 28x28 512->512",
+     32, 28, 28, 256, 512, 1, 2, 1, 2, False, False, ("sconv_fused",)),
+    ("packed conv2_1 b16 112x56 128->256 3x3 +relu", 16, 112, 56, 64, 128,
+     3, 2, 2, 1, True, False, ("sconv_gc", "sconv_fused")),
+]
+# the kernels' launches per packed forward (phase 4d; what Net.routes names
+# on the kernel routes, held by tests/test_torch_routes.py)
+PACKED_LAUNCHES = {
+    "resnet50": {"sconv_fused": 52, "bsc_spmm": 1},
+    "vgg16": {"sconv_fused": 7, "sconv_gc": 4, "bsc_spmm": 4},
+}
 
 
 def _card_line() -> str:
@@ -279,9 +321,9 @@ def _check_arms(net, params, shapes, measured):
         if (layer.spec.type not in ("Convolution", "ConvolutionReLU")
                 or not isinstance(al, AlignedConvWeight) or al.bsc is None):
             continue
-        c = layer._conf(in_shapes[0])
-        stride, pad, dil = (tuple(c[k]) for k in ("stride", "pad",
-                                                  "dilation"))
+        # the geometry the conv runs with (a packed conv's packed stride
+        # and padding)
+        stride, pad, dil = (tuple(g) for g in layer._geometry(in_shapes[0]))
         x = torch.empty(in_shapes[0], dtype=dtype, device="meta")
         if stride != (1, 1) and al.kernel_shape == (1, 1):
             x = conv_ops._subsampled(x, stride, pad)
@@ -360,6 +402,8 @@ def main() -> int:
                                                     sconv_fused, sconv_gc)
         from caffe_escoin_tpu_torch.models import ZOO
         from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
+        from caffe_escoin_tpu_torch.nn.fuse import pack_narrow_chains
+        from caffe_escoin_tpu_torch.ops import wpack
         from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
         from caffe_escoin_tpu_torch.engine.context import SparseFormat
         from caffe_escoin_tpu_torch.kernels.spmm import ell_spmm
@@ -488,12 +532,13 @@ def main() -> int:
 
     def conv_library(al, pad):
         """cuDNN on the dense bf16 weight, channels_last, with bias: one
-        library call for the conv (no residual or ReLU)."""
+        library call for the conv (no residual or ReLU); ``pad`` is an int
+        or an (H, W) pair."""
         w = al.dense.to(dev, torch.bfloat16).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         b = al.bias.to(dev, torch.bfloat16)
-        return lambda x: F.conv2d(x.permute(0, 3, 1, 2), w, b,
-                                  padding=(pad, pad))
+        pad = tuple(pad) if isinstance(pad, tuple) else (pad, pad)
+        return lambda x: F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=pad)
 
     sconv_shapes = [  # (label, batch, h, cin, cout, k, pad, relu, residual)
         ("b32 56x56 64->64 3x3", 32, 56, 64, 64, 3, 1, False, False),
@@ -602,6 +647,50 @@ def main() -> int:
                                           "library": conv_library(al, 1),
                                           "sconv_fused": fused_kern}, xs,
                       *conv_work(al, xs[0], False)))
+
+    # the packed layout's shapes (phase 4d): each weight repacked from a
+    # logical weight pruned as the nets' are, drawn from generators of their
+    # own so that the rows above and the nets below keep their inputs
+    gen_p = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rng_p = np.random.default_rng(SEED + 1)
+    for (label, batch, h, wp, cin, cout, k, r_in, r_out, sw, relu, with_res,
+         kernels) in PACKED_SHAPES:
+        w = prune_conv_weight(
+            rng_p.standard_normal((k, k, cin, cout)).astype("float32")
+            * (2.0 / (k * k * cin)) ** 0.5, SPARSITY, BLOCK)
+        w_in = wp * r_in  # the logical width (a strided 1x1's W stride is
+        # the packed 1 after its subsampling: s_p = sw * r_out / r_in)
+        wpk, (pl, _), _ = wpack.repack_weight(w, r_in, r_out, sw,
+                                              (k - 1) // 2, w_in)
+        b = np.tile(rng_p.standard_normal(cout).astype("float32") * 0.1,
+                    r_out)
+        al = weight_align(wpk, b, policy=pol_block).to(dev, torch.bfloat16)
+        pad = ((k - 1) // 2, pl)
+        xs = [torch.randn((batch, h, wp, r_in * cin), generator=gen_p,
+                          device=dev).bfloat16() for _ in range(N_INPUTS)]
+        res = (torch.randn((batch, h, wp, al.cout), generator=gen_p,
+                           device=dev).bfloat16() if with_res else None)
+        fns = {}  # kernel -> (entry, plain version)
+        for name in kernels:
+            mod = mods[name]
+            extra = {"residual": res} if name == "sconv_fused" else {}
+            print(f"plan {name} {label}: "
+                  f"{mod.launch_plan(xs[0].shape, al, pad)} {tag}")
+            fns[name] = (
+                lambda x, mod=mod, al=al, pad=pad, relu=relu, extra=extra:
+                mod.sconv(x, al, padding=pad, relu=relu, **extra),
+                lambda x, mod=mod, al=al, pad=pad, relu=relu, extra=extra:
+                mod.sconv_plain(x, al, padding=pad, relu=relu,
+                                mxu_dtype="bfloat16", **extra))
+            out = fns[name][0](xs[0])
+            torch.cuda.synchronize()
+            check(name, label, out, fns[name][1](xs[0]))
+        first = kernels[0]
+        timed.append((first, label, {
+            "kernel": fns[first][0], "plain": fns[first][1],
+            "library": conv_library(al, pad),
+            **{n: fns[n][0] for n in kernels[1:]}}, xs,
+            *conv_work(al, xs[0], with_res)))
 
     # ---- 3b. the XBSP arms against the f32 dense conv ----------------------
     def time_line(what, label, arms, args, nbytes, flops):
@@ -773,8 +862,9 @@ def main() -> int:
         if not ok:
             raise SystemExit(f"sparse {model} disagrees with dense f32")
         kept[model] = dict(net=net, init=params, specs=fnet.specs,
-                           params=sparse_params, xs=xs,
-                           shapes=shapes, fwd_s=fwd_s, fwd_d=fwd_d)
+                           params=sparse_params, xs=xs, fnet=fnet,
+                           fparams=fparams, shapes=shapes, fwd_s=fwd_s,
+                           fwd_d=fwd_d, logits=logits_blob)
         e2e.append((model, batch, fnet.layers, routes,
                     {"sparse": fwd_s, "dense-bf16": fwd_db,
                      "dense-f32": fwd_d},
@@ -1009,6 +1099,157 @@ def main() -> int:
               for n, t in sorted(per.items(), key=lambda kv: -kv[1]))
           + f" {tag}")
     del ell_fwd, ell_params
+
+    # ---- 4d. the packed layout ----------------------------------------------
+    # pack_narrow_chains on the fused sparse nets, as bench.py packs its
+    # sparse arm (bench.py:478-490); the rows above stay unpacked
+    def logits_rel_l2(fwd, row):
+        num = den = 0.0
+        for x in row["xs"]:
+            out = fwd({"data": x})
+            logits = out[row["logits"]].float()
+            if not torch.isfinite(logits).all() or \
+                    not torch.isfinite(out["prob"].float()).all():
+                raise SystemExit("a packed net's output is not finite")
+            ref = row["fwd_d"]({"data": x})[row["logits"]]
+            num += (logits - ref).pow(2).sum().item()
+            den += ref.pow(2).sum().item()
+        return (num / den) ** 0.5
+
+    def launches_of(fwd, inputs, expect, what):
+        for m in mods.values():
+            m.reset_counts()
+        for i in inputs:
+            fwd(i)
+        torch.cuda.synchronize()
+        got = {k: m.launches for k, m in mods.items()}
+        print(f"net {what} launches over {N_INPUTS} forwards: {got} "
+              f"(expected {N_INPUTS} x {dict(expect)}) {tag}")
+        for name, n in got.items():
+            if n != N_INPUTS * expect.get(name, 0):
+                raise SystemExit(f"{what} launched {name} {n} times, "
+                                 f"expected {N_INPUTS * expect.get(name, 0)}")
+            results[name]["launches"] += n
+
+    packed_ratio = {}
+    for cfg in NETS:
+        model, batch = cfg["model"], cfg["batch"]
+        row = kept[model]
+        inputs = [{"data": x} for x in row["xs"]]
+        t0 = time.perf_counter()
+        pnet = pack_narrow_chains(row["fnet"])
+        p_params = params_to(pnet.weight_align(row["fparams"]), dev,
+                             torch.bfloat16)
+        p_routes = pnet.routes(p_params, row["shapes"])
+        expect = collections.Counter(ROUTE_KERNELS[r] for r in
+                                     p_routes.values() if r in ROUTE_KERNELS)
+        # the layers that packing changed
+        region = [l.spec.name for l in pnet.layers
+                  if "pack_in" in l.p or "pack_out" in l.p]
+        print(f"net {model} b{batch} packed: {len(pnet.packed_blobs)} blobs "
+              f"{pnet.packed_blobs}, set-up {time.perf_counter() - t0:.1f} "
+              f"s; routes {dict(collections.Counter(p_routes.values()))}; "
+              f"packed layers: " + ", ".join(
+                  f"{n} {p_routes.get(n, '-')}" for n in region) + f" {tag}")
+        if dict(expect) != PACKED_LAUNCHES[model]:
+            raise SystemExit(f"packed {model} routes launch {dict(expect)}, "
+                             f"expected {PACKED_LAUNCHES[model]}")
+        fwd_p = pnet.inference_fn(p_params, return_blobs=True)
+        launches_of(fwd_p, inputs, expect, f"{model} packed")
+        rel_l2 = logits_rel_l2(fwd_p, row)
+        ok = rel_l2 <= LOGITS_REL_L2
+        print(f"net {model} packed {row['logits']} logits vs dense f32 "
+              f"(unpacked): rel L2 {rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}) "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"packed {model} disagrees with dense f32")
+        ms = {}
+        for label, fn in (("unpacked", row["fwd_s"]), ("packed", fwd_p)):
+            ms[f"{label} as a CUDA graph"] = _graph_ms(fn, inputs, N_INPUTS)
+        for label, fn in (("unpacked", row["fwd_s"]), ("packed", fwd_p)):
+            ms[f"{label} eager"] = _time_ms(fn, inputs)
+        ratio = ms["packed as a CUDA graph"] / ms["unpacked as a CUDA graph"]
+        packed_ratio[f"{model} kernel routes"] = ratio
+        print(f"time {model} b{batch} kernel routes, packed against "
+              f"unpacked: " + ", ".join(f"{k} {v:.3f} ms"
+                                        for k, v in ms.items())
+              + f"; packed / unpacked graph {ratio:.3f} {tag}")
+        per_p = _layer_split(pnet.layers, fwd_p, inputs[0])
+        per_u = _layer_split(row["fnet"].layers, row["fwd_s"], inputs[0])
+        print(f"layers {model} packed region ({len(region)} layers), device "
+              f"ms per forward, each layer alone as a CUDA graph, packed "
+              f"(unpacked): sum {sum(per_p[n] for n in region):.3f} "
+              f"({sum(per_u[n] for n in region):.3f}); whole forward "
+              f"{sum(per_p.values()):.3f} ({sum(per_u.values()):.3f}); "
+              + ", ".join(f"{n} ({p_routes.get(n, '-')}) {per_p[n]:.4f} "
+                          f"({per_u[n]:.4f})" for n in region) + f" {tag}")
+        if model != "resnet50":
+            continue
+        # ResNet-50 b32 autotuned, packed: one calibration from an empty cache
+        at_pnet = Net(pnet.specs, policy=pol_at)
+        at_pfwd = at_pnet.inference_fn(p_params, return_blobs=True)
+
+        def fwd_pat(inputs, at_pfwd=at_pfwd):
+            with autotune.net_scope("resnet50_packed"):
+                return at_pfwd(inputs)
+
+        def time_packed(fwd_pat=fwd_pat, row=row):
+            return device_time(lambda y: fwd_pat({"data": y})["prob"],
+                               row["xs"][0], iters=CALIB_REPS,
+                               arg_sets=[(x,) for x in row["xs"]])
+
+        if os.path.exists(AUTOTUNE_CACHE):
+            os.remove(AUTOTUNE_CACHE)
+        autotune.clear()
+        t0 = time.perf_counter()
+        calib = autotune.calibrate_graph(
+            time_packed, polish=CALIB_POLISH, net_tag="resnet50_packed",
+            cache_path=AUTOTUNE_CACHE,
+            log=lambda m: print(f"calib-log packed {m}", flush=True))
+        measured = autotune.report()
+        n_keys, n_fused = _check_arms(at_pnet, p_params, row["shapes"],
+                                      measured)
+        with autotune.net_scope("resnet50_packed"):
+            pat_routes = at_pnet.routes(p_params, row["shapes"])
+        pat_expect = collections.Counter(
+            ROUTE_KERNELS[r] for r in pat_routes.values()
+            if r in ROUTE_KERNELS)
+        print(f"calib resnet50 b32 autotuned packed, from an empty cache: "
+              f"t_first {calib['t_first'] * 1e3:.3f} ms, t_isolated "
+              f"{calib['t_isolated'] * 1e3:.3f} ms, t_dense "
+              f"{calib['t_dense'] * 1e3:.3f} ms, t_final "
+              f"{calib['t_final'] * 1e3:.3f} ms; flips {calib['flips']}, "
+              f"polish trials {calib.get('polish_trials', 0)}; "
+              f"{calib['keys']} keys ({n_keys} measured, every arm; fused on "
+              f"the {n_fused} the dispatcher would run it on); arms "
+              f"{dict(collections.Counter(calib['arms'].values()))}; "
+              f"{time.perf_counter() - t0:.1f} s wall; routes "
+              f"{dict(collections.Counter(pat_routes.values()))} {tag}")
+        for key, times in sorted(measured.items()):
+            print(f"autotune packed key {key}: " + " ".join(
+                f"{arm}={t * 1e6:.1f}us" for arm, t in sorted(times.items()))
+                + f" -> {min(times, key=times.get)} {tag}")
+        launches_of(fwd_pat, inputs, pat_expect,
+                    f"{model} autotuned packed")
+        rel_l2 = logits_rel_l2(fwd_pat, row)
+        ok = rel_l2 <= LOGITS_REL_L2
+        print(f"net {model} autotuned packed fc1000 logits vs dense f32: "
+              f"rel L2 {rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}) "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("autotuned packed resnet50 disagrees with "
+                             "dense f32")
+        pat_ms = _graph_ms(fwd_pat, inputs, N_INPUTS)
+        ratio = pat_ms / at_ms["autotuned as a CUDA graph"]
+        packed_ratio["resnet50 autotuned"] = ratio
+        print(f"time resnet50 b32 autotuned, packed as a CUDA graph "
+              f"{pat_ms:.3f} ms against unpacked "
+              f"{at_ms['autotuned as a CUDA graph']:.3f} (phase 4b); "
+              f"packed / unpacked {ratio:.3f} {tag}")
+        del at_pfwd
+    print("packed / unpacked graph time: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in packed_ratio.items())
+        + f" (reported, not a limit) {tag}")
 
     # ---- 5. times ---------------------------------------------------------
     for model, batch, layers, routes, arms, inputs, inputs_bf16 in e2e:

@@ -24,6 +24,11 @@ inputs and weights, within the bf16 rule: the card's products accumulate
 in f32 (cuBLAS ``out_dtype``), in place across the live blocks of a column.
 The ELL gather SpMM likewise, at one ResNet-50 shape.
 
+The packed layout (nn/fuse.pack_narrow_chains): both direct convs at the
+packed shapes of ResNet-50's res2 and VGG-16's conv2_1, on weights that
+``wpack.repack_weight`` builds from block-pruned logical weights, and a
+packed narrow ResNet whose launches must equal what ``Net.routes`` names.
+
 The timer and the graph forward: ``device_time`` replays CUDA graphs,
 ``Net.inference_fn(cuda_graph=True)`` replays the eager forward's results,
 and a capture that would have to measure an autotune key raises.
@@ -594,3 +599,128 @@ def test_autotune_refuses_to_measure_during_graph_capture(dev, tmp_path,
                           key=autotune.report()[key].get)
     finally:
         autotune.clear()
+
+
+def _packed_weight(rng, k, cin, cout, r_in, r_out, sw, pw, w_in, dev):
+    """A logical conv weight pruned to 90% in 128x128 blocks, repacked for
+    the W-pair layout and aligned (the packed layer's ``align``)."""
+    from caffe_escoin_tpu_torch.ops import wpack
+
+    w = prune_conv_weight(rng.standard_normal((k, k, cin, cout)).astype(
+        np.float32) * 0.05, 0.9, (128, 128))
+    wp, _, _ = wpack.repack_weight(w, r_in, r_out, sw, pw, w_in)
+    b = np.tile(rng.standard_normal(cout).astype(np.float32), r_out)
+    al = weight_align(wp, b, policy=ExecutionPolicy(block_shape=(128, 128)))
+    return al.to(dev, torch.bfloat16)
+
+
+# (n, h, w_packed, cin_logical, cout_logical, k, pad, r_in, r_out, relu,
+#  residual): ResNet-50 b32's packed res2 convs and res3a's strided 1x1
+#  after subsampling (stride (2, 1) on the packed map: its logical stride
+#  2 over 2 packed phases), at batch 2
+PACKED_SCONV_SHAPES = {
+    "res2_3x3_56x28_128": (2, 56, 28, 64, 64, 3, 1, 2, 2, True, False),
+    "res2_expand_1x1_128_to_512_res": (2, 56, 28, 64, 256, 1, 0, 2, 2, True,
+                                       True),
+    "res2_reduce_1x1_512_to_128": (2, 56, 28, 256, 64, 1, 0, 2, 2, True,
+                                   False),
+    "res3a_branch1_subsampled_512_to_512": (2, 28, 28, 256, 512, 1, 0, 2, 1,
+                                            False, False),
+}
+
+
+@pytest.mark.parametrize("name", list(PACKED_SCONV_SHAPES))
+def test_sconv_fused_at_packed_shapes(dev, name):
+    n, h, wp, cin, cout, k, pad, r_in, r_out, relu, with_res = \
+        PACKED_SCONV_SHAPES[name]
+    rng = np.random.default_rng(11)
+    sw = 2 if r_out == 1 else 1  # res3a: stride 2, run after subsampling
+    al = _packed_weight(rng, k, cin, cout, r_in, r_out, sw, pad, wp * r_in,
+                        dev)
+    assert al.cin == cin * r_in and al.cout == cout * r_out
+    x = torch.from_numpy(rng.standard_normal(
+        (n, h, wp, cin * r_in)).astype(np.float32)).to(dev, torch.bfloat16)
+    res = (torch.randn((n, h, wp, al.cout), device=dev).bfloat16()
+           if with_res else None)
+    launches = sconv_fused.launches
+    out = sconv_fused.sconv(x, al, padding=(pad, pad), relu=relu,
+                            residual=res)
+    torch.cuda.synchronize()
+    assert sconv_fused.launches == launches + 1
+    ref = sconv_fused.sconv_plain(x, al, padding=(pad, pad), relu=relu,
+                                  residual=res, mxu_dtype="bfloat16")
+    _close(out, ref, torch.bfloat16)
+
+
+def test_sconv_gc_at_packed_vgg_conv2_1(dev):
+    """VGG-16's conv2_1 packed: [2, 112, 56, 128] -> 256 lanes, 3x3."""
+    rng = np.random.default_rng(12)
+    al = _packed_weight(rng, 3, 64, 128, 2, 2, 1, 1, 112, dev)
+    x = torch.from_numpy(rng.standard_normal((2, 112, 56, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    launches = sconv_gc.launches
+    out = sconv_gc.sconv(x, al, padding=(1, 1), relu=True)
+    torch.cuda.synchronize()
+    assert sconv_gc.launches == launches + 1
+    assert out.shape == (2, 112, 56, 256)
+    ref = sconv_gc.sconv_plain(x, al, padding=(1, 1), relu=True,
+                               mxu_dtype="bfloat16")
+    _close(out, ref, torch.bfloat16)
+
+
+def test_packed_narrow_net_launches_what_its_routes_name(dev):
+    """The narrow ResNet of ``_small_resnet`` with a pooled stem, packed at
+    lanes=32 (its 16-channel blobs at r=2), on the kernel routes in bf16:
+    each kernel launches once per route that names it, and the packed
+    forward agrees with the unpacked one."""
+    from caffe_escoin_tpu_torch.engine.context import ConvMode
+    from caffe_escoin_tpu_torch.models import resnet
+    from caffe_escoin_tpu_torch.nn import (LayerSpec, Net, fuse_inference,
+                                           params_to)
+    from caffe_escoin_tpu_torch.nn.fuse import pack_narrow_chains
+    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
+
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=(8, 8),
+                          compute_dtype=torch.bfloat16, cast_back=False,
+                          use_xla_sparse=False)
+    specs, top = resnet._conv_bn("conv1", "data", 16, 7, s=2, p=3)
+    specs.append(LayerSpec("pool1", "Pooling", (top,),
+                           params=dict(kernel=3, stride=2)))
+    top = "pool1"
+    for stage, mid, cout, stride in (("2", 16, 32, 1), ("3", 16, 64, 2)):
+        blk, top = resnet._bottleneck(stage, 0, top, mid, cout, stride)
+        specs += blk
+    specs += [LayerSpec("pool5", "Pooling", (top,),
+                        params=dict(mode="avg", global_pooling=True)),
+              LayerSpec("fc", "InnerProduct", ("pool5",),
+                        params=dict(num_output=24))]
+    shapes = {"data": (2, 32, 32, 3)}
+    net = Net(specs, policy=pol)
+    params = net.init(torch.Generator().manual_seed(0), shapes)
+    for p in params.values():
+        w = p.get("w")
+        if w is not None and w.dim() == 4 and w.shape[2] >= 8:
+            p["w"] = torch.from_numpy(prune_conv_weight(w.numpy(), 0.9,
+                                                        (8, 8)))
+    fnet, fparams = fuse_inference(net, params, state=net.state0)
+    pnet = pack_narrow_chains(fnet, lanes=32)
+    assert "pool1" in pnet.packed_blobs
+    outs = {}
+    for tag, n in (("unpacked", fnet), ("packed", pnet)):
+        aligned = params_to(n.weight_align(fparams), dev, torch.bfloat16)
+        routes = n.routes(aligned, shapes)
+        expect = {k: 0 for k in ("sconv_fused", "sconv_gc", "bsc_spmm")}
+        for r in routes.values():
+            if r in ROUTE_KERNELS:
+                expect[ROUTE_KERNELS[r]] += 1
+        for mod in (sconv_fused, sconv_gc, bsc_spmm):
+            mod.reset_counts()
+        x = torch.randn((2, 32, 32, 3), generator=torch.Generator(
+            ).manual_seed(1)).to(dev)
+        outs[tag] = n.inference_fn(aligned)({"data": x})["fc"].float()
+        torch.cuda.synchronize()
+        got = {"sconv_fused": sconv_fused.launches,
+               "sconv_gc": sconv_gc.launches, "bsc_spmm": bsc_spmm.launches}
+        assert got == expect, (tag, routes)
+        assert expect["sconv_fused"] > 0
+    _close(outs["packed"], outs["unpacked"], torch.bfloat16)

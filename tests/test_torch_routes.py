@@ -10,6 +10,12 @@ is computed; spies on its kernel entries record which one it reached.
 
 The same at VGG-16 b16 and ResNet-50 b32 on the XBSP branch with the fused
 arm forced: the reference's size gate decides where the fused kernel runs.
+
+The same on the packed nets (``pack_narrow_chains`` after fusion, as
+bench.py runs them), in bf16, on the kernel routes and on the XBSP branch:
+every conv of packed ResNet-50 b32 and VGG-16 b16 at its packed shapes,
+the JAX side through its real layer ``apply`` (which runs the packed
+geometry) under ``jax.eval_shape``.
 """
 
 import numpy as np
@@ -25,14 +31,18 @@ from caffe_escoin_tpu.kernels import bsc_pallas as jbsc_pallas  # noqa: E402
 from caffe_escoin_tpu.kernels import sconv_fused as jsconv_fused  # noqa: E402
 from caffe_escoin_tpu.kernels import sconv_pallas as jsconv_pallas  # noqa: E402
 from caffe_escoin_tpu.kernels import xla_block_sparse as jxbs  # noqa: E402
+from caffe_escoin_tpu.nn import Net as JNet  # noqa: E402
+from caffe_escoin_tpu.nn.fuse import pack_narrow_chains as jpack  # noqa: E402
 from caffe_escoin_tpu.ops import conv as jconv  # noqa: E402
 from caffe_escoin_tpu.sparse.weight_align import weight_align as jweight_align  # noqa: E402
 
 from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy  # noqa: E402
 from caffe_escoin_tpu_torch.models import ZOO  # noqa: E402
 from caffe_escoin_tpu_torch.nn import Net  # noqa: E402
+from caffe_escoin_tpu_torch.nn.fuse import pack_narrow_chains  # noqa: E402
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align  # noqa: E402
 from caffe_escoin_tpu_torch.utils.pruning import prune_conv_weight  # noqa: E402
+from test_torch_pack_pass import _zoo_fused  # noqa: E402
 
 BLOCK = (128, 128)
 SPARSITY = 0.9
@@ -172,3 +182,93 @@ def test_forced_fused_arm_keeps_the_reference_size_gate(model, monkeypatch):
         assert sum(r == "fused" for r in ported.values()) == 7
     else:
         assert "unroll" not in ported.values()
+
+
+PACKED_BATCH = {"vgg16": 16, "resnet50": 32}
+PACKED_SPIES = {
+    False: ((jconv, "conv2d_dense", "dense"),
+            (jconv, "conv2d_lowered_sparse", "lowered"),
+            (jsconv_fused, "sconv", "fused"),
+            (jsconv_pallas, "sconv", "gc"),
+            (jbsc_pallas, "bsc_spmm_pallas", "spmm_1x1")),
+    True: ((jconv, "conv2d_dense", "dense"),
+           (jxbs, "conv", "unroll"),
+           (jxbs, "conv_gathered", "gathered"),
+           (jxbs, "conv_gathered_cols", "gathered_cols"),
+           (jsconv_fused, "sconv", "fused")),
+}
+
+
+@pytest.fixture(scope="module", params=["vgg16", "resnet50"])
+def packed_model(request):
+    """The packed, fused net on both sides (weights pruned to 90% in
+    128x128 blocks, the stem dense), every conv aligned by its own layer
+    (the packed weight), and each conv's packed input shapes."""
+    name = request.param
+    shapes, (fparams, jfparams), fnet, jfnet = _zoo_fused(
+        name, PACKED_BATCH[name], BLOCK)
+    pnet, jpnet = pack_narrow_chains(fnet), jpack(jfnet)
+    pol, jpol = _policy(None), JPOL
+    pnet = Net(pnet.specs, policy=pol)
+    jlayers = {lay.spec.name: lay
+               for lay in JNet(jpnet.specs, policy=jpol, phase="test").layers}
+    convs = {}
+    for layer, in_shapes in pnet.walk_shapes(shapes):
+        name_ = layer.spec.name
+        if layer.spec.type not in ("Convolution", "ConvolutionReLU"):
+            continue
+        convs[name_] = dict(
+            xs=in_shapes, spec=layer.spec,
+            aligned=layer.align(fparams[name_]),
+            jaligned=jlayers[name_].align(jfparams[name_]))
+    return name, shapes, pnet.specs, jpnet.specs, convs
+
+
+@pytest.mark.parametrize("use_xla_sparse", [False, True])
+def test_packed_routes_match_jax_dispatch(packed_model, use_xla_sparse,
+                                          monkeypatch):
+    name, shapes, specs, jspecs, convs = packed_model
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+                          compute_dtype=torch.bfloat16, cast_back=False,
+                          use_xla_sparse=use_xla_sparse)
+    jpol = JPolicy(conv_mode=JConvMode.SCONV_PAR, block_shape=BLOCK,
+                   use_pallas=True, compute_dtype=jnp.bfloat16,
+                   cast_back=False, use_xla_sparse=use_xla_sparse)
+    routes = Net(specs, policy=pol).routes(
+        {k: c["aligned"] for k, c in convs.items()}, shapes)
+    ported = {k: routes[k] for k in convs}
+    jlayers = {lay.spec.name: lay
+               for lay in JNet(jspecs, policy=jpol, phase="test").layers}
+    seen = []
+
+    def spy(arm, fn):
+        def wrapped(*a, **kw):
+            seen.append(arm)
+            return fn(*a, **kw)
+        return wrapped
+
+    jax_routes = {}
+    for k, c in convs.items():
+        seen.clear()
+        for mod, attr, arm in PACKED_SPIES[use_xla_sparse]:
+            monkeypatch.setattr(mod, attr, spy(arm, getattr(mod, attr)))
+        jax.eval_shape(  # a fused residual is the second input
+            lambda *ys, k=k, c=c: jlayers[k].apply(c["jaligned"], list(ys),
+                                                   train=False, rng=None),
+            *[jax.ShapeDtypeStruct(x, jnp.bfloat16) for x in c["xs"]])
+        monkeypatch.undo()
+        jax_routes[k] = seen[0]
+    assert ported == jax_routes
+    if use_xla_sparse:
+        return
+    if name == "resnet50":
+        # packing makes res2a_branch2a's block-diagonal weight 50% sparse:
+        # 52 fused convs, the stem dense
+        assert ported["res2a_branch2a"] == "fused"
+        assert [k for k, r in ported.items() if r != "fused"] == ["conv1"]
+        assert ported["conv1"] == "dense"
+    else:
+        expect = dict.fromkeys(convs, "fused")
+        expect.update(conv1_1="dense", conv1_2="lowered", conv2_1="gc",
+                      conv2_2="gc", conv3_2="gc", conv3_3="gc")
+        assert ported == expect
