@@ -1,8 +1,15 @@
-from caffe_escoin_tpu_torch.models import resnet, vgg  # noqa: F401
+from caffe_escoin_tpu_torch.models import (alexnet, caffenet,  # noqa: F401
+                                           googlenet, resnet, vgg)
 
-# the models the port carries so far (name -> (spec builder, input shapes)),
-# a subset of the JAX package's ZOO
+# the models the port carries (name -> (spec builder, input shapes)): the
+# JAX package's ZOO but lenet, cifar10_quick and cifar10_bn
 ZOO = {
+    "alexnet": (alexnet.alexnet, alexnet.INPUT_SHAPES),
     "vgg16": (vgg.vgg16, vgg.INPUT_SHAPES),
+    "googlenet": (googlenet.googlenet, googlenet.INPUT_SHAPES),
     "resnet50": (resnet.resnet50, resnet.INPUT_SHAPES),
+    "caffenet": (caffenet.caffenet, caffenet.INPUT_SHAPES),
+    "rcnn_ilsvrc13": (caffenet.rcnn_ilsvrc13, caffenet.INPUT_SHAPES),
+    "finetune_flickr_style": (caffenet.finetune_flickr_style,
+                              caffenet.INPUT_SHAPES),
 }

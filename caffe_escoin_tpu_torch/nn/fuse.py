@@ -1,6 +1,6 @@
-"""Inference-time graph passes (port of ``caffe_escoin_tpu/nn/fuse.py:1-473``:
-the fusion passes A and B and the packed-layout pass ``pack_narrow_chains``;
-``fold_stem_s2d`` waits).
+"""Inference-time graph passes (port of ``caffe_escoin_tpu/nn/fuse.py``: the
+fusion passes A and B, the packed-layout pass ``pack_narrow_chains`` and
+the space-to-depth stem fold ``fold_stem_s2d``).
 
 * Pass A, affine fold: Conv -> [BatchNorm] -> [Scale] -> [ReLU] chains
   collapse into one conv whose weight and bias absorb the affine
@@ -14,6 +14,11 @@ the fusion passes A and B and the packed-layout pass ``pack_narrow_chains``;
 
 * ``pack_narrow_chains``: marks the narrow-channel towers that run on the
   W-pair packed layout (ops/wpack.py).
+* ``fold_stem_s2d``: rewrites a strided small-cin stem conv as a stride-1
+  conv over the space-to-depth layout (ops/s2d.py).
+
+The order is bench.py's: ``fuse_inference``, then ``fold_stem_s2d``, then
+``pack_narrow_chains`` (which leaves s2d convs alone).
 
 The fold arithmetic is numpy float32, as in the JAX package, so both give
 the same folded weights. Run before ``weight_align``.
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from caffe_escoin_tpu_torch.nn.net import LayerSpec, Net
+from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
 from caffe_escoin_tpu_torch.ops import wpack
 
 CONV_TYPES = ("Convolution", "ConvolutionReLU")
@@ -259,11 +265,13 @@ def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
     public layout. Returns a new net with ``packed_blobs`` (blob -> r) and
     packed ``blob_shapes``, or ``net`` itself when nothing packs.
 
-    The branches for LRN layers and the refusals of shared params and
-    space-to-depth stems are carried over; the port registers no LRN layer
-    and no s2d fold yet, and its LayerSpec has no ``share_params``, so they
-    only read specs. Packing on the card is not a default: the JAX package
-    packs for TPU lane padding, which a GPU does not have."""
+    An LRN layer is layout-transparent per (pixel, channel window): it
+    passes a packed blob on at the same factor and normalizes each phase's
+    channel block on its own (``pack_in``). Space-to-depth stems
+    (``s2d_r``) keep their own layout. The refusal of shared params is
+    carried over, but the port's LayerSpec has no ``share_params`` yet, so
+    it only reads specs. Packing on the card is not a default: the JAX
+    package packs for TPU lane padding, which a GPU does not have."""
     specs = list(net.specs)
     shapes: Dict[str, Tuple[int, ...]] = dict(net.blob_shapes)
     if not shapes:
@@ -414,3 +422,74 @@ def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
         for b, shp in shapes.items()}
     out.packed_blobs = dict(packed)
     return out
+
+
+# a stem folds only while its s2d input, cin*r^2 channels, stays this narrow
+# (the JAX package's rule: GoogLeNet's 3-channel stride-2 stem gives 12)
+_S2D_MAX_LANES = 128
+
+
+def fold_stem_s2d(net: Net, params: Dict[str, Any]
+                  ) -> Tuple[Net, Dict[str, Any]]:
+    """Space-to-depth reformulation of the stem conv (ops/s2d.py; the JAX
+    package's ``nn/fuse.py:476-548``, the same eligibility rule).
+
+    Rewrites every 2-D conv whose bottom is a net input, with a square
+    stride r >= 2, dilation 1, group 1 and cin*r^2 <= ``_S2D_MAX_LANES``,
+    to run at stride 1 over the [N, H/r, W/r, r*r*C] space-to-depth layout: the
+    weight is remapped tap by tap (``s2d_weight``, zero structure kept),
+    the spec's kernel, stride and pad become the remapped kernel's, and
+    ``s2d_r``/``s2d_kernel``/``s2d_pad`` tell ``ConvolutionLayer`` to
+    transform its input. Exact for every kernel size: the grid is padded
+    or cropped to the strided conv's output size (ops/s2d.py), so a stem
+    with k <= r folds too.
+
+    Runs after ``fuse_inference`` (on folded dense weights) and before
+    ``pack_narrow_chains``. Returns the folded net and params (the stem's
+    weight remapped, the rest shared), or the arguments themselves when
+    nothing folds."""
+    specs = list(net.specs)
+    produced = {t for s in specs for t in s.tops}
+    new_params = dict(params)
+    out_specs: list = []
+    n_folded = 0
+    for s in specs:
+        prm = s.params
+        if (s.type not in CONV_TYPES or not s.bottoms
+                or s.bottoms[0] in produced
+                or getattr(s, "share_params", None) is not None
+                or prm.get("s2d_r") or prm.get("pack_in")
+                or prm.get("pack_out") or prm.get("fuse_add")):
+            out_specs.append(s)
+            continue
+        p = new_params.get(s.name)
+        if not isinstance(p, dict) or "w" not in p or p["w"].ndim != 4:
+            out_specs.append(s)
+            continue
+        cin = p["w"].shape[2]
+
+        def dim(key, default, i):
+            v = prm.get(key, default)
+            return int(v[i]) if isinstance(v, (tuple, list)) else int(v)
+
+        sh, sw = dim("stride", 1, 0), dim("stride", 1, -1)
+        ph, pw = dim("pad", 0, 0), dim("pad", 0, -1)
+        if (sh != sw or sh < 2 or dim("dilation", 1, 0) != 1
+                or dim("dilation", 1, -1) != 1
+                or int(prm.get("group", 1)) != 1
+                or cin * sh * sh > _S2D_MAX_LANES):
+            out_specs.append(s)
+            continue
+        kh, kw = p["w"].shape[:2]
+        wp = s2d_ops.s2d_weight(_np(p["w"]), sh, (ph, pw))
+        new_params[s.name] = dict(p, w=torch.from_numpy(wp))
+        out_specs.append(dataclasses.replace(s, params=dict(
+            prm, kernel=[wp.shape[0], wp.shape[1]], stride=1, pad=0,
+            s2d_r=sh, s2d_kernel=[int(kh), int(kw)], s2d_pad=[ph, pw])))
+        n_folded += 1
+    if not n_folded:
+        return net, params
+    out = Net(out_specs, policy=net.policy, phase=net.phase)
+    out.state0 = net.state0
+    out.blob_shapes = dict(net.blob_shapes)
+    return out, new_params

@@ -1,11 +1,12 @@
 """The layers of the slice (port of ``caffe_escoin_tpu/nn/layers.py``:
 Input, Convolution, ConvolutionReLU, InnerProduct, Pooling, ReLU, Dropout,
-Softmax, BatchNorm at global statistics, Scale, Eltwise). Convolution and
-InnerProduct carry the sparse machinery (weight_align -> AlignedConvWeight
--> mode dispatch) and name the kernel route they take (``route``).
-Convolution and Pooling also run on the W-pair packed layout that
-nn/fuse.pack_narrow_chains marks. The rest are thin. The other registered
-types of the JAX package wait.
+Softmax, BatchNorm at global statistics, Scale, Eltwise, LRN, Concat).
+Convolution and InnerProduct carry the sparse machinery (weight_align ->
+AlignedConvWeight -> mode dispatch) and name the kernel route they take
+(``route``). Convolution, Pooling and LRN also run on the W-pair packed
+layout that nn/fuse.pack_narrow_chains marks, and Convolution on the
+space-to-depth layout that nn/fuse.fold_stem_s2d gives a stem. The rest
+are thin. The other registered types of the JAX package wait.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from caffe_escoin_tpu_torch.ops import conv as conv_ops
 from caffe_escoin_tpu_torch.ops import linear as linear_ops
 from caffe_escoin_tpu_torch.ops import norm as norm_ops
 from caffe_escoin_tpu_torch.ops import pool as pool_ops
+from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
 from caffe_escoin_tpu_torch.ops import structural as struct_ops
 from caffe_escoin_tpu_torch.ops import wpack
 from caffe_escoin_tpu_torch.sparse.weight_align import (AlignedConvWeight,
@@ -75,8 +77,21 @@ class ConvolutionLayer(Layer):
     fuse_add (set by nn/fuse.py: a second bottom is the residual), and
     pack_in, pack_out, pack_w (set by nn/fuse.pack_narrow_chains: the conv
     reads and writes the W-pair packed layout of ops/wpack.py; pack_w is the
-    logical input width). The params stay logical: a packed conv repacks
-    its weight when it aligns it, or per call on the dense path."""
+    logical input width), and s2d_r, s2d_kernel, s2d_pad (set by
+    nn/fuse.fold_stem_s2d: the conv runs on ``ops/s2d.s2d_input`` of its
+    input, and its kernel, stride and pad describe the remapped kernel).
+    The params stay logical: a packed conv repacks its weight when it
+    aligns it, or per call on the dense path."""
+
+    def _in_shape(self, in_shape):
+        """The shape of the input the conv runs on: the space-to-depth grid
+        of a folded stem, else ``in_shape`` itself."""
+        r = self.p.get("s2d_r")
+        if not r:
+            return tuple(in_shape)
+        x = torch.empty(tuple(in_shape), device="meta")
+        return tuple(s2d_ops.s2d_input(x, r, _pair(self.p["s2d_kernel"]),
+                                       _pair(self.p["s2d_pad"])).shape)
 
     def _conf(self, in_shape):
         p = self.p
@@ -106,7 +121,7 @@ class ConvolutionLayer(Layer):
         return (sh, s_p), (ph, pl), (1, 1)
 
     def init_params(self, gen, in_shapes):
-        c = self._conf(in_shapes[0])
+        c = self._conf(self._in_shape(in_shapes[0]))
         cin_g = c["cin"] // c["groups"]
         fan_in = math.prod(c["kernel"]) * cin_g
         params = {"w": fill(gen, c["kernel"] + (cin_g, c["cout"]),
@@ -118,9 +133,10 @@ class ConvolutionLayer(Layer):
         return params
 
     def out_shapes(self, in_shapes):
-        c = self._conf(in_shapes[0])
+        in_shape = self._in_shape(in_shapes[0])
+        c = self._conf(in_shape)
         r_in, r_out = _pack(self.p)
-        n, h, w, _ = in_shapes[0]
+        n, h, w, _ = in_shape
         (kh, kw), (sh, sw) = c["kernel"], c["stride"]
         (ph, pw), (dh, dw) = c["pad"], c["dilation"]
         wo = conv_ops._out_spatial(w * r_in, kw, sw, pw, dw)
@@ -154,8 +170,9 @@ class ConvolutionLayer(Layer):
         ``in_shapes[0]`` and ``in_dtype``, from shapes alone."""
         if not isinstance(params, AlignedConvWeight):
             return "dense"
-        stride, pad, dil = self._geometry(in_shapes[0])
-        x = torch.empty(in_shapes[0], dtype=self.policy.compute_dtype
+        in_shape = self._in_shape(in_shapes[0])
+        stride, pad, dil = self._geometry(in_shape)
+        x = torch.empty(in_shape, dtype=self.policy.compute_dtype
                         or in_dtype, device="meta")
         return conv_ops.conv_route(x, params, stride=stride, padding=pad,
                                    dilation=dil, policy=self.policy)
@@ -165,8 +182,6 @@ class ConvolutionLayer(Layer):
         # the residual arrives in the output's layout, packed or not
         residual = (inputs[1] if len(inputs) > 1 and self.p.get("fuse_add")
                     else None)
-        c = self._conf(x.shape)
-        stride, pad, dil = self._geometry(x.shape)
         fuse_relu = self.p.get("fuse_relu", False) and self.policy.fuse_relu
         cd = self.policy.compute_dtype
         in_dtype = x.dtype
@@ -175,6 +190,12 @@ class ConvolutionLayer(Layer):
             params = _cast(params, cd)
             if residual is not None:
                 residual = residual.to(cd)
+        if self.p.get("s2d_r"):
+            x = s2d_ops.s2d_input(x, self.p["s2d_r"],
+                                  _pair(self.p["s2d_kernel"]),
+                                  _pair(self.p["s2d_pad"]))
+        c = self._conf(x.shape)
+        stride, pad, dil = self._geometry(x.shape)
         if isinstance(params, AlignedConvWeight):
             out = conv_ops.conv2d(x, params, stride=stride, padding=pad,
                                   dilation=dil, relu=fuse_relu,
@@ -382,6 +403,36 @@ class ScaleLayer(Layer):
     def forward(self, params, inputs, state=None):
         return [norm_ops.scale_bias(inputs[0], params["gamma"],
                                     params.get("beta"))]
+
+
+@register_layer("LRN")
+class LRNLayer(Layer):
+    """Cross-channel LRN. On the W-pair packed layout (``pack_in``, set by
+    nn/fuse.pack_narrow_chains) it normalizes each pixel phase's channel
+    block on its own."""
+
+    def forward(self, params, inputs, state=None):
+        return [norm_ops.lrn_across_channels(
+            inputs[0], local_size=self.p.get("local_size", 5),
+            alpha=self.p.get("alpha", 1e-4), beta=self.p.get("beta", 0.75),
+            k=self.p.get("k", 1.0), groups=self.p.get("pack_in", 1))]
+
+
+@register_layer("Concat")
+class ConcatLayer(Layer):
+    """Joins its bottoms along ``axis`` (default -1: the NHWC channels)."""
+
+    def _axis(self, ndim):
+        return self.p.get("axis", -1) % ndim
+
+    def out_shapes(self, in_shapes):
+        ax = self._axis(len(in_shapes[0]))
+        out = list(in_shapes[0])
+        out[ax] = sum(s[ax] for s in in_shapes)
+        return [tuple(out)]
+
+    def forward(self, params, inputs, state=None):
+        return [struct_ops.concat(inputs, axis=self._axis(inputs[0].dim()))]
 
 
 @register_layer("Eltwise")

@@ -1,9 +1,18 @@
 """Structural ops of the slice (port of ``caffe_escoin_tpu/ops/structural.py``
-``eltwise``; the other plumbing ops wait)."""
+``concat`` and ``eltwise``; the other plumbing ops wait)."""
 
 from __future__ import annotations
 
 from typing import Sequence
+
+import torch
+
+
+def concat(xs: Sequence, axis: int = -1):
+    """Caffe Concat: the blobs joined along ``axis`` (the channels of NHWC
+    by default). XLA fuses it into its producers on the TPU; on the card
+    it is one copy of every input."""
+    return torch.cat(list(xs), dim=axis)
 
 
 def eltwise(xs: Sequence, op: str = "sum", coeffs=None):

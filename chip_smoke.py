@@ -12,14 +12,22 @@ composes them (without buckets), first on the hand-written kernels' routes
   weight scaled back to its norm, so that the signal survives thirteen
   pruned convs and three pruned fcs), fc6/fc7 ReLU fused, Dropout kept as
   the inference identity;
+* GoogLeNet at batch 32, 224x224, full width and depth (``bench.py --model
+  googlenet``), the same pruning where a conv has 32 or more input
+  channels, each pruned weight scaled back to its norm: LRN, Concat and
+  nine inception blocks;
+* AlexNet at batch 32, 227x227 (``bench.py --model alexnet``), pruned the
+  same way, grouped conv2/conv4/conv5 on block-diagonal weights, LRN;
 
-both weight-aligned to BSC and run in SCONV_PAR mode in bf16 on the card;
+all weight-aligned to BSC and run in SCONV_PAR mode in bf16 on the card;
 then ResNet-50 as a bare ``python bench.py`` runs it: the XBSP arms,
-measured autotune and whole-graph calibration (phase 4b); then ResNet-50
-as ``bench.py --granularity unstructured`` prunes it, element-wise, run
-through the ELL gather SpMM (phase 4c); then both nets with the W-pair
-packed layout that a bare ``bench.py`` applies (``--pack``), against the
-unpacked rows (phase 4d).
+measured autotune and whole-graph calibration, and GoogLeNet and AlexNet
+the same way (phase 4b); then ResNet-50 as ``bench.py --granularity
+unstructured`` prunes it, element-wise, run through the ELL gather SpMM
+(phase 4c); then ResNet-50 and VGG-16 with the W-pair packed layout that a
+bare ``bench.py`` applies (``--pack``), against the unpacked rows (phase
+4d); then GoogLeNet in the three forms bench.py gives it: fused, with its
+stem folded by space-to-depth, and folded and packed (phase 4e).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -39,7 +47,11 @@ Phases, one line each (any failure exits non-zero):
      ResNet-50 b32's res2 3x3 [56, 28, 128] -> 128, its 1x1s 128 -> 512
      with the residual and 512 -> 128, res3a_branch1 512 -> 512 after its
      stride-(2, 1) subsampling, and sconv_gc (and sconv_fused) at packed
-     VGG-16 b16's conv2_1 [112, 56, 128] -> 256.
+     VGG-16 b16's conv2_1 [112, 56, 128] -> 256; then at GoogLeNet b32's
+     and AlexNet b32's shapes (``ZOO_SHAPES``: 5x5 kernels, K-blocks 32,
+     48, 96 and 112 deep, block widths 16, 24 and 96, part-filled last
+     columns at couts 208, 224, 288 and 320, each with a live block, Cin
+     528, group=2) and bsc_spmm at AlexNet's fc6 (32 x 9216 -> 4096).
   3b. the XBSP arms (torch ops, no kernel of this package): unroll,
      gathered and gathered_cols at three ResNet-50 shapes (on the padded
      3x3 one also in the ``CESCOIN_XBSP_NOPAD`` pad-free form) and spmm at
@@ -83,7 +95,10 @@ Phases, one line each (any failure exits non-zero):
      run fails if the autotuned CUDA graph takes more than
      ``AUTOTUNED_GRAPH_LIMIT`` times the kernel route's. Then the
      per-layer split by arm. No arm is measured during a CUDA-graph
-     capture: autotune raises if it would.
+     capture: autotune raises if it would. Then GoogLeNet b32 and AlexNet
+     b32 (``CALIB_ONCE``): one calibration each from an emptied cache, its
+     keys' arm times, launches, logits, both graph times and their ratio
+     (printed, not held to a limit), and the per-layer split by arm.
   4c. ResNet-50 b32 unstructured: the kernel-route row's random weights
      (seed 0), its conv weights (the stem stays dense) pruned element-wise
      to 90% with ``prune_conv_weight(w, 0.9, None)`` and fc1000 with
@@ -107,15 +122,26 @@ Phases, one line each (any failure exits non-zero):
      emptied cache under ``net_scope("resnet50_packed")``, every arm
      measured on every key, launches, logits, and its CUDA graph beside
      phase 4b's. The phase prints the packed / unpacked graph-time ratios;
-     it fails on parity, launches or logits, never on speed.
+     it fails on parity, launches or logits, never on speed. Nothing of
+     AlexNet packs (the phase fails if that changes); GoogLeNet's packed
+     form is phase 4e's.
+  4e. GoogLeNet b32's stem transforms, on the kernel routes: the fused net,
+     ``fold_stem_s2d`` of it (conv1 7x7/2 becomes a 4x4/1 conv over the
+     [32, 115, 115, 12] space-to-depth grid) and ``pack_narrow_chains`` of
+     that; each form's stem, packed blobs, routes and launches (as
+     ``Net.routes`` names them), logits against the unfolded dense f32 net,
+     and the stem layers, each alone as a CUDA graph, side by side with the
+     s2d transform alone; the three CUDA-graph times in the order A B C C
+     B A, each against the fused form's. Never fails on speed.
   5. times (CUDA events, after warm-up, cycling the 4 inputs): each net
-     sparse, dense-bf16 and dense-f32, eager, and the sparse forward
-     replayed as a CUDA graph (its device time, without the host's
-     dispatch); then each layer's device time in one sparse forward (the
-     layer alone as a CUDA graph on its inputs), by route. Each kernel
+     sparse, dense-bf16 and dense-f32, eager, and the sparse and dense-bf16
+     forwards replayed as CUDA graphs (their device time, without the
+     host's dispatch); then each layer's device time in one sparse forward (the
+     layer alone as a CUDA graph on its inputs), by route, and a layer
+     that has none (LRN, Concat, Pooling, ...) by its type. Each kernel
      beside its plain version, one PyTorch library call computing the same
      function (``F.conv2d`` on the dense bf16 weight, channels_last, with
-     bias, for a conv; ``torch.addmm`` with the dense weight for an SpMM;
+     bias and the weight's groups, for a conv; ``torch.addmm`` with the dense weight for an SpMM;
      the port never calls either), and sconv_gc beside sconv_fused on the
      same layer, each arm timed eager (20 calls between CUDA events, host
      dispatch included) and as a CUDA graph of 20 calls (device time).
@@ -128,7 +154,7 @@ Phases, one line each (any failure exits non-zero):
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
-``launches`` sums the nets' runs (phases 4, 4b, 4c and 4d). As the last line
+``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d and 4e). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -169,6 +195,10 @@ NETS = [
          input_scale=0.1, keep_norm=False),
     dict(model="vgg16", batch=16, logits="fc8", width=1000,
          input_scale=1.0, keep_norm=True),
+    dict(model="googlenet", batch=32, logits="loss3/classifier", width=1000,
+         input_scale=1.0, keep_norm=True),
+    dict(model="alexnet", batch=32, logits="fc8", width=1000,
+         input_scale=1.0, keep_norm=True),
 ]
 ROUTE_REPS = 100
 # the autotuned row: bench.py's calibration (polish 8, net scope), and a
@@ -202,6 +232,40 @@ PACKED_LAUNCHES = {
     "resnet50": {"sconv_fused": 52, "bsc_spmm": 1},
     "vgg16": {"sconv_fused": 7, "sconv_gc": 4, "bsc_spmm": 4},
 }
+# GoogLeNet b32's and AlexNet b32's shapes that no earlier net gave the
+# kernels (phase 3): (label, batch, h, cin, cout, k, pad, group), each with
+# ReLU, weights pruned as the nets' are, but a part-full last block column
+# keeps its centre tap live (pruning ranks it low, as its zero padding
+# counts in its norm, so the nets' own weights seldom reach it)
+ZOO_SHAPES = [
+    ("inception_3b/5x5 b32 28x28 32->96 5x5 +relu", 32, 28, 32, 96, 5, 2, 1),
+    ("inception_4a/3x3 b32 14x14 96->208 3x3 +relu", 32, 14, 96, 208, 3, 1,
+     1),
+    ("inception_4b/3x3 b32 14x14 112->224 3x3 +relu", 32, 14, 112, 224, 3,
+     1, 1),
+    ("inception_4b/5x5_reduce b32 14x14 512->24 1x1 +relu", 32, 14, 512, 24,
+     1, 0, 1),
+    ("inception_4d/3x3 b32 14x14 144->288 3x3 +relu", 32, 14, 144, 288, 3,
+     1, 1),
+    ("inception_4e/3x3 b32 14x14 160->320 3x3 +relu", 32, 14, 160, 320, 3,
+     1, 1),
+    ("inception_4e/1x1 b32 14x14 528->256 1x1 +relu", 32, 14, 528, 256, 1,
+     0, 1),
+    ("inception_4a/5x5_reduce b32 14x14 480->16 1x1 +relu", 32, 14, 480, 16,
+     1, 0, 1),
+    ("inception_5b/5x5 b32 7x7 48->128 5x5 +relu", 32, 7, 48, 128, 5, 2, 1),
+    ("alexnet conv2 b32 27x27 96->256 5x5 group 2 +relu", 32, 27, 96, 256, 5,
+     2, 2),
+    ("alexnet conv4 b32 13x13 384->384 3x3 group 2 +relu", 32, 13, 384, 384,
+     3, 1, 2),
+]
+# the nets calibrated once each from an empty cache after ResNet-50's three
+# runs (phase 4b); their autotuned / kernel-route graph ratio is reported,
+# not held to a limit yet
+CALIB_ONCE = ("googlenet", "alexnet")
+# the GoogLeNet stem layers phase 4e prints side by side
+STEM_LAYERS = ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
+               "conv2/3x3_reduce", "conv2/3x3", "conv2/norm2", "pool2/3x3_s2")
 
 
 def _card_line() -> str:
@@ -323,8 +387,9 @@ def _check_arms(net, params, shapes, measured):
             continue
         # the geometry the conv runs with (a packed conv's packed stride
         # and padding)
-        stride, pad, dil = (tuple(g) for g in layer._geometry(in_shapes[0]))
-        x = torch.empty(in_shapes[0], dtype=dtype, device="meta")
+        in_shape = layer._in_shape(in_shapes[0])  # a folded stem's s2d grid
+        stride, pad, dil = (tuple(g) for g in layer._geometry(in_shape))
+        x = torch.empty(in_shape, dtype=dtype, device="meta")
         if stride != (1, 1) and al.kernel_shape == (1, 1):
             x = conv_ops._subsampled(x, stride, pad)
             stride, pad = (1, 1), (0, 0)
@@ -402,7 +467,9 @@ def main() -> int:
                                                     sconv_fused, sconv_gc)
         from caffe_escoin_tpu_torch.models import ZOO
         from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
-        from caffe_escoin_tpu_torch.nn.fuse import pack_narrow_chains
+        from caffe_escoin_tpu_torch.nn.fuse import (fold_stem_s2d,
+                                                    pack_narrow_chains)
+        from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
         from caffe_escoin_tpu_torch.ops import wpack
         from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
         from caffe_escoin_tpu_torch.engine.context import SparseFormat
@@ -531,14 +598,15 @@ def main() -> int:
                 2 * m * al.bsc.nnz_blocks * bk * bn)
 
     def conv_library(al, pad):
-        """cuDNN on the dense bf16 weight, channels_last, with bias: one
-        library call for the conv (no residual or ReLU); ``pad`` is an int
-        or an (H, W) pair."""
+        """cuDNN on the dense bf16 weight, channels_last, with bias and the
+        weight's groups: one library call for the conv (no residual or
+        ReLU); ``pad`` is an int or an (H, W) pair."""
         w = al.dense.to(dev, torch.bfloat16).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         b = al.bias.to(dev, torch.bfloat16)
         pad = tuple(pad) if isinstance(pad, tuple) else (pad, pad)
-        return lambda x: F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=pad)
+        return lambda x: F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=pad,
+                                  groups=al.groups)
 
     sconv_shapes = [  # (label, batch, h, cin, cout, k, pad, relu, residual)
         ("b32 56x56 64->64 3x3", 32, 56, 64, 64, 3, 1, False, False),
@@ -574,9 +642,9 @@ def main() -> int:
                        "library": conv_library(al, pad)}, xs,
                       *conv_work(al, xs[0], with_res)))
 
-    def spmm_case(label, m, bsc, relu):
-        bias = torch.randn(bsc.shape[1], generator=gen, device=dev) * 0.1
-        a_list = [torch.randn((m, bsc.shape[0]), generator=gen, device=dev
+    def spmm_case(label, m, bsc, relu, g=gen):
+        bias = torch.randn(bsc.shape[1], generator=g, device=dev) * 0.1
+        a_list = [torch.randn((m, bsc.shape[0]), generator=g, device=dev
                               ).bfloat16() for _ in range(N_INPUTS)]
         w_dense, bias_bf16 = bsc.to_dense().to(torch.bfloat16), bias.bfloat16()
 
@@ -691,6 +759,46 @@ def main() -> int:
             "library": conv_library(al, pad),
             **{n: fns[n][0] for n in kernels[1:]}}, xs,
             *conv_work(al, xs[0], with_res)))
+
+    # GoogLeNet's and AlexNet's shapes (ZOO_SHAPES) and AlexNet's fc6, from
+    # generators of their own, like the packed shapes
+    gen_z = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rng_z = np.random.default_rng(SEED + 2)
+    for label, batch, h, cin, cout, k, pad, groups in ZOO_SHAPES:
+        w0 = rng_z.standard_normal((k, k, cin // groups, cout)).astype(
+            "float32") * (2.0 / (k * k * cin // groups)) ** 0.5
+        w = prune_conv_weight(w0, SPARSITY, BLOCK)
+        c0 = cout - cout % BLOCK[1]
+        if cout > BLOCK[1] and c0 < cout:  # the part-full last column
+            w[k // 2, k // 2, :, c0:] = w0[k // 2, k // 2, :, c0:]
+        b = rng_z.standard_normal(cout).astype("float32") * 0.1
+        al = weight_align(w, b, groups=groups, policy=pol_block).to(
+            dev, torch.bfloat16)
+        xs = [torch.randn((batch, h, h, cin), generator=gen_z, device=dev
+                          ).bfloat16() for _ in range(N_INPUTS)]
+
+        def kern(x, al=al, pad=pad):
+            return sconv_fused.sconv(x, al, padding=(pad, pad), relu=True)
+
+        def plain(x, al=al, pad=pad):
+            return sconv_fused.sconv_plain(x, al, padding=(pad, pad),
+                                           relu=True, mxu_dtype="bfloat16")
+
+        print(f"plan sconv_fused {label}: block {al.bsc.block_shape}, "
+              f"{al.bsc.nnz_blocks} live of {al.bsc.n_brows * al.bsc.n_bcols}"
+              f"; {sconv_fused.launch_plan(xs[0].shape, al, (pad, pad))} "
+              f"{tag}")
+        out = kern(xs[0])
+        torch.cuda.synchronize()
+        check("sconv_fused", label, out, plain(xs[0]))
+        timed.append(("sconv_fused", label,
+                      {"kernel": kern, "plain": plain,
+                       "library": conv_library(al, pad)}, xs,
+                      *conv_work(al, xs[0], False)))
+    w = prune_blocks(rng_z.standard_normal((9216, 4096)).astype("float32")
+                     * (3.0 / 9216) ** 0.5, SPARSITY, BLOCK)
+    spmm_case("alexnet fc6 32x9216->4096 +relu", 32,
+              dense_to_bsc(w, BLOCK).to(dev, torch.bfloat16), True, g=gen_z)
 
     # ---- 3b. the XBSP arms against the f32 dense conv ----------------------
     def time_line(what, label, arms, args, nbytes, flops):
@@ -872,6 +980,36 @@ def main() -> int:
                     [{"data": x.bfloat16()} for x in xs]))
         del sparse_out
 
+    # the later phases' checks: logits against the row's dense f32 net, and
+    # launches against what the routes name
+    def logits_rel_l2(fwd, row, what):
+        num = den = 0.0
+        for x in row["xs"]:
+            out = fwd({"data": x})
+            logits = out[row["logits"]].float()
+            if not torch.isfinite(logits).all() or \
+                    not torch.isfinite(out["prob"].float()).all():
+                raise SystemExit(f"{what}: output is not finite")
+            ref = row["fwd_d"]({"data": x})[row["logits"]]
+            num += (logits - ref).pow(2).sum().item()
+            den += ref.pow(2).sum().item()
+        return (num / den) ** 0.5
+
+    def launches_of(fwd, inputs, expect, what):
+        for m in mods.values():
+            m.reset_counts()
+        for i in inputs:
+            fwd(i)
+        torch.cuda.synchronize()
+        got = {k: m.launches for k, m in mods.items()}
+        print(f"net {what} launches over {N_INPUTS} forwards: {got} "
+              f"(expected {N_INPUTS} x {dict(expect)}) {tag}")
+        for name, n in got.items():
+            if n != N_INPUTS * expect.get(name, 0):
+                raise SystemExit(f"{what} launched {name} {n} times, "
+                                 f"expected {N_INPUTS * expect.get(name, 0)}")
+            results[name]["launches"] += n
+
     # ---- 4b. ResNet-50 b32 autotuned ---------------------------------------
     row = kept["resnet50"]
     os.environ["CESCOIN_AUTOTUNE_FUSED"] = "1"
@@ -894,41 +1032,50 @@ def main() -> int:
                            row["xs"][0], iters=CALIB_REPS,
                            arg_sets=[(x,) for x in row["xs"]])
 
-    x_mb = row["xs"][0].numel() * row["xs"][0].element_size() / 1e6
-    picks = []  # per run: key -> arm
-    for run in range(CALIB_RUNS):
+    def calibrate_from_empty(time_fn, net, params, shapes, net_tag, what):
+        """One ``calibrate_graph`` (polish 8) under ``net_tag`` from an
+        emptied cache: its ``calib`` line, every key's isolated arm times,
+        each key held to every arm (``_check_arms``). Returns its
+        result."""
         if os.path.exists(AUTOTUNE_CACHE):
             os.remove(AUTOTUNE_CACHE)
         autotune.clear()
         t0 = time.perf_counter()
         calib = autotune.calibrate_graph(
-            time_sparse, polish=CALIB_POLISH, net_tag="resnet50",
+            time_fn, polish=CALIB_POLISH, net_tag=net_tag,
             cache_path=AUTOTUNE_CACHE,
-            log=lambda m: print(f"calib-log {m}", flush=True))
+            log=lambda m: print(f"calib-log {what}: {m}", flush=True))
         wall = time.perf_counter() - t0
         measured = autotune.report()
-        picks.append(calib["arms"])
-        print(f"calib resnet50 b32 autotuned, run {run + 1} of {CALIB_RUNS} "
-              f"from an empty cache: t_first {calib['t_first'] * 1e3:.3f} "
-              f"ms, t_isolated {calib['t_isolated'] * 1e3:.3f} ms, t_dense "
+        n_keys, n_fused = _check_arms(net, params, shapes, measured)
+        print(f"calib {what}, from an empty cache: t_first "
+              f"{calib['t_first'] * 1e3:.3f} ms, t_isolated "
+              f"{calib['t_isolated'] * 1e3:.3f} ms, t_dense "
               f"{calib['t_dense'] * 1e3:.3f} ms, t_final "
               f"{calib['t_final'] * 1e3:.3f} ms; flips {calib['flips']}, "
               f"polish trials {calib.get('polish_trials', 0)}; "
-              f"{calib['keys']} keys, {calib['sparse_keys']} sparse; arms "
+              f"{calib['keys']} keys, {calib['sparse_keys']} sparse, "
+              f"{n_keys} measured on every arm, fused on the {n_fused} the "
+              f"dispatcher would run it on; arms "
               f"{dict(collections.Counter(calib['arms'].values()))}; "
-              f"{len(measured)} keys measured, measurement + calibration "
-              f"{wall:.1f} s wall; device_time: CUDA-graph replays, median "
-              f"of {CALIB_REPS}, cycling {N_INPUTS} inputs of {x_mb:.1f} MB "
-              f"(measure_arms: 4 synthetic inputs per key) {tag}")
+              f"measurement + calibration {wall:.1f} s wall {tag}")
         for key, times in sorted(measured.items()):
-            print(f"autotune run {run + 1} key {key}: " + " ".join(
+            print(f"autotune {what} key {key}: " + " ".join(
                 f"{arm}={t * 1e6:.1f}us" for arm, t in sorted(times.items()))
                 + f" -> {min(times, key=times.get)} {tag}")
-        n_keys, n_fused = _check_arms(at_net, row["params"], row["shapes"],
-                                      measured)
-        print(f"autotune run {run + 1}: every arm measured on all {n_keys} "
-              f"keys, the fused kernel on the {n_fused} the dispatcher "
-              f"would run it on {tag}")
+        return calib
+
+    x_mb = row["xs"][0].numel() * row["xs"][0].element_size() / 1e6
+    print(f"calib timing: device_time of the whole forward, CUDA-graph "
+          f"replays, median of {CALIB_REPS}, cycling {N_INPUTS} inputs of "
+          f"{x_mb:.1f} MB (resnet50 b32; measure_arms: 4 synthetic inputs "
+          f"per key) {tag}")
+    picks = []  # per run: key -> arm
+    for run in range(CALIB_RUNS):
+        calib = calibrate_from_empty(
+            time_sparse, at_net, row["params"], row["shapes"], "resnet50",
+            f"resnet50 b32 autotuned, run {run + 1} of {CALIB_RUNS}")
+        picks.append(calib["arms"])
     keys = sorted(set().union(*picks))
     agree = [k for k in keys if len({p.get(k) for p in picks}) == 1]
     for k in keys:
@@ -1027,6 +1174,82 @@ def main() -> int:
           + f" {tag}")
     del at_graph_fwd
 
+    # GoogLeNet b32 and AlexNet b32 autotuned, on their kernel-route rows'
+    # weights and inputs: one calibration each from an emptied cache
+    # (polish 8, under the net's scope); the autotuned / kernel-route graph
+    # ratio is reported
+    autotuned_ratio = {}
+    for model in CALIB_ONCE:
+        zrow = kept[model]
+        z_net = Net(zrow["specs"], policy=pol_at)
+        z_inputs = [{"data": x} for x in zrow["xs"]]
+        z_fwd = z_net.inference_fn(zrow["params"], return_blobs=True)
+
+        def fwd_z(inputs, z_fwd=z_fwd, model=model):
+            with autotune.net_scope(model):
+                return z_fwd(inputs)
+
+        def time_z(fwd_z=fwd_z, zrow=zrow):
+            return device_time(lambda y: fwd_z({"data": y})["prob"],
+                               zrow["xs"][0], iters=CALIB_REPS,
+                               arg_sets=[(x,) for x in zrow["xs"]])
+
+        batch = zrow["xs"][0].shape[0]
+        calibrate_from_empty(time_z, z_net, zrow["params"], zrow["shapes"],
+                             model, f"{model} b{batch} autotuned")
+        n_measured = len(autotune.report())
+        with autotune.net_scope(model):
+            z_routes = z_net.routes(zrow["params"], zrow["shapes"])
+        if len(autotune.report()) != n_measured:
+            raise SystemExit(f"{model}: Net.routes measured an arm after "
+                             f"calibration")
+        z_expect = collections.Counter(
+            ROUTE_KERNELS[r] for r in z_routes.values() if r in ROUTE_KERNELS)
+        print(f"net {model} autotuned routes (served from the cache): "
+              f"{dict(collections.Counter(z_routes.values()))} {tag}")
+        launches_of(fwd_z, z_inputs, z_expect, f"{model} autotuned")
+        rel_l2 = logits_rel_l2(fwd_z, zrow, f"autotuned {model}")
+        ok = rel_l2 <= LOGITS_REL_L2
+        print(f"net {model} autotuned {zrow['logits']} logits vs dense f32: "
+              f"rel L2 {rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}) "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"autotuned {model} disagrees with dense f32")
+        z_ms = {}
+        for label, fn in (("kernel routes", zrow["fwd_s"]),
+                          ("autotuned", fwd_z)):
+            z_ms[f"{label} as a CUDA graph"] = _graph_ms(fn, z_inputs,
+                                                         N_INPUTS)
+            z_ms[f"{label} eager"] = _time_ms(fn, z_inputs)
+        if len(autotune.report()) != n_measured:
+            raise SystemExit(f"{model}: an arm was measured after "
+                             f"calibration")
+        ratio = (z_ms["autotuned as a CUDA graph"]
+                 / z_ms["kernel routes as a CUDA graph"])
+        autotuned_ratio[model] = ratio
+        print(f"time {model} b{batch}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in z_ms.items())
+            + f"; autotuned graph / kernel-route graph {ratio:.3f} "
+            f"(reported, not a limit yet) {tag}")
+        with autotune.net_scope(model):
+            per = _layer_split(z_net.layers, fwd_z, z_inputs[0])
+        by_arm, n_arm = collections.Counter(), collections.Counter()
+        for name, t in per.items():
+            by_arm[z_routes.get(name, "other")] += t
+            n_arm[z_routes.get(name, "other")] += 1
+        print(f"layers {model} autotuned, device ms per forward, each layer "
+              f"alone as a CUDA graph: sum {sum(per.values()):.3f}; by arm "
+              + ", ".join(f"{r} {t:.3f} ({n_arm[r]} layers)"
+                          for r, t in by_arm.most_common())
+              + "; the convs and fcs by time " + ", ".join(
+                  f"{n} ({r}) {per[n]:.4f}" for n, r in sorted(
+                      z_routes.items(), key=lambda kv: -per[kv[0]]))
+              + f" {tag}")
+        del z_fwd
+    print("autotuned / kernel-route graph time: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in autotuned_ratio.items())
+        + f" (resnet50 held to {AUTOTUNED_GRAPH_LIMIT} above) {tag}")
+
     # ---- 4c. ResNet-50 b32 unstructured, through ELL -----------------------
     t0 = time.perf_counter()
     pruned = _prune(row["net"], row["init"], block=None)
@@ -1103,38 +1326,20 @@ def main() -> int:
     # ---- 4d. the packed layout ----------------------------------------------
     # pack_narrow_chains on the fused sparse nets, as bench.py packs its
     # sparse arm (bench.py:478-490); the rows above stay unpacked
-    def logits_rel_l2(fwd, row):
-        num = den = 0.0
-        for x in row["xs"]:
-            out = fwd({"data": x})
-            logits = out[row["logits"]].float()
-            if not torch.isfinite(logits).all() or \
-                    not torch.isfinite(out["prob"].float()).all():
-                raise SystemExit("a packed net's output is not finite")
-            ref = row["fwd_d"]({"data": x})[row["logits"]]
-            num += (logits - ref).pow(2).sum().item()
-            den += ref.pow(2).sum().item()
-        return (num / den) ** 0.5
-
-    def launches_of(fwd, inputs, expect, what):
-        for m in mods.values():
-            m.reset_counts()
-        for i in inputs:
-            fwd(i)
-        torch.cuda.synchronize()
-        got = {k: m.launches for k, m in mods.items()}
-        print(f"net {what} launches over {N_INPUTS} forwards: {got} "
-              f"(expected {N_INPUTS} x {dict(expect)}) {tag}")
-        for name, n in got.items():
-            if n != N_INPUTS * expect.get(name, 0):
-                raise SystemExit(f"{what} launched {name} {n} times, "
-                                 f"expected {N_INPUTS * expect.get(name, 0)}")
-            results[name]["launches"] += n
-
     packed_ratio = {}
     for cfg in NETS:
         model, batch = cfg["model"], cfg["batch"]
         row = kept[model]
+        if model == "alexnet":
+            # no blob of AlexNet packs (96 channels and more, at widths that
+            # give r = 1), as bench.py's --pack leaves it: hold that here
+            if pack_narrow_chains(row["fnet"]) is not row["fnet"]:
+                raise SystemExit("pack_narrow_chains now packs AlexNet: give "
+                                 "it a PACKED_LAUNCHES entry")
+            print(f"net {model} b{batch} packed: nothing packs {tag}")
+            continue
+        if model not in PACKED_LAUNCHES:
+            continue  # GoogLeNet's packed form is phase 4e's
         inputs = [{"data": x} for x in row["xs"]]
         t0 = time.perf_counter()
         pnet = pack_narrow_chains(row["fnet"])
@@ -1156,7 +1361,7 @@ def main() -> int:
                              f"expected {PACKED_LAUNCHES[model]}")
         fwd_p = pnet.inference_fn(p_params, return_blobs=True)
         launches_of(fwd_p, inputs, expect, f"{model} packed")
-        rel_l2 = logits_rel_l2(fwd_p, row)
+        rel_l2 = logits_rel_l2(fwd_p, row, f"packed {model}")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net {model} packed {row['logits']} logits vs dense f32 "
               f"(unpacked): rel L2 {rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}) "
@@ -1198,40 +1403,20 @@ def main() -> int:
                                row["xs"][0], iters=CALIB_REPS,
                                arg_sets=[(x,) for x in row["xs"]])
 
-        if os.path.exists(AUTOTUNE_CACHE):
-            os.remove(AUTOTUNE_CACHE)
-        autotune.clear()
-        t0 = time.perf_counter()
-        calib = autotune.calibrate_graph(
-            time_packed, polish=CALIB_POLISH, net_tag="resnet50_packed",
-            cache_path=AUTOTUNE_CACHE,
-            log=lambda m: print(f"calib-log packed {m}", flush=True))
-        measured = autotune.report()
-        n_keys, n_fused = _check_arms(at_pnet, p_params, row["shapes"],
-                                      measured)
+        calibrate_from_empty(time_packed, at_pnet, p_params, row["shapes"],
+                             "resnet50_packed",
+                             "resnet50 b32 autotuned packed")
         with autotune.net_scope("resnet50_packed"):
             pat_routes = at_pnet.routes(p_params, row["shapes"])
         pat_expect = collections.Counter(
             ROUTE_KERNELS[r] for r in pat_routes.values()
             if r in ROUTE_KERNELS)
-        print(f"calib resnet50 b32 autotuned packed, from an empty cache: "
-              f"t_first {calib['t_first'] * 1e3:.3f} ms, t_isolated "
-              f"{calib['t_isolated'] * 1e3:.3f} ms, t_dense "
-              f"{calib['t_dense'] * 1e3:.3f} ms, t_final "
-              f"{calib['t_final'] * 1e3:.3f} ms; flips {calib['flips']}, "
-              f"polish trials {calib.get('polish_trials', 0)}; "
-              f"{calib['keys']} keys ({n_keys} measured, every arm; fused on "
-              f"the {n_fused} the dispatcher would run it on); arms "
-              f"{dict(collections.Counter(calib['arms'].values()))}; "
-              f"{time.perf_counter() - t0:.1f} s wall; routes "
-              f"{dict(collections.Counter(pat_routes.values()))} {tag}")
-        for key, times in sorted(measured.items()):
-            print(f"autotune packed key {key}: " + " ".join(
-                f"{arm}={t * 1e6:.1f}us" for arm, t in sorted(times.items()))
-                + f" -> {min(times, key=times.get)} {tag}")
+        print(f"net resnet50 autotuned packed routes (served from the "
+              f"cache): {dict(collections.Counter(pat_routes.values()))} "
+              f"{tag}")
         launches_of(fwd_pat, inputs, pat_expect,
                     f"{model} autotuned packed")
-        rel_l2 = logits_rel_l2(fwd_pat, row)
+        rel_l2 = logits_rel_l2(fwd_pat, row, "autotuned packed resnet50")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net {model} autotuned packed fc1000 logits vs dense f32: "
               f"rel L2 {rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}) "
@@ -1251,22 +1436,93 @@ def main() -> int:
         f"{k} {v:.3f}" for k, v in packed_ratio.items())
         + f" (reported, not a limit) {tag}")
 
+    # ---- 4e. GoogLeNet b32's stem transforms --------------------------------
+    # bench.py runs GoogLeNet fused, then folds its stem by space-to-depth
+    # (bench.py:466-477), then packs (bench.py:478-490): the three forms on
+    # the kernel routes, each checked and timed as a CUDA graph in this call
+    row = kept["googlenet"]
+    inputs = [{"data": x} for x in row["xs"]]
+    snet, sparams = fold_stem_s2d(row["fnet"], row["fparams"])
+    s_params = params_to(snet.weight_align(sparams), dev, torch.bfloat16)
+    pnet = pack_narrow_chains(snet)
+    p_params = params_to(pnet.weight_align(sparams), dev, torch.bfloat16)
+    forms = {"fused": (row["fnet"], row["params"]),
+             "fused + s2d": (snet, s_params),
+             "fused + s2d + pack": (pnet, p_params)}
+    fwds = {label: n.inference_fn(prm, return_blobs=True)
+            for label, (n, prm) in forms.items()}
+    stem_ms, form_ms = {}, collections.defaultdict(list)
+    for label, (n, prm) in forms.items():
+        fwd = fwds[label]
+        f_routes = n.routes(prm, row["shapes"])
+        expect = collections.Counter(ROUTE_KERNELS[r] for r in
+                                     f_routes.values() if r in ROUTE_KERNELS)
+        stem = n.specs[0].params
+        grid = n.layers[0]._in_shape(row["shapes"]["data"])
+        print(f"net googlenet b32 {label}: stem kernel {stem['kernel']} "
+              f"stride {stem.get('stride', 1)} pad {stem.get('pad', 0)} on "
+              f"{grid}; packed blobs {getattr(n, 'packed_blobs', {})}; "
+              f"routes {dict(collections.Counter(f_routes.values()))} {tag}")
+        launches_of(fwd, inputs, expect, f"googlenet {label}")
+        rel_l2 = logits_rel_l2(fwd, row, f"googlenet {label}")
+        ok = rel_l2 <= LOGITS_REL_L2
+        print(f"net googlenet {label} loss3/classifier logits vs dense f32 "
+              f"(unfolded, unpacked): rel L2 {rel_l2:.3e} (limit "
+              f"{LOGITS_REL_L2:.0e}) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"googlenet {label} disagrees with dense f32")
+        per = _layer_split(n.layers, fwd, inputs[0])
+        stem_ms[label] = {k: per[k] for k in STEM_LAYERS}
+    # the graph times in the order A B C C B A, each form's the mean of two
+    order = list(forms) + list(forms)[::-1]
+    for label in order:
+        form_ms[label].append(_graph_ms(fwds[label], inputs, N_INPUTS))
+    base = sum(form_ms["fused"]) / 2
+    print("time googlenet b32 stem forms, kernel routes, as a CUDA graph "
+          "(mean of two readings, order A B C C B A): " + ", ".join(
+              f"{k} {sum(v) / 2:.3f} ms ({v[0]:.3f}, {v[1]:.3f}), "
+              f"{sum(v) / 2 / base:.3f}x fused" for k, v in form_ms.items())
+          + f" {tag}")
+    stem = snet.specs[0].params
+    x_bf16 = row["xs"][0].bfloat16()
+    s2d_ms = _graph_ms(lambda x: s2d_ops.s2d_input(
+        x, stem["s2d_r"], tuple(stem["s2d_kernel"]), tuple(stem["s2d_pad"])),
+        [x_bf16])
+    print("layers googlenet b32 stem, device ms per forward, each layer "
+          "alone as a CUDA graph (its s2d transform included in the folded "
+          "conv1), " + "; ".join(
+              f"{label}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              for label, t in stem_ms.items())
+          + f"; the s2d transform alone (space_to_depth and the grid's "
+          f"pad, bf16 {tuple(x_bf16.shape)} -> "
+          f"{snet.layers[0]._in_shape(x_bf16.shape)}) {s2d_ms:.4f} {tag}")
+    del fwds
+
     # ---- 5. times ---------------------------------------------------------
     for model, batch, layers, routes, arms, inputs, inputs_bf16 in e2e:
         ms = {arm: _time_ms(fn, inputs_bf16 if arm == "dense-bf16"
                             else inputs) for arm, fn in arms.items()}
         ms["sparse as a CUDA graph"] = _graph_ms(arms["sparse"], inputs,
                                                  N_INPUTS)
+        ms["dense-bf16 as a CUDA graph"] = _graph_ms(arms["dense-bf16"],
+                                                     inputs_bf16, N_INPUTS)
         print(f"time {model} b{batch}: " + ", ".join(
             f"{arm} {t:.3f} ms" for arm, t in ms.items()) + f" {tag}")
         per = _layer_split(layers, arms["sparse"], inputs[0])
-        by_route = collections.Counter()
+        # a conv or fc by its route, any other layer by its type (LRN,
+        # Concat, Pooling, ...)
+        kind = {l.spec.name: routes.get(l.spec.name) or l.spec.type
+                for l in layers}
+        by_route, n_route = collections.Counter(), collections.Counter()
         for name, t in per.items():
-            by_route[routes.get(name, "other")] += t
+            by_route[kind[name]] += t
+            n_route[kind[name]] += 1
         top = sorted(per.items(), key=lambda kv: -kv[1])
         print(f"layers {model} sparse, device ms per forward, each layer "
               f"alone as a CUDA graph: sum {sum(per.values()):.3f}; by route "
-              + ", ".join(f"{r} {t:.3f}" for r, t in by_route.most_common())
+              f"or layer type " + ", ".join(
+                  f"{r} {t:.3f} ({n_route[r]})"
+                  for r, t in by_route.most_common())
               + "; by layer " + ", ".join(
                   f"{n} ({routes.get(n, '-')}) {t:.4f}" for n, t in top)
               + f" {tag}")

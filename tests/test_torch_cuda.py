@@ -29,6 +29,12 @@ packed shapes of ResNet-50's res2 and VGG-16's conv2_1, on weights that
 ``wpack.repack_weight`` builds from block-pruned logical weights, and a
 packed narrow ResNet whose launches must equal what ``Net.routes`` names.
 
+GoogLeNet's and AlexNet's shapes: ``sconv_fused`` at 5x5 kernels, K-blocks
+32-112 deep, block widths 16-128 with part-filled last columns, Cin 528
+padded to 640, and group=2's block-diagonal weights (also against the
+dense grouped ``F.conv2d``); ``bsc_spmm`` at AlexNet's fc6; and the LRN and
+s2d ops replayed from a CUDA graph.
+
 The timer and the graph forward: ``device_time`` replays CUDA graphs,
 ``Net.inference_fn(cuda_graph=True)`` replays the eager forward's results,
 and a capture that would have to measure an autotune key raises.
@@ -724,3 +730,115 @@ def test_packed_narrow_net_launches_what_its_routes_name(dev):
         assert got == expect, (tag, routes)
         assert expect["sconv_fused"] > 0
     _close(outs["packed"], outs["unpacked"], torch.bfloat16)
+
+
+# GoogLeNet b32's and AlexNet b32's conv shapes (chip_smoke.py's phase 3),
+# at batch 2: (h, cin, cout, k, pad, group, relu). K-blocks 32, 96, 112, 128
+# (cin 528 padded to 640) and 48 deep; block widths 96, 128 with a
+# part-filled last column (208, 224, 288, 320), 24 and 16; kw = 5; group=2's
+# block-diagonal weights, which 128x128 blocks cut across (conv4: 192
+# channels a group)
+ZOO_SCONV_SHAPES = {
+    "inception_3b_5x5_28_32_to_96": (28, 32, 96, 5, 2, 1, True),
+    "inception_4a_3x3_14_96_to_208": (14, 96, 208, 3, 1, 1, True),
+    "inception_4b_3x3_14_112_to_224": (14, 112, 224, 3, 1, 1, True),
+    "inception_4b_5x5_reduce_14_512_to_24": (14, 512, 24, 1, 0, 1, True),
+    "inception_4d_3x3_14_144_to_288": (14, 144, 288, 3, 1, 1, True),
+    "inception_4e_3x3_14_160_to_320": (14, 160, 320, 3, 1, 1, True),
+    "inception_4e_1x1_14_528_to_256": (14, 528, 256, 1, 0, 1, True),
+    "inception_4a_5x5_reduce_14_480_to_16": (14, 480, 16, 1, 0, 1, True),
+    "inception_5b_5x5_7_48_to_128": (7, 48, 128, 5, 2, 1, True),
+    "alexnet_conv2_27_96_to_256_group2": (27, 96, 256, 5, 2, 2, True),
+    "alexnet_conv4_13_384_to_384_group2": (13, 384, 384, 3, 1, 2, True),
+}
+
+
+def _zoo_weight(rng, k, cin, cout, groups, dev):
+    """A [k, k, cin/groups, cout] weight pruned to 90% in 128x128 blocks as
+    chip_smoke.py prunes the nets', aligned (block-diagonal for groups). A
+    part-full last block column keeps its centre tap live: pruning ranks it
+    low (its zero padding counts in its norm)."""
+    w0 = rng.standard_normal((k, k, cin // groups, cout)).astype(
+        np.float32) * 0.05
+    w = prune_conv_weight(w0, 0.9, (128, 128))
+    c0 = cout - cout % 128
+    if cout > 128 and c0 < cout:
+        w[k // 2, k // 2, :, c0:] = w0[k // 2, k // 2, :, c0:]
+    b = rng.standard_normal(cout).astype(np.float32)
+    return weight_align(w, b, groups=groups,
+                        policy=ExecutionPolicy(block_shape=(128, 128))
+                        ).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", list(ZOO_SCONV_SHAPES))
+def test_sconv_fused_at_googlenet_and_alexnet_shapes(dev, name):
+    h, cin, cout, k, pad, groups, relu = ZOO_SCONV_SHAPES[name]
+    rng = np.random.default_rng(13)
+    al = _zoo_weight(rng, k, cin, cout, groups, dev)
+    x = torch.from_numpy(rng.standard_normal((2, h, h, cin)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    assert sconv_fused.supported(x, al)
+    launches = sconv_fused.launches
+    out = sconv_fused.sconv(x, al, padding=(pad, pad), relu=relu)
+    torch.cuda.synchronize()
+    assert sconv_fused.launches == launches + 1
+    assert out.shape == (2, h, h, cout)
+    ref = sconv_fused.sconv_plain(x, al, padding=(pad, pad), relu=relu,
+                                  mxu_dtype="bfloat16")
+    _close(out, ref, torch.bfloat16)
+    if groups > 1:  # the dense grouped conv the weight came from
+        dense = torch.nn.functional.conv2d(
+            x.float().permute(0, 3, 1, 2),
+            al.dense.float().permute(3, 2, 0, 1), al.bias,
+            padding=pad, groups=groups).permute(0, 2, 3, 1)
+        _close(out, torch.relu(dense) if relu else dense, torch.bfloat16)
+
+
+def test_bsc_spmm_at_alexnet_fc6(dev):
+    """AlexNet's fc6 at b32: 32 x 9216 -> 4096, 90% of its 128x128 blocks
+    pruned, ReLU: a split launch."""
+    rng = np.random.default_rng(14)
+    w = prune_blocks(rng.standard_normal((9216, 4096)).astype(np.float32)
+                     * 0.02, 0.9, (128, 128))
+    bsc = dense_to_bsc(w, (128, 128)).to(dev, torch.bfloat16)
+    assert bsc_spmm.launch_plan(32, bsc).split > 1
+    a = torch.from_numpy(rng.standard_normal((32, 9216)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(4096).astype(np.float32)
+                            ).to(dev)
+    launches = bsc_spmm.launches
+    out = bsc_spmm.bsc_spmm(a, bsc, bias=bias, relu=True)
+    torch.cuda.synchronize()
+    assert bsc_spmm.launches == launches + 1
+    ref = bsc_spmm.bsc_spmm_plain(a, bsc, bias=bias, relu=True,
+                                  mxu_dtype="bfloat16")
+    _close(out, ref, torch.bfloat16)
+
+
+def test_lrn_and_s2d_capture_in_a_cuda_graph(dev):
+    """The packed LRN's masks and the s2d stem's pad and crop build no
+    tensor per call: both replay from a CUDA graph and agree with eager."""
+    from caffe_escoin_tpu_torch.ops import norm as norm_ops
+    from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
+
+    x = torch.randn((2, 14, 14, 64), device=dev).bfloat16()
+    img = torch.randn((2, 21, 21, 3), device=dev).bfloat16()
+
+    def fwd():
+        return (norm_ops.lrn_across_channels(x, groups=2),
+                s2d_ops.s2d_input(img, 2, (2, 2), (0, 0)))
+
+    eager = fwd()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fwd()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert captured[1].shape == (2, 10, 10, 12)  # cropped to the conv's 10
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)

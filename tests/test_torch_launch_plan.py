@@ -1,9 +1,11 @@
 """The launch plans of the two direct sparse convs (kernels/sconv_pipe.py),
 checked on the CPU for every conv that takes the fused or the
-garbage-column route in VGG-16 at b16 and ResNet-50 at b32 (224x224,
-weights pruned to 90% in 128x128 blocks, bf16 activations): routes from
-``Net.routes``, shapes from ``Net.walk_shapes``, the plan from each
-wrapper's ``launch_plan``, as ``sconv`` passes it to the kernel.
+garbage-column route in VGG-16 at b16, ResNet-50 at b32, GoogLeNet at b32
+(its 5x5s, K-blocks 32-112 deep, block widths 16-128) and AlexNet at b32
+(5x5 and grouped convs on 27x27 and 13x13 maps), weights pruned to 90% in
+128x128 blocks, bf16 activations: routes from ``Net.routes``, shapes from
+``Net.walk_shapes``, the plan from each wrapper's ``launch_plan``, as
+``sconv`` passes it to the kernel.
 
 Each plan must fit the shared memory one block may use on an H100, its grid
 must cover every output row and block-column exactly once, and a
@@ -28,7 +30,7 @@ from caffe_escoin_tpu_torch.utils.pruning import prune_conv_weight
 
 BLOCK = (128, 128)
 SPARSITY = 0.9
-BATCH = {"vgg16": 16, "resnet50": 32}
+BATCH = {"vgg16": 16, "resnet50": 32, "googlenet": 32, "alexnet": 32}
 WRAPPERS = {"fused": sconv_fused, "gc": sconv_gc}
 
 
@@ -50,12 +52,12 @@ def layers(request):
         if spec.type not in ("Convolution", "ConvolutionReLU"):
             continue
         p = spec.params
-        k, cin = p["kernel"], in_shapes[0][-1]
-        w = rng.standard_normal((k, k, cin, p["num_output"])).astype(
+        k, cin, g = p["kernel"], in_shapes[0][-1], p.get("group", 1)
+        w = rng.standard_normal((k, k, cin // g, p["num_output"])).astype(
             np.float32)
-        if cin >= 32:
+        if cin // g >= 32:
             w = prune_conv_weight(w, SPARSITY, BLOCK)
-        aligned[spec.name] = weight_align(w, policy=policy)
+        aligned[spec.name] = weight_align(w, groups=g, policy=policy)
         n, h, wd, c = in_shapes[0]
         s, pad = p.get("stride", 1), p.get("pad", 0)
         if s != 1 and k == 1:  # runs on the subsampled map
@@ -65,7 +67,8 @@ def layers(request):
     routes = net.routes(aligned, shapes)
     out = [(name, routes[name], *convs[name], aligned[name])
            for name in convs if routes[name] in WRAPPERS]
-    assert len(out) == {"vgg16": 11, "resnet50": 51}[model]
+    assert len(out) == {"vgg16": 11, "resnet50": 51, "googlenet": 47,
+                        "alexnet": 4}[model]
     return model, out
 
 
@@ -179,8 +182,37 @@ def test_tile_rows_follow_the_number_of_blocks(layers):
         assert tiles["res2a_branch2b"] == 128
         assert tiles["res4a_branch2b"] == 128
         assert tiles["res5a_branch2b"] == 64
-    else:
+    elif model == "vgg16":
         assert tiles["conv2_2"] == 128 and tiles["conv5_2"] == 128
+    elif model == "googlenet":
+        # 7x7 at b32 (M = 1568): 13 tiles of 128 rows per block-column
+        assert tiles["inception_4e/3x3"] == 128
+        assert tiles["inception_5b/1x1"] == 64
+        assert tiles["inception_5b/5x5"] == 64
+    else:
+        # 13x13 at b32 (M = 5408): 43 tiles of 128 rows, 2-3 block-columns
+        assert tiles["conv2"] == tiles["conv3"] == tiles["conv4"] == 128
+        assert tiles["conv5"] == 128
+
+
+def test_block_shapes_reach_the_new_depths_and_widths(layers):
+    """The K-block depths and block widths the GoogLeNet and AlexNet layers
+    hand the kernel (bk = cin when cin <= 128, else 128; bn = cout rounded
+    up to 8, at most 128)."""
+    model, convs = layers
+    shapes = {name: al.bsc.block_shape for name, _, _, _, al in convs}
+    kernels = {name: al.kernel_shape for name, _, _, _, al in convs}
+    if model == "googlenet":
+        assert shapes["inception_3b/5x5"] == (32, 96)
+        assert shapes["inception_4a/3x3"] == (96, 128)
+        assert shapes["inception_4b/3x3"] == (112, 128)
+        assert shapes["inception_5b/5x5"] == (48, 128)
+        assert shapes["inception_4a/5x5_reduce"] == (128, 16)
+        assert {bn for _, bn in shapes.values()} >= {16, 32, 48, 96, 128}
+        assert (5, 5) in kernels.values()
+    if model == "alexnet":
+        assert shapes["conv2"] == (96, 128) and kernels["conv2"] == (5, 5)
+        assert shapes["conv4"] == (128, 128)
 
 
 @pytest.mark.parametrize("shape", [(2, 7, 9, 64, 3, 1), (3, 5, 6, 40, 3, 1),

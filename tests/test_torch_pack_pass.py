@@ -22,9 +22,13 @@ layers' packed execution, against the JAX package's.
   is clipped (the JAX package divides by kh*kw).
 * The narrow ResNet packed in LOWERED_SPARSE with ELL, element-wise 90%,
   against the JAX net (f32, rtol 1e-4, atol 1e-5).
-
-The GoogLeNet and LRN cases of tests/test_pack_pass.py wait for the port's
-LRN layer and space-to-depth fold.
+* LRN on the packed layout (tests/test_pack_pass.py's LRN and GoogLeNet
+  cases): ``lrn_across_channels(groups=2)`` on a packed map equals the
+  packed logical LRN and the JAX function (rtol 1e-5, atol 1e-5); a
+  GoogLeNet-shaped stem chain packs through pool -> LRN -> convs -> LRN ->
+  pool as the JAX pass packs it and computes the unpacked net (rtol 1e-4,
+  atol 1e-5); fused GoogLeNet packs its stem chain (at least 5 blobs,
+  ``pool1/3x3_s2`` among them), after the s2d fold too.
 """
 
 import numpy as np
@@ -41,8 +45,10 @@ from caffe_escoin_tpu.models import ZOO as JZOO  # noqa: E402
 from caffe_escoin_tpu.models import resnet as jresnet  # noqa: E402
 from caffe_escoin_tpu.nn import LayerSpec as JLayerSpec  # noqa: E402
 from caffe_escoin_tpu.nn import Net as JNet  # noqa: E402
+from caffe_escoin_tpu.nn.fuse import fold_stem_s2d as jfold  # noqa: E402
 from caffe_escoin_tpu.nn.fuse import fuse_inference as jfuse  # noqa: E402
 from caffe_escoin_tpu.nn.fuse import pack_narrow_chains as jpack  # noqa: E402
+from caffe_escoin_tpu.ops import norm as jnorm  # noqa: E402
 from caffe_escoin_tpu.ops import pool as jpool  # noqa: E402
 
 from caffe_escoin_tpu_torch.engine.context import (ConvMode,  # noqa: E402
@@ -51,7 +57,9 @@ from caffe_escoin_tpu_torch.engine.context import (ConvMode,  # noqa: E402
 from caffe_escoin_tpu_torch.models import ZOO, resnet  # noqa: E402
 from caffe_escoin_tpu_torch.nn import (LayerSpec, Net, fuse_inference,  # noqa: E402
                                        params_from_jax)
-from caffe_escoin_tpu_torch.nn.fuse import pack_narrow_chains  # noqa: E402
+from caffe_escoin_tpu_torch.nn.fuse import (fold_stem_s2d,  # noqa: E402
+                                            pack_narrow_chains)
+from caffe_escoin_tpu_torch.ops import norm as norm_ops  # noqa: E402
 from caffe_escoin_tpu_torch.ops import pool as pool_ops  # noqa: E402
 from caffe_escoin_tpu_torch.ops import wpack  # noqa: E402
 from caffe_escoin_tpu_torch.utils.pruning import (prune_conv_weight,  # noqa: E402
@@ -121,6 +129,30 @@ def _narrow(spec):
                           else jresnet._bottleneck, spec)
 
 
+def _stem_chain(spec):
+    """GoogLeNet-stem shape (tests/test_pack_pass.py): pool (packed out) ->
+    LRN -> 1x1 -> 3x3 -> LRN -> pool/s2 (packed in, unpacked out)."""
+    return [
+        spec(name="conv1", type="ConvolutionReLU", bottoms=("data",),
+             tops=("c1",), params=dict(num_output=4, kernel=3, pad=1,
+                                       stride=2)),
+        spec(name="pool1", type="Pooling", bottoms=("c1",), tops=("p1",),
+             params=dict(kernel=3, stride=2)),
+        spec(name="norm1", type="LRN", bottoms=("p1",), tops=("n1",),
+             params=dict(local_size=3)),
+        spec(name="reduce", type="ConvolutionReLU", bottoms=("n1",),
+             tops=("rd",), params=dict(num_output=4, kernel=1, pad=0)),
+        spec(name="conv2", type="ConvolutionReLU", bottoms=("rd",),
+             tops=("c2",), params=dict(num_output=6, kernel=3, pad=1)),
+        spec(name="norm2", type="LRN", bottoms=("c2",), tops=("n2",),
+             params=dict(local_size=3)),
+        spec(name="pool2", type="Pooling", bottoms=("n2",), tops=("p2",),
+             params=dict(kernel=3, stride=2)),
+        spec(name="convT", type="Convolution", bottoms=("p2",), tops=("t",),
+             params=dict(num_output=8, kernel=1, pad=0)),
+    ]
+
+
 # name -> (function of a LayerSpec class giving the specs, input shape,
 #          lanes)
 SMALL = {
@@ -129,6 +161,7 @@ SMALL = {
     "avg_pool_chain": (lambda s: _pool_chain(s, "avg"), (2, 8, 16, 4), 8),
     "refusals": (_refusals, (2, 6, 16, 4), 8),
     "narrow_resnet": (_narrow, (2, 32, 32, 3), 32),
+    "stem_chain": (_stem_chain, (2, 18, 34, 3), 8),
 }
 
 
@@ -209,7 +242,8 @@ def _pack_params(net):
 
 # -- structure -----------------------------------------------------------------
 
-@pytest.mark.parametrize("name", list(SMALL) + ["resnet50", "vgg16"])
+@pytest.mark.parametrize("name", list(SMALL) + ["resnet50", "vgg16",
+                                                 "googlenet"])
 def test_pass_marks_what_the_jax_pass_marks(name):
     if name in SMALL:
         run = _fused_small(name)
@@ -224,7 +258,10 @@ def test_pass_marks_what_the_jax_pass_marks(name):
                                 for k, v in jpnet.blob_shapes.items()}
     expect = {"tower": {"a": 2, "b": 2, "s": 2, "c": 2},
               "pool_chain": {"c0": 2, "p1": 2, "c1": 2},
-              "refusals": {"a1": 2}}
+              "refusals": {"a1": 2},
+              # c1 (17 wide, odd) and p2 (a plain conv's input) stay
+              # unpacked
+              "stem_chain": dict.fromkeys(("p1", "n1", "rd", "c2", "n2"), 2)}
     if name in expect:
         assert marked == expect[name]
     if name == "resnet50":
@@ -233,6 +270,12 @@ def test_pass_marks_what_the_jax_pass_marks(name):
     if name == "vgg16":
         assert marked == dict.fromkeys(
             ("conv1_1", "conv1_2", "pool1", "conv2_1", "conv2_2"), 2)
+    if name == "googlenet":
+        # the stem's output and the chain after it, through both LRNs (the
+        # JAX test wants >= 5)
+        assert marked == dict.fromkeys(
+            ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
+             "conv2/3x3_reduce", "conv2/3x3", "conv2/norm2"), 2)
     # the packed layers' own output shapes are the pass's packed shapes
     walked = {}
     for _ in pnet.walk_shapes({"data": pnet.blob_shapes["data"]}, walked):
@@ -277,7 +320,7 @@ POLICIES = {
 
 @pytest.mark.parametrize("path", list(POLICIES))
 @pytest.mark.parametrize("name", ["tower", "pool_chain", "avg_pool_chain",
-                                  "narrow_resnet"])
+                                  "narrow_resnet", "stem_chain"])
 def test_packed_equals_unpacked(name, path):
     pol = POLICIES[path]
     run = _fused_small(name, pol=pol or ExecutionPolicy())
@@ -306,7 +349,8 @@ def _rel_l2(a, b):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("name", ["tower", "pool_chain", "narrow_resnet"])
+@pytest.mark.parametrize("name", ["tower", "pool_chain", "narrow_resnet",
+                                  "stem_chain"])
 def test_packed_net_matches_jax_packed_net(name, dtype):
     bf16 = dtype == "bf16"
     jpol = JPolicy(block_shape=(4, 4),
@@ -443,3 +487,54 @@ def test_narrow_resnet_packed_ell_matches_jax():
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    err_msg=k, **F32_TOL)
+
+
+# -- LRN on the packed layout ------------------------------------------------------
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_lrn_groups_matches_logical(groups):
+    """tests/test_pack_pass.py's case, at r = 2 and 4: the masked windows of
+    a packed map normalize each phase's channels as the logical LRN does,
+    and as the JAX function does on the same packed map."""
+    x = np.random.default_rng(6).standard_normal((2, 3, 8, 6)).astype(
+        np.float32)
+    want = norm_ops.lrn_across_channels(torch.from_numpy(x), local_size=5)
+    xp = wpack.pack_nhwc(torch.from_numpy(x), groups)
+    got = norm_ops.lrn_across_channels(xp, local_size=5, groups=groups)
+    np.testing.assert_allclose(got.numpy(),
+                               wpack.pack_nhwc(want, groups).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    jgot = jnorm.lrn_across_channels(jnp.asarray(xp.numpy()), local_size=5,
+                                     groups=groups)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_stem_chain_packs_through_lrn_and_pool():
+    """The LRN branches of the pass are live: both LRNs carry the packed
+    layout at r = 2 (``pack_in``), pool1 emits it and pool2 ends it."""
+    run = _fused_small("stem_chain")
+    by_name = {s.name: s.params for s in run["pnet"].specs}
+    assert by_name["pool1"]["pack_out"] == 2
+    assert by_name["norm1"]["pack_in"] == 2
+    assert by_name["norm2"]["pack_in"] == 2
+    assert by_name["pool2"]["pack_in"] == 2
+    assert by_name["pool2"].get("pack_out", 1) == 1
+    assert run["pnet"].blob_shapes["n1"] == (2, 4, 4, 8)
+
+
+def test_googlenet_stem_packs_after_the_s2d_fold():
+    """bench.py's order on GoogLeNet (fuse, fold the stem, pack): the folded
+    stem keeps its layout and the chain from pool1 to conv2/norm2 packs as
+    without the fold, as the JAX passes do."""
+    _, (fparams, jfparams), fnet, jfnet = _zoo_fused("googlenet", 1)
+    snet, _ = fold_stem_s2d(fnet, fparams)
+    jsnet, _ = jfold(jfnet, jfparams)
+    jsnet.blob_shapes = dict(jfnet.blob_shapes)
+    pnet, jpnet = pack_narrow_chains(snet), jpack(jsnet)
+    assert pnet.packed_blobs == jpnet.packed_blobs
+    assert len(pnet.packed_blobs) >= 5 and "pool1/3x3_s2" in pnet.packed_blobs
+    assert _pack_params(pnet) == _pack_params(jpnet)
+    assert "conv1/7x7_s2" not in pnet.packed_blobs
+    stem = {s.name: s.params for s in pnet.specs}["conv1/7x7_s2"]
+    assert stem["s2d_r"] == 2 and "pack_out" not in stem

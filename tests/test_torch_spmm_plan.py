@@ -1,8 +1,9 @@
 """The launch plan of the SpMM kernel (``sconv_pipe.spmm_plan``, reached
 through ``bsc_spmm.launch_plan``), checked on the CPU at the shapes its
 callers give it: ResNet-50's fc1000 at b32, VGG-16's fc6-8 at b16 and
-conv1_2's lowered im2col GEMM at b16 (90% block sparsity), and 1x1 convs of
-ResNet-50 at b32 as the ``spmm_1x1`` route would hand them over.
+conv1_2's lowered im2col GEMM at b16 (90% block sparsity), AlexNet's
+fc6-8 and GoogLeNet's classifier at b32, and 1x1 convs of ResNet-50 at b32
+as the ``spmm_1x1`` route would hand them over.
 
 Each plan must fit the shared memory one block may use on an H100, its grid
 must cover every (row, block-column), every live slot of every column must
@@ -70,6 +71,10 @@ SHAPES = {
     "fc6 b16": (16, lambda: _fc_bsc(25088, 4096, 1)),
     "fc7 b16": (16, lambda: _fc_bsc(4096, 4096, 2)),
     "fc8 b16": (16, lambda: _fc_bsc(4096, 1000, 3)),
+    "alexnet fc6 b32": (32, lambda: _fc_bsc(9216, 4096, 8)),
+    "alexnet fc7 b32": (32, lambda: _fc_bsc(4096, 4096, 9)),
+    "alexnet fc8 b32": (32, lambda: _fc_bsc(4096, 1000, 10)),
+    "googlenet loss3/classifier b32": (32, lambda: _fc_bsc(1024, 1000, 11)),
     "conv1_2 lowered b16": (16 * 224 * 224, lambda: _conv_bsc(3, 64, 64, 4)),
     "res2 1x1 64->256 b32": (32 * 56 * 56, lambda: _conv_bsc(1, 64, 256, 5)),
     "res3 1x1 512->128 b32": (32 * 28 * 28,
@@ -148,13 +153,20 @@ def test_every_live_slot_falls_in_exactly_one_share(name):
 
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_only_launches_too_small_for_the_card_split(name):
-    """The fc layers split to about three blocks per SM; the large-M callers
-    (the lowered and 1x1 conv routes) already fill the card and do not."""
+    """The fc layers split to about three blocks per SM, where a column has
+    more than one live K-block; the large-M callers (the lowered and 1x1
+    conv routes) already fill the card and do not."""
     m, bsc, p = _case(name)
     if name in LARGE_M:
         assert p.split == 1 and p.grid >= sconv_pipe.SMS // 2
         return
-    assert p.tile_m == 64 and p.split > 1
+    assert p.tile_m == 64
+    if bsc.max_bw == 1:
+        # one live K-block per column at most (GoogLeNet's 1024 -> 1000
+        # keeps 6 of its 64 blocks): nothing to cut
+        assert p.split == 1 and name.startswith("googlenet")
+        return
+    assert p.split > 1
     assert p.grid <= 3 * sconv_pipe.SMS
     if name.startswith("fc6"):  # 32 columns of up to ~30 live K-blocks
         assert p.split >= 8 and p.grid >= 2 * sconv_pipe.SMS
