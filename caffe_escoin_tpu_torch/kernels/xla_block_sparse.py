@@ -35,6 +35,13 @@ distinct shifted slab is made contiguous once (XLA's common-subexpression
 elimination does this in the JAX package). Spatial padding pads x once;
 ``CESCOIN_XBSP_NOPAD=1`` switches to the pad-free valid-slice form
 (``_nopad_slab``), read per call as the JAX module reads it.
+
+Autograd: with grad enabled and an operand that requires it (the
+per-layer backward of utils/timing.py), the arms stay differentiable:
+products are formed out of place on f32 operands (autograd takes neither
+``out_dtype`` nor ``out=``), and what derives from payloads that require
+grad is built per call instead of memoised (a kept tensor would carry one
+call's graph into the next). Under ``inference_mode`` nothing changes.
 """
 
 from __future__ import annotations
@@ -141,7 +148,7 @@ def _mm(a: torch.Tensor, b: torch.Tensor,
     sums for some other layouts (``tests/test_torch_cuda.py`` holds each
     layout the arms pass, and the ones they must not)."""
     if a.dtype != torch.float32:
-        if a.is_cuda:
+        if a.is_cuda and not _recording(a, b, acc):
             a, b = _unit_rows(a), _unit_rows(b)
             if acc is None:
                 return torch.mm(a, b, out_dtype=torch.float32)
@@ -150,15 +157,29 @@ def _mm(a: torch.Tensor, b: torch.Tensor,
     return torch.mm(a, b) if acc is None else acc.addmm_(a, b)
 
 
+def _recording(*ts) -> bool:
+    """Autograd records this call: grad is enabled and a tensor of ``ts``
+    requires it."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _memo(bsc: BSC, key, build):
+    """``build()``, kept in ``bsc.memo[key]`` and reused, unless autograd
+    records the payloads (then built per call)."""
+    if _recording(bsc.blocks):
+        return build()
+    got = bsc.memo.get(key)
+    if got is None:
+        got = bsc.memo[key] = build()
+    return got
+
+
 def _blocks(bsc: BSC, dtype: torch.dtype) -> torch.Tensor:
     """The payloads in ``dtype``, cast once per weight object."""
     if bsc.blocks.dtype == dtype:
         return bsc.blocks
-    key = ("blocks", dtype)
-    got = bsc.memo.get(key)
-    if got is None:
-        got = bsc.memo[key] = bsc.blocks.to(dtype)
-    return got
+    return _memo(bsc, ("blocks", dtype), lambda: bsc.blocks.to(dtype))
 
 
 def _finish(acc: torch.Tensor, aligned: AlignedConvWeight, lead, relu,
@@ -320,9 +341,7 @@ def _union_weight(bsc: BSC, dtype: torch.dtype) -> torch.Tensor:
     """The union-packed weight [U*bk, n_bcols*bn]: row block u holds
     K-block ``_union(bsc)[u]`` in every column where it is live, zeros
     elsewhere. Built once per weight object and dtype, on its device."""
-    key = ("union_weight", dtype)
-    got = bsc.memo.get(key)
-    if got is None:
+    def build():
         bk, bn = bsc.block_shape
         union = _union(bsc)
         upos = {kb: u for u, kb in enumerate(union)}
@@ -332,9 +351,9 @@ def _union_weight(bsc: BSC, dtype: torch.dtype) -> torch.Tensor:
         if slots:
             u, j, s = (torch.tensor(v, device=w.device) for v in zip(*slots))
             w[u, :, j, :] = bsc.blocks[j, s]
-        got = bsc.memo[key] = w.reshape(len(union) * bk,
-                                        bsc.n_bcols * bn).to(dtype)
-    return got
+        return w.reshape(len(union) * bk, bsc.n_bcols * bn).to(dtype)
+
+    return _memo(bsc, ("union_weight", dtype), build)
 
 
 def conv_gathered(x, aligned: AlignedConvWeight, *, stride=(1, 1),
@@ -370,15 +389,13 @@ def conv_gathered(x, aligned: AlignedConvWeight, *, stride=(1, 1),
 def _column_weights(bsc: BSC, dtype: torch.dtype) -> List[torch.Tensor]:
     """Per block-column, its live payloads stacked [s_j*bk, bn] (views of
     the payloads)."""
-    key = ("column_weights", dtype)
-    got = bsc.memo.get(key)
-    if got is None:
+    def build():
         bk, bn = bsc.block_shape
         wblocks = _blocks(bsc, dtype)
-        got = bsc.memo[key] = [
-            wblocks[j, :len(col)].reshape(len(col) * bk, bn)
-            for j, col in enumerate(_live_slots(bsc))]
-    return got
+        return [wblocks[j, :len(col)].reshape(len(col) * bk, bn)
+                for j, col in enumerate(_live_slots(bsc))]
+
+    return _memo(bsc, ("column_weights", dtype), build)
 
 
 def conv_gathered_cols(x, aligned: AlignedConvWeight, *, stride=(1, 1),

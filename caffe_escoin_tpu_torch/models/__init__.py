@@ -1,9 +1,12 @@
 from caffe_escoin_tpu_torch.models import (alexnet, caffenet,  # noqa: F401
-                                           googlenet, resnet, vgg)
+                                           cifar, googlenet, lenet, resnet,
+                                           vgg)
 
-# the models the port carries (name -> (spec builder, input shapes)): the
-# JAX package's ZOO but lenet, cifar10_quick and cifar10_bn
+# name -> (spec builder, input shapes): the JAX package's ZOO
 ZOO = {
+    "lenet": (lenet.lenet5, lenet.INPUT_SHAPES),
+    "cifar10_quick": (cifar.cifar10_quick, cifar.INPUT_SHAPES),
+    "cifar10_bn": (cifar.cifar10_bn, cifar.INPUT_SHAPES),
     "alexnet": (alexnet.alexnet, alexnet.INPUT_SHAPES),
     "vgg16": (vgg.vgg16, vgg.INPUT_SHAPES),
     "googlenet": (googlenet.googlenet, googlenet.INPUT_SHAPES),

@@ -52,9 +52,7 @@ def _inception(name, bottom, cfg, fuse_relu=True):
 def _aux_head(idx, bottom, num_classes):
     """Train-phase auxiliary classifier (loss1/loss2 at inception 4a/4d,
     `models/bvlc_googlenet/train_val.prototxt:928,1691`): 5x5/s3 avg pool ->
-    1x1x128 conv -> fc1024 -> dropout 0.7 -> classifier. The reference
-    weighs each aux loss 0.3; that weight waits for the training port, which
-    also brings SoftmaxWithLoss."""
+    1x1x128 conv -> fc1024 -> dropout 0.7 -> classifier, loss_weight 0.3."""
     p = f"loss{idx}"
     return [
         LayerSpec(f"{p}/ave_pool", "Pooling", (bottom,), phase="train",
@@ -72,7 +70,8 @@ def _aux_head(idx, bottom, num_classes):
                   params=dict(num_output=num_classes,
                               weight_filler={"type": "xavier"})),
         LayerSpec(f"{p}/loss", "SoftmaxWithLoss",
-                  (f"{p}/classifier", "label"), phase="train"),
+                  (f"{p}/classifier", "label"), phase="train",
+                  loss_weight=0.3),
     ]
 
 
@@ -80,7 +79,7 @@ def googlenet(num_classes: int = 1000, include_loss: bool = False,
               fuse_relu: bool = True):
     """Inputs: data [N, 224, 224, 3] (+ label [N]). With include_loss the
     train phase also carries the two auxiliary heads (loss1 at 4a, loss2 at
-    4d) of the reference train_val.prototxt, without their loss weight."""
+    4d) of the reference train_val.prototxt."""
     specs = [
         _conv("conv1/7x7_s2", "data", 64, 7, s=2, p=3, fuse_relu=fuse_relu),
         LayerSpec("pool1/3x3_s2", "Pooling", ("conv1/7x7_s2",),

@@ -58,8 +58,13 @@ def _bottleneck(stage, idx, bottom, mid, cout, stride):
     return specs, f"{name}_out"
 
 
-def resnet50(num_classes: int = 1000):
-    """Inputs: data [N, 224, 224, 3]. Ends in Softmax ("prob")."""
+def resnet50(num_classes: int = 1000, include_loss: bool = False,
+             fuse_relu: bool = True):
+    """Inputs: data [N, 224, 224, 3] (+ label [N] with include_loss). Ends
+    in Softmax ("prob"), or with include_loss in SoftmaxWithLoss and the
+    test phase's top-1 and top-5 Accuracy. ``fuse_relu`` is accepted for
+    the JAX signature and, as there, changes nothing: the graph pass
+    (nn/fuse.py) fuses the ReLUs."""
     specs, top = _conv_bn("conv1", "data", 64, 7, s=2, p=3)
     specs.append(LayerSpec("pool1", "Pooling", (top,),
                            params=dict(kernel=3, stride=2)))
@@ -75,8 +80,17 @@ def resnet50(num_classes: int = 1000):
         LayerSpec("fc1000", "InnerProduct", ("pool5",),
                   params=dict(num_output=num_classes,
                               weight_filler={"type": "xavier"})),
-        LayerSpec("prob", "Softmax", ("fc1000",)),
     ]
+    if include_loss:
+        specs += [
+            LayerSpec("loss", "SoftmaxWithLoss", ("fc1000", "label")),
+            LayerSpec("accuracy", "Accuracy", ("fc1000", "label"),
+                      phase="test"),
+            LayerSpec("accuracy_top5", "Accuracy", ("fc1000", "label"),
+                      phase="test", params=dict(top_k=5)),
+        ]
+    else:
+        specs += [LayerSpec("prob", "Softmax", ("fc1000",))]
     return specs
 
 

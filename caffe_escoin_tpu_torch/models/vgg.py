@@ -17,8 +17,11 @@ _CFG = [  # (stage, [channels per conv])
 ]
 
 
-def vgg16(num_classes: int = 1000, fuse_relu: bool = True):
-    """Inputs: data [N, 224, 224, 3]. Ends in Softmax ("prob")."""
+def vgg16(num_classes: int = 1000, include_loss: bool = False,
+          fuse_relu: bool = True):
+    """Inputs: data [N, 224, 224, 3] (+ label [N] with include_loss). Ends
+    in Softmax ("prob"), or with include_loss in SoftmaxWithLoss and the
+    test phase's top-1 and top-5 Accuracy."""
     conv_type = "ConvolutionReLU" if fuse_relu else "Convolution"
     specs = []
     bottom = "data"
@@ -47,8 +50,16 @@ def vgg16(num_classes: int = 1000, fuse_relu: bool = True):
         LayerSpec("fc8", "InnerProduct", ("fc7d",),
                   params=dict(num_output=num_classes,
                               weight_filler={"type": "xavier"})),
-        LayerSpec("prob", "Softmax", ("fc8",)),
     ]
+    if include_loss:
+        specs += [
+            LayerSpec("loss", "SoftmaxWithLoss", ("fc8", "label")),
+            LayerSpec("accuracy", "Accuracy", ("fc8", "label"), phase="test"),
+            LayerSpec("accuracy_top5", "Accuracy", ("fc8", "label"),
+                      phase="test", params=dict(top_k=5)),
+        ]
+    else:
+        specs += [LayerSpec("prob", "Softmax", ("fc8",))]
     return specs
 
 

@@ -268,9 +268,8 @@ def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
     An LRN layer is layout-transparent per (pixel, channel window): it
     passes a packed blob on at the same factor and normalizes each phase's
     channel block on its own (``pack_in``). Space-to-depth stems
-    (``s2d_r``) keep their own layout. The refusal of shared params is
-    carried over, but the port's LayerSpec has no ``share_params`` yet, so
-    it only reads specs. Packing on the card is not a default: the JAX
+    (``s2d_r``) keep their own layout. Layers that share params are
+    refused, as in the JAX pass. Packing on the card is not a default: the JAX
     package packs for TPU lane padding, which a GPU does not have."""
     specs = list(net.specs)
     shapes: Dict[str, Tuple[int, ...]] = dict(net.blob_shapes)
@@ -283,12 +282,9 @@ def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
         for t in s.tops:
             producer[t] = i
 
-    def shared(s):
-        return getattr(s, "share_params", None)
-
     # params shared across layers cannot repack: align() is per layer and
     # the sharing twin may run unpacked geometry on the same weights
-    share_targets = {shared(s) for s in specs if shared(s)}
+    share_targets = {s.share_params for s in specs if s.share_params}
 
     def markable(b, r):
         shp = shapes.get(b)
@@ -310,7 +306,7 @@ def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
             return False  # s2d stem convs keep their own layout
         if len(shapes.get(s.bottoms[0], ())) != 4:
             return False
-        if shared(s) is not None or s.name in share_targets:
+        if s.share_params is not None or s.name in share_targets:
             return False
         _, _, dil, g = _conv_geom(s)
         return dil == 1 and g == 1
@@ -457,7 +453,7 @@ def fold_stem_s2d(net: Net, params: Dict[str, Any]
         prm = s.params
         if (s.type not in CONV_TYPES or not s.bottoms
                 or s.bottoms[0] in produced
-                or getattr(s, "share_params", None) is not None
+                or s.share_params is not None
                 or prm.get("s2d_r") or prm.get("pack_in")
                 or prm.get("pack_out") or prm.get("fuse_add")):
             out_specs.append(s)

@@ -1,16 +1,22 @@
-"""The layers of the slice (port of ``caffe_escoin_tpu/nn/layers.py``:
-Input, Convolution, ConvolutionReLU, InnerProduct, Pooling, ReLU, Dropout,
-Softmax, BatchNorm at global statistics, Scale, Eltwise, LRN, Concat).
+"""The layers of an inference net (port of ``caffe_escoin_tpu/nn/layers.py``:
+Input, the convolutions (Convolution, ConvolutionReLU, EscConvolution),
+InnerProduct, Pooling, the activations, Dropout, Softmax, BatchNorm at
+global statistics, Scale, Bias, MVN, LRN, the structural layers, DummyData,
+and SoftmaxWithLoss and Accuracy forward).
 Convolution and InnerProduct carry the sparse machinery (weight_align ->
 AlignedConvWeight -> mode dispatch) and name the kernel route they take
 (``route``). Convolution, Pooling and LRN also run on the W-pair packed
 layout that nn/fuse.pack_narrow_chains marks, and Convolution on the
 space-to-depth layout that nn/fuse.fold_stem_s2d gives a stem. The rest
-are thin. The other registered types of the JAX package wait.
+are thin. ``category`` is the timing bucket (utils/timing.py). The other
+registered types of the JAX package (Deconvolution, SPP, Im2col, the
+recurrent layers, Embed, BatchReindex, Filter, Parameter, Python, the
+other losses) wait.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -23,6 +29,7 @@ from caffe_escoin_tpu_torch.nn.net import Layer, register_layer
 from caffe_escoin_tpu_torch.ops import activations as act
 from caffe_escoin_tpu_torch.ops import conv as conv_ops
 from caffe_escoin_tpu_torch.ops import linear as linear_ops
+from caffe_escoin_tpu_torch.ops import losses as loss_ops
 from caffe_escoin_tpu_torch.ops import norm as norm_ops
 from caffe_escoin_tpu_torch.ops import pool as pool_ops
 from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
@@ -63,6 +70,8 @@ def _cast(params, dtype):
 class InputLayer(Layer):
     """Declares an externally fed blob."""
 
+    category = "data"
+
     def forward(self, params, inputs, state=None):
         return list(inputs)
 
@@ -82,6 +91,8 @@ class ConvolutionLayer(Layer):
     input, and its kernel, stride and pad describe the remapped kernel).
     The params stay logical: a packed conv repacks its weight when it
     aligns it, or per call on the dense path."""
+
+    category = "conv"
 
     def _in_shape(self, in_shape):
         """The shape of the input the conv runs on: the space-to-depth grid
@@ -224,6 +235,17 @@ class ConvolutionReLULayer(ConvolutionLayer):
         self.p["fuse_relu"] = True
 
 
+@register_layer("EscConvolution")
+class EscConvolutionLayer(ConvolutionLayer):
+    """The reference's dense-baseline conv (``esc_conv_layer.cu`` pins
+    cuDNN's IMPLICIT_GEMM; ``models/resnet/test_sconv.prototxt`` swaps it in
+    per layer): LOWERED_GEMM whatever the net's policy."""
+
+    def __init__(self, spec, policy):
+        super().__init__(spec, dataclasses.replace(
+            policy, conv_mode=ConvMode.LOWERED_GEMM))
+
+
 # the kernel each ``Layer.route`` launches once per layer: the conv routes'
 # kernels and the fc's SpMM ("dense" and the XBSP routes launch none)
 ROUTE_KERNELS = {**conv_ops.ROUTE_KERNELS, "spmm": "bsc_spmm"}
@@ -234,6 +256,8 @@ class InnerProductLayer(Layer):
     """FC layer. Sparse execution runs a block-sparse SpMM over the 1x1
     GEMM-view AlignedConvWeight: the XBSP ``spmm`` with ``use_xla_sparse``,
     else the SpMM kernel."""
+
+    category = "fc"
 
     def init_params(self, gen, in_shapes):
         k = math.prod(in_shapes[0][1:])
@@ -440,3 +464,230 @@ class EltwiseLayer(Layer):
     def forward(self, params, inputs, state=None):
         return [struct_ops.eltwise(inputs, op=self.p.get("operation", "sum"),
                                    coeffs=self.p.get("coeffs"))]
+
+
+class _MetaShapes:
+    """``out_shapes`` by running the forward on meta tensors (the JAX
+    package's ``jax.eval_shape``), for the shape-changing plumbing layers
+    that hold no params."""
+
+    def out_shapes(self, in_shapes):
+        outs = self.forward({}, [torch.empty(tuple(s), device="meta")
+                                 for s in in_shapes])
+        return [tuple(o.shape) for o in outs]
+
+
+@register_layer("PReLU")
+class PReLULayer(Layer):
+    def init_params(self, gen, in_shapes):
+        n = 1 if self.p.get("channel_shared", False) else in_shapes[0][-1]
+        return {"alpha": torch.full((n,), float(self.p.get("alpha_init",
+                                                            0.25)))}
+
+    def forward(self, params, inputs, state=None):
+        return [act.prelu(inputs[0], params["alpha"])]
+
+
+@register_layer("ELU")
+class ELULayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.elu(inputs[0], self.p.get("alpha", 1.0))]
+
+
+@register_layer("Sigmoid")
+class SigmoidLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.sigmoid(inputs[0])]
+
+
+@register_layer("TanH")
+class TanHLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.tanh(inputs[0])]
+
+
+@register_layer("BNLL")
+class BNLLLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.bnll(inputs[0])]
+
+
+@register_layer("AbsVal")
+class AbsValLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.absval(inputs[0])]
+
+
+@register_layer("Power")
+class PowerLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.power(inputs[0], self.p.get("power", 1.0),
+                          self.p.get("scale", 1.0), self.p.get("shift", 0.0))]
+
+
+@register_layer("Exp")
+class ExpLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.exp(inputs[0], self.p.get("base", -1.0),
+                        self.p.get("scale", 1.0), self.p.get("shift", 0.0))]
+
+
+@register_layer("Log")
+class LogLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.log(inputs[0], self.p.get("base", -1.0),
+                        self.p.get("scale", 1.0), self.p.get("shift", 0.0))]
+
+
+@register_layer("Threshold")
+class ThresholdLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [act.threshold(inputs[0], self.p.get("threshold", 0.0))]
+
+
+@register_layer("SoftmaxWithLoss")
+class SoftmaxWithLossLayer(_MetaShapes, Layer):
+    """Forward only: the mean cross-entropy of logits and integer labels.
+    A spec without a loss weight gets 1.0, as Caffe's loss layers (and the
+    JAX layer, which sets it on the spec)."""
+
+    def __init__(self, spec, policy):
+        super().__init__(spec, policy)
+        if spec.loss_weight == 0.0:
+            object.__setattr__(spec, "loss_weight", 1.0)
+
+    def forward(self, params, inputs, state=None):
+        logits, labels = inputs
+        return [loss_ops.softmax_cross_entropy(
+            logits, labels, ignore_label=self.p.get("ignore_label"))]
+
+
+@register_layer("Accuracy")
+class AccuracyLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        return [loss_ops.accuracy(inputs[0], inputs[1],
+                                  top_k=self.p.get("top_k", 1),
+                                  ignore_label=self.p.get("ignore_label"))]
+
+
+@register_layer("Bias")
+class BiasLayer(Layer):
+    """Adds a bias along an axis span (bias_layer.cpp): a second bottom, or
+    a param of shape bottom.shape[axis:axis+num_axes]. ``axis`` counts in
+    Caffe's (N, C, H, W) order on a 4-d blob, so the default axis 1 is the
+    NHWC channel; a blob of another rank is indexed as it is."""
+
+    def _canon_axes(self, ndim):
+        axis, num_axes = self.p.get("axis", 1), self.p.get("num_axes", 1)
+        if ndim == 4:
+            order = [0, 3, 1, 2]  # canonical i lives at NHWC dim order[i]
+            return sorted(order[axis + k] for k in range(num_axes))
+        return list(range(axis, axis + num_axes))
+
+    def init_params(self, gen, in_shapes):
+        if len(in_shapes) > 1:
+            return {}
+        shape = tuple(in_shapes[0][d]
+                      for d in self._canon_axes(len(in_shapes[0])))
+        return {"b": fill(gen, shape,
+                          self.p.get("filler", {"type": "constant"}))}
+
+    def forward(self, params, inputs, state=None):
+        x = inputs[0]
+        b = inputs[1] if len(inputs) > 1 else params["b"]
+        shape = [1] * x.dim()
+        for d, n in zip(self._canon_axes(x.dim()), b.shape):
+            shape[d] = n
+        return [x + b.reshape(shape)]
+
+
+@register_layer("MVN")
+class MVNLayer(Layer):
+    def forward(self, params, inputs, state=None):
+        return [norm_ops.mvn(inputs[0], normalize_variance=self.p.get(
+            "normalize_variance", True))]
+
+
+@register_layer("Flatten")
+class FlattenLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        return [struct_ops.flatten(inputs[0], self.p.get("axis", 1))]
+
+
+@register_layer("Reshape")
+class ReshapeLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        return [struct_ops.reshape(inputs[0], self.p["shape"])]
+
+
+@register_layer("Slice")
+class SliceLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        return list(struct_ops.slice_points(
+            inputs[0], self.p["slice_points"], axis=self.p.get("axis", -1)))
+
+
+@register_layer("Split")
+class SplitLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        return list(struct_ops.split(inputs[0], len(self.spec.tops)))
+
+
+@register_layer("Crop")
+class CropLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        x, ref = inputs
+        return [struct_ops.crop(x, ref.shape,
+                                offsets=self.p.get("offsets", (0, 0)),
+                                axes=self.p.get("axes", (1, 2)))]
+
+
+@register_layer("Tile")
+class TileLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        return [struct_ops.tile(inputs[0], self.p["tiles"],
+                                self.p.get("axis", -1))]
+
+
+@register_layer("Reduction")
+class ReductionLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        return [struct_ops.reduction(inputs[0],
+                                     op=self.p.get("operation", "sum"),
+                                     axis=self.p.get("axis"),
+                                     coeff=self.p.get("coeff", 1.0))]
+
+
+@register_layer("ArgMax")
+class ArgMaxLayer(_MetaShapes, Layer):
+    def forward(self, params, inputs, state=None):
+        return [struct_ops.argmax(inputs[0], self.p.get("axis", -1))]
+
+
+@register_layer("Silence")
+class SilenceLayer(Layer):
+    """Consumes its bottoms and has no tops (silence_layer.cpp), so they
+    leave the net's final tops."""
+
+    def forward(self, params, inputs, state=None):
+        return []
+
+    def out_shapes(self, in_shapes):
+        return []
+
+
+@register_layer("DummyData")
+class DummyDataLayer(Layer):
+    """A constant blob (dummy_data_layer.cpp). It has no bottom to take a
+    device from, so it is made on the CPU: a net on the card that reads it
+    fails on the device mismatch instead of moving data behind a caller's
+    back."""
+
+    category = "data"
+
+    def forward(self, params, inputs, state=None):
+        return [torch.full(tuple(self.p["shape"]),
+                           float(self.p.get("value", 0.0)))]
+
+    def out_shapes(self, in_shapes):
+        return [tuple(self.p["shape"])]

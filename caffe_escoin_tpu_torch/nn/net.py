@@ -28,6 +28,10 @@ class LayerSpec:
     tops: Tuple[str, ...] = ()
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     phase: Optional[str] = None  # "train" | "test" | None (both)
+    loss_weight: float = 0.0
+    # Caffe param sharing (`param { name: ... }`): run on another layer's
+    # params (siamese nets, tied weights)
+    share_params: Optional[str] = None
 
     def __post_init__(self):
         object.__setattr__(self, "bottoms", tuple(self.bottoms))
@@ -52,6 +56,7 @@ def register_layer(type_name: str):
 class Layer(torch.nn.Module):
     """Base layer: init_params (SetUp) / forward / align (WeightAlign)."""
 
+    category = "other"  # timing bucket: conv | fc | data | other
     type_name = "?"
     has_state = False  # BatchNorm's moving statistics
 
@@ -121,17 +126,24 @@ class Net(torch.nn.Module):
 
     def init(self, gen: torch.Generator,
              input_shapes: Dict[str, Tuple[int, ...]]):
-        """Returns params (layer name -> dict of CPU tensors); also sets
-        ``state0`` (initial BatchNorm buffers) and ``blob_shapes`` (every
-        blob's shape, inputs included, which nn/fuse.pack_narrow_chains
-        reads)."""
+        """Returns params (layer name -> dict of CPU tensors; a layer with
+        ``share_params`` gets none of its own and runs on its target's);
+        also sets ``state0`` (initial BatchNorm buffers) and
+        ``blob_shapes`` (every blob's shape, inputs included, which
+        nn/fuse.pack_narrow_chains reads)."""
         params: Dict[str, Any] = {}
         state0: Dict[str, Any] = {}
         shapes: Dict[str, Tuple[int, ...]] = {}
         for layer, in_shapes in self.walk_shapes(input_shapes, shapes):
-            p = layer.init_params(gen, in_shapes)
-            if p:
-                params[layer.spec.name] = p
+            share = layer.spec.share_params
+            if share is not None:
+                if share not in params:
+                    raise KeyError(f"{layer.spec.name}: share_params target "
+                                   f"{share!r} not initialized yet")
+            else:
+                p = layer.init_params(gen, in_shapes)
+                if p:
+                    params[layer.spec.name] = p
             if layer.has_state:
                 state0[layer.spec.name] = layer.init_state(in_shapes)
         self.state0 = state0
@@ -183,7 +195,7 @@ class Net(torch.nn.Module):
             spec = layer.spec
             ins = [blobs[b] for b in spec.bottoms]
             consumed.update(spec.bottoms)
-            lp = params.get(spec.name, {})
+            lp = params.get(spec.share_params or spec.name, {})
             if layer.has_state:
                 outs = layer(lp, ins, state[spec.name])
             else:

@@ -1,7 +1,11 @@
-"""Activations of the slice (port of ``caffe_escoin_tpu/ops/activations.py``
-``relu``, ``dropout`` and ``softmax``)."""
+"""Activations (port of ``caffe_escoin_tpu/ops/activations.py``): Caffe's
+activation layers as functions, with Caffe's semantics (ReLU's
+negative_slope, BNLL's overflow guard, Power's (shift + scale*x)^power,
+Exp and Log in a base, base <= 0 meaning e)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -10,6 +14,55 @@ def relu(x, negative_slope: float = 0.0):
     if negative_slope:
         return torch.where(x > 0, x, negative_slope * x)
     return torch.relu(x)
+
+
+def prelu(x, alpha):
+    """alpha: per-channel [C] (broadcast over the last axis) or [1]."""
+    return torch.where(x > 0, x, alpha * x)
+
+
+def elu(x, alpha: float = 1.0):
+    return torch.where(x > 0, x, alpha * (torch.exp(x.clamp(max=0.0)) - 1.0))
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def bnll(x):
+    """log(1 + exp(x)), overflow-safe (bnll_layer.cpp's threshold trick)."""
+    return torch.where(x > 0, x + torch.log1p(torch.exp(-x.abs())),
+                       torch.log1p(torch.exp(x.clamp(max=0.0))))
+
+
+def power(x, power: float = 1.0, scale: float = 1.0, shift: float = 0.0):
+    return torch.pow(shift + scale * x, power)
+
+
+def exp(x, base: float = -1.0, scale: float = 1.0, shift: float = 0.0):
+    y = scale * x + shift
+    if base > 0:
+        return torch.pow(base, y)
+    return torch.exp(y)
+
+
+def log(x, base: float = -1.0, scale: float = 1.0, shift: float = 0.0):
+    out = torch.log(scale * x + shift)
+    if base > 0:
+        out = out / math.log(base)
+    return out
+
+
+def absval(x):
+    return x.abs()
+
+
+def threshold(x, thresh: float = 0.0):
+    return (x > thresh).to(x.dtype)
 
 
 def dropout(x, rate: float, *, train: bool = False):

@@ -1,5 +1,5 @@
-"""Inference normalisation (port of ``caffe_escoin_tpu/ops/norm.py:15-89``:
-LRN across channels, BatchNorm at global statistics, Scale)."""
+"""Inference normalisation (port of ``caffe_escoin_tpu/ops/norm.py``: LRN
+across channels, BatchNorm at global statistics, Scale, MVN)."""
 
 from __future__ import annotations
 
@@ -63,4 +63,13 @@ def scale_bias(x, gamma, beta=None):
     out = x * gamma
     if beta is not None:
         out = out + beta
+    return out
+
+
+def mvn(x, *, axis=(1, 2, 3), normalize_variance=True, eps=1e-9):
+    """Mean-variance normalization over all non-batch axes (mvn_layer.cpp)."""
+    out = x - x.mean(dim=axis, keepdim=True)
+    if normalize_variance:
+        std = torch.sqrt((out * out).mean(dim=axis, keepdim=True))
+        out = out / (std + eps)
     return out

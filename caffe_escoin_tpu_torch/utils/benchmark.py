@@ -1,5 +1,6 @@
-"""Timing of one callable on the device (port of
-``caffe_escoin_tpu/utils/benchmark.py``: ``device_time`` only)."""
+"""Timing of one callable on the device, and the choice of device (port of
+``caffe_escoin_tpu/utils/benchmark.py``: ``device_time`` and
+``force_platform``)."""
 
 from __future__ import annotations
 
@@ -9,11 +10,45 @@ from typing import Callable
 
 import torch
 
+PLATFORMS = ("auto", "cpu", "cuda")
+
+
+def force_platform(platform: str = "auto") -> torch.device:
+    """The device an entry point runs on (the JAX function routes jax to a
+    platform; torch takes the device instead): "cpu", or the card for
+    "cuda" and "auto". Asking for the card where there is none raises:
+    nothing falls back to the CPU. On the card f32 stays f32: TF32 is
+    turned off for cuBLAS and cuDNN, so the dense and the sparse modes
+    compare at one precision."""
+    if platform not in PLATFORMS:
+        raise ValueError(f"platform must be one of {PLATFORMS}, got "
+                         f"{platform!r}")
+    if platform == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--platform {platform}: no CUDA device here; "
+                           f"pass --platform cpu to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
 
 def _device_of(args) -> torch.device:
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            return a.device
+    """The device of the first tensor in ``args`` (nested lists, tuples and
+    dicts searched in order)."""
+    for t in _tensors(args):
+        return t.device
     raise ValueError("device_time: no tensor among the arguments")
 
 
@@ -24,8 +59,7 @@ def device_time(f: Callable, *args, iters: int = 20,
     ``arg_sets`` (a list of argument tuples, cycled across the calls; pass
     4 or more distinct ones) keeps an input from staying in the 50 MB L2
     from one call to the next, which would under-report a memory-bound
-    function that a real forward runs on cold inputs. The device is that
-    of the first tensor argument.
+    function that a real forward runs on cold inputs.
 
     On a CUDA device it times the device alone, as the JAX timer reads the
     device span of one compiled program: every argument set is first run
@@ -36,7 +70,8 @@ def device_time(f: Callable, *args, iters: int = 20,
     between its own pair of CUDA events. The graphs are freed before it
     returns. ``f`` must be capturable: it reads no device value on the
     host. On a CPU tensor each eager call is timed on the host clock (for
-    the tests; no device number).
+    the tests; no device number). The device is that of the first tensor
+    found in the arguments, nested lists and dicts included.
     """
     sets = list(arg_sets) if arg_sets else [args]
     dev = _device_of(sets[0])

@@ -27,7 +27,9 @@ unstructured`` prunes it, element-wise, run through the ELL gather SpMM
 (phase 4c); then ResNet-50 and VGG-16 with the W-pair packed layout that a
 bare ``bench.py`` applies (``--pack``), against the unpacked rows (phase
 4d); then GoogLeNet in the three forms bench.py gives it: fused, with its
-stem folded by space-to-depth, and folded and packed (phase 4e).
+stem folded by space-to-depth, and folded and packed (phase 4e); then the
+reference's own entry points, the command line and the parity tool, with
+their model I/O, on ResNet-50 b32 (phase 6).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -151,10 +153,26 @@ Phases, one line each (any failure exits non-zero):
      of an SpMM's A) that some live weight block reads, the live weight
      blocks, the output and the residual; the FLOPs count the live
      blocks. Also the host time of one entry call of each kernel.
+  6. the command line (``tools/cli.py``, ``tools/parity.py``, called in
+     process) at ResNet-50 b32, 224x224, full depth and width, 1000
+     classes, f32, unfused, 90% in 128x128 blocks: the JAX CLI's
+     configuration (XBSP arms, no autotune). ``device_query``; ``parity``
+     (LOWERED_SPARSE, SCONV and SCONV_PAR against LOWERED_GEMM, two
+     batches, exit 0 under ``--tol 1e-3``); the model I/O round trip
+     (``export_prototxt`` and ``export_caffemodel`` of the zoo net's random
+     weights under ``build/``, then ``load_net`` + ``load_caffemodel`` +
+     ``assign_to_params`` + ``batchnorm_state`` into a net initialised from
+     another seed, pruned and aligned as the CLI does: its fc1000 logits on
+     4 inputs within 1e-6 x max|logit| of the zoo net's); ``test`` on those
+     files at --conv_mode 3 and 1 (forward ms per iteration, CUDA-graph
+     replays after the capturing first one); ``time`` with the backward
+     column (its totals, the five slowest layers; backward 0 exactly on the
+     convs aligned with a BSC). Every launch counter must read 0 over it.
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
-``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d and 4e). As the last line
+``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d and 4e; phase 6
+launches none). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -164,6 +182,8 @@ device and nvcc; exits 1 without them.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import re
@@ -263,6 +283,11 @@ ZOO_SHAPES = [
 # runs (phase 4b); their autotuned / kernel-route graph ratio is reported,
 # not held to a limit yet
 CALIB_ONCE = ("googlenet", "alexnet")
+# the command line's run (phase 6): the JAX CLI's configuration (f32,
+# unfused, XBSP arms, no autotune) at full depth and width
+CLI_MODEL, CLI_BATCH, CLI_CLASSES = "resnet50", 32, 1000
+CLI_ITERS = 5
+CLI_TIME_ITERS = 5
 # the GoogLeNet stem layers phase 4e prints side by side
 STEM_LAYERS = ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
                "conv2/3x3_reduce", "conv2/3x3", "conv2/norm2", "pool2/3x3_s2")
@@ -445,6 +470,198 @@ def _prune(net, params, keep_norm=False, block=BLOCK):
         q["w"] = torch.from_numpy(wp)
         out[name] = q
     return out
+
+
+def _run_entry(fn, argv, log):
+    """(exit code, standard output) of one entry point called in process,
+    ``fn(argv)``; the output also goes to ``log`` (under build/). An entry
+    that raises prints what it wrote first."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+    except BaseException:
+        print(buf.getvalue(), file=sys.stderr)
+        raise
+    finally:
+        with open(log, "w") as fh:
+            fh.write(buf.getvalue())
+    return rc or 0, buf.getvalue()
+
+
+def _report_rows(text, specs):
+    """The per-layer rows of ``format_report``'s text, in the net's layer
+    order, as (name, type, category, fwd ms, bwd ms). A row starts with the
+    layer's name, which may run into the type column, so each is cut at
+    the name the net gives it."""
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("layer "))
+    rows = []
+    for spec, line in zip(specs, lines[start + 1:]):
+        if not line.startswith(spec.name):
+            raise SystemExit(f"cli time: row {line!r} is not layer "
+                             f"{spec.name}")
+        kind, cat, fwd, bwd = line[len(spec.name):].split()[:4]
+        rows.append((spec.name, kind, cat, float(fwd), float(bwd)))
+    if len(rows) != len(specs):
+        raise SystemExit(f"cli time: {len(rows)} rows for {len(specs)} "
+                         f"layers")
+    return rows
+
+
+def _phase_cli(mods, tag):
+    """Phase 6: the reference's entry points (``tools/cli.py``,
+    ``tools/parity.py``) called in process on the card at CLI_MODEL b32,
+    full depth and width, f32, unfused, as the JAX command line runs it.
+    Every launch counter must read 0 over it: the command line's policy
+    runs the XBSP arms (torch ops) and no hand kernel."""
+    import argparse
+
+    import torch
+
+    from caffe_escoin_tpu_torch.engine.context import (ConvMode,
+                                                       ExecutionPolicy)
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, params_to
+    from caffe_escoin_tpu_torch.tools import cli, parity
+    from caffe_escoin_tpu_torch.tools.caffemodel import (assign_to_params,
+                                                         batchnorm_state,
+                                                         load_caffemodel)
+    from caffe_escoin_tpu_torch.tools.prototxt import load_net
+    from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
+
+    t_phase = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    model, batch = CLI_MODEL, CLI_BATCH
+    stem = os.path.join("build", f"cli_{model}")
+    common = ["--model", model, "--batch", str(batch), "--num-classes",
+              str(CLI_CLASSES)]
+    sparse = ["--sparsity", str(SPARSITY), "--block-shape", *map(str, BLOCK)]
+
+    # 6.1 device_query
+    _, out = _run_entry(cli.main, ["device_query"], f"{stem}_query.log")
+    print("cli device_query: " + "; ".join(
+        ln.strip() for ln in out.splitlines()) + f" {tag}")
+    for m in mods.values():
+        m.reset_counts()
+
+    # 6.2 parity: the three sparse modes against LOWERED_GEMM
+    t0 = time.perf_counter()
+    rc, out = _run_entry(parity.main, common + sparse + ["--batches", "2"],
+                         f"{stem}_parity.log")
+    lines = [ln for ln in out.splitlines() if "max|dprob|" in ln]
+    for ln in lines:
+        print(f"cli parity {model} b{batch}: {ln.strip()} {tag}")
+    print(f"cli parity: exit {rc}, {time.perf_counter() - t0:.1f} s {tag}")
+    if rc != 0 or len(lines) != 3:
+        raise SystemExit(f"parity exited {rc} with {len(lines)} mode lines")
+
+    # 6.3 model I/O: the zoo net's random weights through a prototxt and a
+    # caffemodel, back into a net built from that prototxt
+    t0 = time.perf_counter()
+    for cmd, suffix in (("export_prototxt", ".prototxt"),
+                        ("export_caffemodel", ".caffemodel")):
+        rc, out = _run_entry(cli.main, [cmd, *common, "--output",
+                                        stem + suffix], f"{stem}_{cmd}.log")
+        if rc != 0:
+            raise SystemExit(f"cli {cmd} exited {rc}")
+        print(f"cli {cmd}: {out.strip().splitlines()[-1]}, "
+              f"{os.path.getsize(stem + suffix)} bytes {tag}")
+    prune_args = argparse.Namespace(sparsity=SPARSITY, block_shape=BLOCK)
+    policy = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shapes = {"data": (batch,) + tuple(ZOO[model][1]["data"][1:])}
+    zoo_net = Net(ZOO[model][0](num_classes=CLI_CLASSES), policy=policy)
+    zoo_params = zoo_net.init(torch.Generator().manual_seed(SEED), shapes)
+    specs, io_shapes, _ = load_net(stem + ".prototxt", batch=batch)
+    io_net = Net(specs, policy=policy)
+    # another seed: only the imported weights can make the two nets agree
+    io_params = io_net.init(torch.Generator().manual_seed(SEED + 1),
+                            io_shapes)
+    loaded = load_caffemodel(stem + ".caffemodel")
+    io_params = assign_to_params(io_net, io_params, loaded,
+                                 log=lambda *_: None)
+    io_net.state0.update(batchnorm_state(loaded))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = [torch.randn(shapes["data"], generator=gen, device=dev)
+          for _ in range(N_INPUTS)]
+    logits, aligned = [], []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for net, prm in ((zoo_net, zoo_params), (io_net, io_params)):
+            aligned.append(net.weight_align(
+                cli._maybe_prune(net, prm, prune_args)))
+            fwd = net.inference_fn(params_to(aligned[-1], dev),
+                                   state=params_to(net.state0, dev),
+                                   return_blobs=True)
+            logits.append([fwd({"data": x})["fc1000"] for x in xs])
+    # the convs whose aligned weight holds a BSC: `cli time` gives them no
+    # backward (the JAX rule); a conv that pruning leaves dense has one
+    bsc_convs = {n for n, a in aligned[0].items()
+                 if isinstance(a, AlignedConvWeight) and a.bsc is not None}
+    peak = max(t.abs().max().item() for t in logits[0])
+    diff = max((a - b).abs().max().item() for a, b in zip(*logits))
+    ok = (diff <= 1e-6 * peak and peak > 0
+          and all(torch.isfinite(t).all() for t in logits[1]))
+    print(f"cli model I/O {model} b{batch}: {len(specs)} layers from the "
+          f"prototxt, {len(loaded)} weighted layers from the caffemodel; "
+          f"fc1000 logits of the reloaded net vs the zoo net on "
+          f"{N_INPUTS} inputs: max|diff| {diff:.3e} (limit 1e-6 x "
+          f"max|logit| {peak:.3e}) {'ok' if ok else 'FAIL'}, "
+          f"{time.perf_counter() - t0:.1f} s {tag}")
+    if not ok:
+        raise SystemExit("the prototxt + caffemodel round trip changed the "
+                         "logits")
+    del logits, aligned, xs, zoo_params, io_params, loaded
+
+    # 6.4 cli test on the exported files, SCONV_PAR then LOWERED_SPARSE
+    for mode in (3, 1):
+        t0 = time.perf_counter()
+        rc, out = _run_entry(cli.main, [
+            "test", "--model", stem + ".prototxt", "--weights",
+            stem + ".caffemodel", "--batch", str(batch), "--conv_mode",
+            str(mode), *sparse, "--iterations", str(CLI_ITERS)],
+            f"{stem}_test{mode}.log")
+        its = [ln.split("forward ")[1] for ln in out.splitlines()
+               if ln.startswith("iteration ")]
+        avg = [ln for ln in out.splitlines() if ln.startswith("average")]
+        print(f"cli test {model} b{batch} --conv_mode {mode} "
+              f"({ConvMode(mode).name}): forward per iteration "
+              f"{', '.join(its)}; {avg[0] if avg else '?'}; exit {rc}, "
+              f"{time.perf_counter() - t0:.1f} s {tag}")
+        if rc != 0 or len(its) != CLI_ITERS:
+            raise SystemExit(f"cli test --conv_mode {mode} exited {rc}")
+
+    # 6.5 cli time with the backward column
+    t0 = time.perf_counter()
+    rc, out = _run_entry(cli.main, [
+        "time", *common, "--conv_mode", "3", *sparse, "--iterations",
+        str(CLI_TIME_ITERS)], f"{stem}_time.log")
+    if rc != 0:
+        raise SystemExit(f"cli time exited {rc}")
+    for ln in out.splitlines():
+        if ln.startswith(("[totals]", "[backward]")):
+            print(f"cli time {model} b{batch} SCONV_PAR: {ln} {tag}")
+    rows = _report_rows(out, ZOO[model][0](num_classes=CLI_CLASSES))
+    print(f"cli time {model}: five slowest forwards (name, type, fwd ms, "
+          f"bwd ms): " + ", ".join(
+              f"{n} {k} {f:.3f} {b:.3f}"
+              for n, k, _, f, b in sorted(rows, key=lambda r: -r[3])[:5])
+          + f"; {len(rows)} rows, {time.perf_counter() - t0:.1f} s {tag}")
+    wrong = [n for n, _, _, _, b in rows if (b == 0) != (n in bsc_convs)]
+    n_timed = len(rows) - len(bsc_convs)
+    print(f"cli time {model}: backward 0 on the {len(bsc_convs)} convs "
+          f"aligned with a BSC, timed on the other {n_timed} rows: "
+          f"{'ok' if not wrong else 'FAIL ' + str(wrong)} {tag}")
+    if wrong:
+        raise SystemExit(f"cli time: backward column wrong for {wrong}")
+
+    launches = {k: m.launches for k, m in mods.items()}
+    print(f"cli launches over parity, model I/O, test and time: {launches} "
+          f"(expected none: the command line's policy runs the XBSP arms) "
+          f"{tag}")
+    if any(launches.values()):
+        raise SystemExit("the command line launched a hand kernel")
+    print(f"cli phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
 
 
 def main() -> int:
@@ -1573,6 +1790,10 @@ def main() -> int:
                   f"graph at {bound_ms / graph['kernel']:.1%} of it, "
                   f"{graph['kernel'] / graph['library']:.2f}x the library "
                   f"{tag}")
+
+    # ---- 6. the command line ---------------------------------------------
+    torch.cuda.empty_cache()
+    _phase_cli(mods, tag)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

@@ -842,3 +842,86 @@ def test_lrn_and_s2d_capture_in_a_cuda_graph(dev):
     assert captured[1].shape == (2, 10, 10, 12)  # cropped to the conv's 10
     for a, b in zip(captured, eager):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arm", ["conv", "conv_gathered",
+                                 "conv_gathered_cols", "spmm"])
+def test_xbsp_arm_backward_bf16_on_cuda_matches_cpu_f32(dev, arm):
+    """With grad enabled the arms are differentiable on the card (their
+    bf16 products go out of place in f32: autograd takes neither
+    ``out_dtype`` nor ``out=``); under inference_mode the forward is the
+    in-place one. Gradients of x and of the live payloads against the same
+    arm's in f32 on the CPU."""
+    import dataclasses
+
+    rng = np.random.default_rng(4)
+    if arm == "spmm":
+        w = prune_blocks(rng.standard_normal((384, 256)).astype(np.float32),
+                         0.6, (128, 128))
+        bsc = dense_to_bsc(w, (128, 128))
+        x = torch.from_numpy(rng.standard_normal((32, 384)).astype(
+            np.float32)).bfloat16()
+
+        def run(x, blocks):
+            return xbs.spmm(x, dataclasses.replace(bsc.to(x.device),
+                                                   blocks=blocks))
+        blocks = bsc.blocks
+    else:
+        al = _weight(rng, 3, 64, 64, 0.8, (64, 64), False, dev)
+        x = torch.from_numpy(rng.standard_normal((2, 14, 14, 64)).astype(
+            np.float32)).bfloat16()
+        blocks = al.bsc.blocks.cpu()
+
+        def run(x, blocks):
+            a = al.to(x.device)
+            a = dataclasses.replace(a, bsc=dataclasses.replace(a.bsc,
+                                                               blocks=blocks))
+            return getattr(xbs, arm)(x, a, padding=(1, 1), relu=False)
+
+    grads = {}
+    for where, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+        xg = x.to(where, dtype).requires_grad_(True)
+        bg = blocks.to(where, dtype).requires_grad_(True)
+        out = run(xg, bg)
+        grads[str(torch.device(where).type)] = torch.autograd.grad(
+            out.float().sum(), [xg, bg])
+    with torch.inference_mode():
+        fast = run(x.to(dev), blocks.to(dev, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert fast.dtype == torch.bfloat16
+    _close(fast.cpu(), run(x.float(), blocks.float()).detach(),
+           torch.bfloat16)
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got.cpu().float(), ref, rtol=2e-2,
+                                   atol=2e-2 * ref.abs().max().item())
+
+
+def test_layerwise_backward_times_on_cuda(dev):
+    """``time_net_layerwise(backward=True)`` on the card: every layer's
+    forward and backward captured and replayed as CUDA graphs; the rows
+    with a backward time are the CPU run's."""
+    from caffe_escoin_tpu_torch.engine.context import ConvMode
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, params_to
+    from caffe_escoin_tpu_torch.utils.timing import time_net_layerwise
+
+    net = Net(ZOO["cifar10_quick"][0](), policy=ExecutionPolicy(
+        conv_mode=ConvMode.SCONV_PAR, block_shape=(128, 128)))
+    shapes = {"data": (4, 32, 32, 3)}
+    params = net.init(torch.Generator().manual_seed(0), shapes)
+    for name in ("conv2", "conv3"):
+        params[name]["w"] = torch.from_numpy(prune_conv_weight(
+            params[name]["w"].numpy(), 0.9, (128, 128)))
+    aligned = net.weight_align(params)
+    x = torch.randn(shapes["data"])
+    rows = {}
+    for where in ("cpu", dev):
+        res = time_net_layerwise(net, params_to(aligned, where),
+                                 {"data": x.to(where)}, iters=2,
+                                 backward=True)
+        rows[str(torch.device(where).type)] = {
+            r["name"] for r in res["layers"] if r["bwd_ms"] > 0}
+        assert all(r["ms"] > 0 for r in res["layers"])
+    assert rows["cuda"] == rows["cpu"]
+    assert rows["cuda"] >= {"conv1", "ip1", "ip2", "pool1"}
+    assert not rows["cuda"] & {"conv2", "conv3"}

@@ -37,10 +37,15 @@ SCRIPT = textwrap.dedent("""
 """)
 
 # the modules that carry their own copies of JAX-package code (numpy-only
-# helpers and spec builders the port may not import)
+# helpers, spec builders, the model I/O and the command line the port may
+# not import)
 COPIES = ("ops.s2d", "ops.wpack", "ops.norm", "ops.structural",
-          "utils.pruning", "models.alexnet", "models.caffenet",
-          "models.googlenet", "models.resnet", "models.vgg")
+          "ops.activations", "ops.losses", "utils.pruning",
+          "models.alexnet", "models.caffenet", "models.cifar",
+          "models.googlenet", "models.lenet", "models.resnet", "models.vgg",
+          "nn.serialize", "tools.prototxt", "tools.caffemodel", "tools.draw",
+          "tools.cli", "tools.parity", "data.datasets", "engine.checkpoint",
+          "utils.timing", "utils.benchmark")
 
 
 def test_port_imports_no_jax():
