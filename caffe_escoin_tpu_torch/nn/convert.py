@@ -1,4 +1,5 @@
-"""Carry the JAX package's net parameters over to the port."""
+"""Carry the JAX package's net parameters, BatchNorm state and solver
+state over to the port."""
 
 from __future__ import annotations
 
@@ -22,3 +23,10 @@ def params_from_jax(params: Dict[str, Any],
     both nets built from the same specs compute the same function. Works
     on anything ``np.asarray`` takes, so it needs no jax import."""
     return _to_torch(params), _to_torch(state or {})
+
+
+def solver_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX solver state (``{"h"}``, ``{"h", "h2"}`` or ``{"m", "v"}``,
+    each a tree like the params) as the port's ``engine.solvers`` state:
+    CPU tensors under the same keys."""
+    return _to_torch(state)

@@ -1,8 +1,11 @@
-"""The layers of an inference net (port of ``caffe_escoin_tpu/nn/layers.py``:
-Input, the convolutions (Convolution, ConvolutionReLU, EscConvolution),
-InnerProduct, Pooling, the activations, Dropout, Softmax, BatchNorm at
-global statistics, Scale, Bias, MVN, LRN, the structural layers, DummyData,
-and SoftmaxWithLoss and Accuracy forward).
+"""The layers (port of ``caffe_escoin_tpu/nn/layers.py``: Input, the
+convolutions (Convolution, ConvolutionReLU, EscConvolution), InnerProduct,
+Pooling, the activations, Dropout, Softmax, BatchNorm, Scale, Bias, MVN,
+LRN, the structural layers, DummyData, Accuracy and the seven losses).
+Dropout and BatchNorm have a training forward (``train=True``, which
+``Net.forward`` passes them): Dropout draws its mask from a generator, and
+BatchNorm normalizes by the batch statistics and returns its new moving
+averages.
 Convolution and InnerProduct carry the sparse machinery (weight_align ->
 AlignedConvWeight -> mode dispatch) and name the kernel route they take
 (``route``). Convolution, Pooling and LRN also run on the W-pair packed
@@ -10,8 +13,7 @@ layout that nn/fuse.pack_narrow_chains marks, and Convolution on the
 space-to-depth layout that nn/fuse.fold_stem_s2d gives a stem. The rest
 are thin. ``category`` is the timing bucket (utils/timing.py). The other
 registered types of the JAX package (Deconvolution, SPP, Im2col, the
-recurrent layers, Embed, BatchReindex, Filter, Parameter, Python, the
-other losses) wait.
+recurrent layers, Embed, BatchReindex, Filter, Parameter, Python) wait.
 """
 
 from __future__ import annotations
@@ -373,10 +375,15 @@ class ReLULayer(Layer):
 
 @register_layer("Dropout")
 class DropoutLayer(Layer):
-    """The identity at inference (the training forward is not ported)."""
+    """The identity at inference; in training, inverted dropout with its
+    mask drawn from the generator ``Net.forward`` passes."""
 
-    def forward(self, params, inputs, state=None):
-        return [act.dropout(inputs[0], self.p.get("ratio", 0.5))]
+    uses_generator = True
+
+    def forward(self, params, inputs, state=None, *, train=False,
+                generator=None):
+        return [act.dropout(inputs[0], self.p.get("ratio", 0.5),
+                            generator=generator, train=train)]
 
 
 @register_layer("Softmax")
@@ -387,10 +394,18 @@ class SoftmaxLayer(Layer):
 
 @register_layer("BatchNorm")
 class BatchNormLayer(Layer):
-    """Caffe BatchNorm at global statistics. Its state holds the decayed
-    sums ``mean_acc``/``var_acc`` and the normalisation ``count``; the
-    forward divides the sums by ``count`` (count 0 -> mean 0, var 1). The
-    training-mode forward waits for the training port."""
+    """Caffe BatchNorm (batch_norm_layer.cpp). Its state holds the decayed
+    sums ``mean_acc``/``var_acc`` and the normalisation ``count``, buffers
+    the solver never updates (the reference pins them with lr_mult 0).
+
+    ``use_global_stats`` None means "not in training". At global
+    statistics the forward divides the sums by ``count`` (count 0 -> mean
+    0, var 1). Otherwise it normalizes over every axis but the channel
+    (the last) by the batch's mean and biased variance; in training it
+    also returns the new state, ``acc = moving_average_fraction * acc +
+    stat`` with the variance bias-corrected by m/(m-1) and ``count =
+    fraction * count + 1`` (`batch_norm_layer.cpp:125-145`): a new dict of
+    tensors outside the autograd graph, the old one left as it was."""
 
     has_state = True
 
@@ -399,20 +414,35 @@ class BatchNormLayer(Layer):
         return {"mean_acc": torch.zeros(c), "var_acc": torch.zeros(c),
                 "count": torch.zeros(())}
 
-    def forward(self, params, inputs, state=None):
+    def forward(self, params, inputs, state=None, *, train=False):
         (x,) = inputs
-        if self.p.get("use_global_stats") is False:
-            raise NotImplementedError(
-                f"{self.spec.name}: batch-statistics BatchNorm (training) "
-                f"is not ported")
-        count = state["count"]
-        inv_n = torch.where(count > 0, 1.0 / count.clamp_min(1e-30),
-                            torch.zeros_like(count))
-        mean = state["mean_acc"] * inv_n
-        var = torch.where(count > 0, state["var_acc"] * inv_n,
-                          torch.ones_like(state["var_acc"]))
-        return [norm_ops.batch_norm_inference(x, mean, var,
-                                              eps=self.p.get("eps", 1e-5))]
+        eps = self.p.get("eps", 1e-5)
+        use_global = self.p.get("use_global_stats")
+        if use_global is None:
+            use_global = not train
+        if use_global:
+            count = state["count"]
+            inv_n = torch.where(count > 0, 1.0 / count.clamp_min(1e-30),
+                                torch.zeros_like(count))
+            mean = state["mean_acc"] * inv_n
+            var = torch.where(count > 0, state["var_acc"] * inv_n,
+                              torch.ones_like(state["var_acc"]))
+            outs = [norm_ops.batch_norm_inference(x, mean, var, eps=eps)]
+            return (outs, state) if train else outs
+        axes = tuple(range(x.dim() - 1))
+        out, bmean, bvar = norm_ops.batch_norm_train(x, axis=axes, eps=eps)
+        if not train:
+            return [out]
+        lam = self.p.get("moving_average_fraction", 0.999)
+        m = float(math.prod(x.shape[i] for i in axes))
+        bias_corr = m / (m - 1.0) if m > 1 else 1.0
+        with torch.no_grad():
+            new_state = {
+                "mean_acc": lam * state["mean_acc"] + bmean,
+                "var_acc": lam * state["var_acc"] + bias_corr * bvar,
+                "count": lam * state["count"] + 1.0,
+            }
+        return [out], new_state
 
 
 @register_layer("Scale")
@@ -545,21 +575,76 @@ class ThresholdLayer(Layer):
         return [act.threshold(inputs[0], self.p.get("threshold", 0.0))]
 
 
-@register_layer("SoftmaxWithLoss")
-class SoftmaxWithLossLayer(_MetaShapes, Layer):
-    """Forward only: the mean cross-entropy of logits and integer labels.
-    A spec without a loss weight gets 1.0, as Caffe's loss layers (and the
-    JAX layer, which sets it on the spec)."""
+class _LossLayer(Layer):
+    """A loss: one scalar top. A spec without a loss weight gets 1.0, as
+    Caffe's loss layers (and the JAX layers, which set it on the spec)."""
 
     def __init__(self, spec, policy):
         super().__init__(spec, policy)
         if spec.loss_weight == 0.0:
             object.__setattr__(spec, "loss_weight", 1.0)
 
+    def out_shapes(self, in_shapes):
+        return [()]
+
+
+@register_layer("SoftmaxWithLoss")
+class SoftmaxWithLossLayer(_LossLayer):
+    """The mean cross-entropy of logits and integer labels."""
+
     def forward(self, params, inputs, state=None):
         logits, labels = inputs
         return [loss_ops.softmax_cross_entropy(
             logits, labels, ignore_label=self.p.get("ignore_label"))]
+
+
+@register_layer("SigmoidCrossEntropyLoss")
+class SigmoidCELossLayer(_LossLayer):
+    def forward(self, params, inputs, state=None):
+        return [loss_ops.sigmoid_cross_entropy(inputs[0], inputs[1])]
+
+
+@register_layer("EuclideanLoss")
+class EuclideanLossLayer(_LossLayer):
+    def forward(self, params, inputs, state=None):
+        return [loss_ops.euclidean_loss(inputs[0], inputs[1])]
+
+
+@register_layer("HingeLoss")
+class HingeLossLayer(_LossLayer):
+    def forward(self, params, inputs, state=None):
+        return [loss_ops.hinge_loss(inputs[0], inputs[1],
+                                    norm=self.p.get("norm", "L1"))]
+
+
+@register_layer("ContrastiveLoss")
+class ContrastiveLossLayer(_LossLayer):
+    def forward(self, params, inputs, state=None):
+        return [loss_ops.contrastive_loss(
+            inputs[0], inputs[1], inputs[2],
+            margin=self.p.get("margin", 1.0),
+            legacy_version=self.p.get("legacy_version", False))]
+
+
+@register_layer("MultinomialLogisticLoss")
+class MultinomialLogisticLossLayer(_LossLayer):
+    def forward(self, params, inputs, state=None):
+        return [loss_ops.multinomial_logistic_loss(inputs[0], inputs[1])]
+
+
+@register_layer("InfogainLoss")
+class InfogainLossLayer(_LossLayer):
+    """H from the ``infogain`` param, else the identity (the multinomial
+    logistic loss)."""
+
+    def forward(self, params, inputs, state=None):
+        probs = inputs[0]
+        h = self.p.get("infogain")
+        if h is None:
+            h = torch.eye(probs.shape[-1], dtype=probs.dtype,
+                          device=probs.device)
+        return [loss_ops.infogain_loss(probs, inputs[1], torch.as_tensor(
+            h, dtype=probs.dtype, device=probs.device))]
 
 
 @register_layer("Accuracy")

@@ -1,12 +1,14 @@
 """Graph runtime: LayerSpec / layer registry / Net (port of
-``caffe_escoin_tpu/nn/net.py``, inference only).
+``caffe_escoin_tpu/nn/net.py``).
 
 ``Net`` is an ``nn.Module`` over a LayerSpec list. Parameters are not
 registered on the modules: like the JAX package, the net takes them as an
 argument (``forward(params, inputs)``, also named ``apply``), because they
 pass through host-side transforms (pruning, ``fuse_inference``,
-``weight_align``) as plain dicts before they run. BatchNorm moving
-statistics live in a separate ``state`` dict.
+``weight_align``) and the solver's in-place updates as plain dicts.
+BatchNorm moving statistics live in a separate ``state`` dict, which a
+training forward returns updated (``return_state=True``); Dropout's masks
+come from the ``generator`` it is given.
 """
 
 from __future__ import annotations
@@ -58,7 +60,11 @@ class Layer(torch.nn.Module):
 
     category = "other"  # timing bucket: conv | fc | data | other
     type_name = "?"
-    has_state = False  # BatchNorm's moving statistics
+    # BatchNorm's moving statistics: forward takes the layer's state, and in
+    # training (train=True) returns (outs, new state)
+    has_state = False
+    # Dropout: in training, forward takes train=True and the generator
+    uses_generator = False
 
     def __init__(self, spec: LayerSpec, policy: ExecutionPolicy):
         super().__init__()
@@ -184,33 +190,88 @@ class Net(torch.nn.Module):
 
     def forward(self, params: Dict[str, Any], inputs: Dict[str, torch.Tensor],
                 *, state: Optional[Dict[str, Any]] = None,
-                return_blobs: bool = False):
+                return_blobs: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                return_state: bool = False):
         """Topological forward. Returns the final tops (blobs no later layer
-        reads), or every blob with ``return_blobs=True``."""
+        reads), or every blob with ``return_blobs=True``.
+
+        ``state`` is the BatchNorm state (``init_with_state``); None uses
+        ``state0``. ``train=True`` runs the training forward: BatchNorm at
+        batch statistics (unless its spec pins ``use_global_stats``) and
+        Dropout with masks drawn from ``generator`` (a ``torch.Generator``
+        on the inputs' device). With ``return_state=True`` the result is
+        ``(result, new_state)``; in training new_state holds the updated
+        moving averages (a new dict; ``state`` is not changed)."""
         blobs: Dict[str, torch.Tensor] = dict(inputs)
         if state is None:
             state = self.state0
+        new_state = dict(state)
         consumed = set()
         for layer in self.layers:
             spec = layer.spec
             ins = [blobs[b] for b in spec.bottoms]
             consumed.update(spec.bottoms)
             lp = params.get(spec.share_params or spec.name, {})
-            if layer.has_state:
+            if layer.has_state and train:
+                outs, new_state[spec.name] = layer(lp, ins, state[spec.name],
+                                                   train=True)
+            elif layer.has_state:
                 outs = layer(lp, ins, state[spec.name])
+            elif train and layer.uses_generator:
+                outs = layer(lp, ins, train=True, generator=generator)
             else:
                 outs = layer(lp, ins)
             for t, o in zip(spec.tops, outs):
                 blobs[t] = o
         if return_blobs:
-            return blobs
-        all_tops = [t for l in self.layers for t in l.spec.tops]
-        finals = [t for t in all_tops if t not in consumed and t in blobs]
-        return {t: blobs[t] for t in dict.fromkeys(finals)}
+            result = blobs
+        else:
+            all_tops = [t for l in self.layers for t in l.spec.tops]
+            finals = [t for t in all_tops if t not in consumed and t in blobs]
+            result = {t: blobs[t] for t in dict.fromkeys(finals)}
+        if return_state:
+            return result, new_state
+        return result
 
     # the JAX package's name for the forward; it shadows nn.Module.apply(fn),
     # which nothing in this package uses (the layers hold no parameters)
     apply = forward
+
+    def loss(self, params, inputs, *, train: bool = True,
+             generator: Optional[torch.Generator] = None,
+             state: Optional[Dict[str, Any]] = None,
+             return_state: bool = False):
+        """The weighted sum of the loss layers' tops (Caffe's loss_weight);
+        with ``return_state=True`` also the new BatchNorm state."""
+        blobs, new_state = self.forward(
+            params, inputs, state=state, return_blobs=True, train=train,
+            generator=generator, return_state=True)
+        total = 0.0
+        for layer in self.layers:
+            w = layer.spec.loss_weight
+            if w:
+                total = total + w * blobs[layer.spec.tops[0]]
+        if return_state:
+            return total, new_state
+        return total
+
+    def init_with_state(self, gen: torch.Generator,
+                        input_shapes: Dict[str, Tuple[int, ...]]):
+        """(params, state): the trainable params and the BatchNorm buffers
+        (``state0``) that a training forward updates."""
+        params = self.init(gen, input_shapes)
+        return params, self.state0
+
+    @staticmethod
+    def num_params(params) -> int:
+        """The number of elements over every tensor of ``params``."""
+        def count(v):
+            if isinstance(v, dict):
+                return sum(count(u) for u in v.values())
+            return v.numel()
+
+        return count(params)
 
     def weight_align(self, params):
         """Host-side sparse compile of every layer's params."""

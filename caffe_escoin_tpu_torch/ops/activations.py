@@ -65,13 +65,19 @@ def threshold(x, thresh: float = 0.0):
     return (x > thresh).to(x.dtype)
 
 
-def dropout(x, rate: float, *, train: bool = False):
-    """Inverted dropout: the identity at inference. The training forward
-    (a random mask scaled by 1/(1-rate)) waits for the training port."""
+def dropout(x, rate: float, *, generator=None, train: bool = False):
+    """Inverted dropout (dropout_layer.cpp scales by 1/(1-rate) in
+    training): the identity at inference and at rate 0; in training each
+    element survives with probability 1 - rate, drawn from ``generator``
+    (a ``torch.Generator`` on x's device), and survivors are x / (1 -
+    rate)."""
     if not train or rate <= 0.0:
         return x
-    raise NotImplementedError(
-        "dropout(train=True) is not ported: it comes with the training port")
+    if generator is None:
+        raise ValueError("dropout(train=True) requires a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def softmax(x, axis: int = -1):

@@ -1,5 +1,6 @@
-"""Inference normalisation (port of ``caffe_escoin_tpu/ops/norm.py``: LRN
-across channels, BatchNorm at global statistics, Scale, MVN)."""
+"""Normalisation (port of ``caffe_escoin_tpu/ops/norm.py``: LRN across
+channels, BatchNorm at global and at batch statistics, Scale, the fused
+BatchNorm + Scale, MVN)."""
 
 from __future__ import annotations
 
@@ -58,12 +59,29 @@ def batch_norm_inference(x, mean, var, *, eps=1e-5):
     return (x - mean) * torch.rsqrt(var + eps)
 
 
+def batch_norm_train(x, *, axis=(0, 1, 2), eps=1e-5):
+    """(normalized, batch mean, batch variance) for the training forward;
+    the variance is the biased one (divided by the count), as Caffe
+    normalizes."""
+    mean = x.mean(dim=axis)
+    var = x.var(dim=axis, correction=0)
+    return (x - mean) * torch.rsqrt(var + eps), mean, var
+
+
 def scale_bias(x, gamma, beta=None):
     """Caffe Scale layer (per-channel gamma, optional bias)."""
     out = x * gamma
     if beta is not None:
         out = out + beta
     return out
+
+
+def batch_norm(x, mean, var, gamma=None, beta=None, *, eps=1e-5):
+    """Fused inference BatchNorm + Scale (the layer pair)."""
+    inv = torch.rsqrt(var + eps)
+    if gamma is not None:
+        inv = inv * gamma
+    return x * inv + ((beta if beta is not None else 0.0) - mean * inv)
 
 
 def mvn(x, *, axis=(1, 2, 3), normalize_variance=True, eps=1e-9):

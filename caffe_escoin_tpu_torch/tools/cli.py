@@ -1,9 +1,9 @@
 """Command-line interface: the `caffe` binary equivalent (port of
 ``caffe_escoin_tpu/tools/cli.py``).
 
-Reference: `tools/caffe.cpp` (493 LoC): brew commands test / time /
-device_query with gflags `-model -weights -gpu -iterations -conv_mode`
-(`tools/caffe.cpp:29-60`). Models come from the zoo registry or a
+Reference: `tools/caffe.cpp` (493 LoC): brew commands train / test / time /
+device_query with gflags `-model -weights -solver -gpu -iterations
+-conv_mode` (`tools/caffe.cpp:29-60`). Models come from the zoo registry or a
 NetParameter `.prototxt`, weights from a `.caffemodel` or an `.npz`
 checkpoint; `--conv_mode {0,1,2,3}` maps to the same four modes. The flags
 and defaults are the JAX CLI's, but ``--platform``: auto (the card; no
@@ -14,14 +14,18 @@ Usage:
   python -m caffe_escoin_tpu_torch.tools.cli time --model lenet --iterations 10
   python -m caffe_escoin_tpu_torch.tools.cli test --model resnet50 \\
       --conv_mode 3 --weights snap.npz --sparsity 0.9 --iterations 4
+  python -m caffe_escoin_tpu_torch.tools.cli train --model lenet \\
+      --solver sgd --lr 0.01 --iterations 100 --snapshot-prefix /tmp/lenet
 
-`train`, `convert_imageset` and `compute_image_mean` come with the
-training and data ports.
+`convert_imageset` and `compute_image_mean` come with the data port.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
+import signal
 import sys
 import time
 
@@ -215,6 +219,68 @@ def cmd_time(args):
     return 0
 
 
+def cmd_train(args):
+    """`caffe train`: the Solver on ``--solver`` (a solver type with the
+    flags' settings, or a SolverParameter .prototxt whose ``net`` is
+    followed while ``--model`` is the default), fed by a PrefetchLoader
+    over the synthetic source; ``--weights`` restores a checkpoint (params,
+    solver and BatchNorm state, iteration) through ``Solver.restore``.
+    Snapshots after the last iteration."""
+    from caffe_escoin_tpu_torch.data.datasets import synthetic_source
+    from caffe_escoin_tpu_torch.data.pipeline import PrefetchLoader
+    from caffe_escoin_tpu_torch.engine.solver import Solver
+    from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
+
+    snapshot_prefix = args.snapshot_prefix
+    snapshot_interval = args.snapshot_interval
+    display = args.display
+    if args.solver.endswith(".prototxt"):
+        # reference SolverParameter text config (`caffe train -solver x`)
+        from caffe_escoin_tpu_torch.tools.prototxt import load_solver
+
+        cfg, run = load_solver(args.solver)
+        if run.get("net") and args.model == "lenet":
+            # --model left at its default: follow the solver's net, as a
+            # path or relative to the solver file's directory
+            cand = run["net"]
+            if not os.path.exists(cand):
+                cand = os.path.join(os.path.dirname(args.solver),
+                                    os.path.basename(run["net"]))
+            if os.path.exists(cand):
+                args.model = cand
+        if args.iterations:
+            cfg = dataclasses.replace(cfg, max_iter=args.iterations)
+        snapshot_prefix = run.get("snapshot_prefix") or snapshot_prefix
+        snapshot_interval = run.get("snapshot") or snapshot_interval
+        display = run.get("display") or display
+    else:
+        cfg = SolverConfig(
+            solver_type=args.solver, base_lr=args.lr, momentum=args.momentum,
+            weight_decay=args.weight_decay, lr_policy=args.lr_policy,
+            gamma=args.gamma, step_size=args.step_size,
+            max_iter=args.iterations,
+        )
+    net, shapes = _build_net(args, include_loss=True, phase="train")
+    solver = Solver(net, cfg, snapshot_prefix=snapshot_prefix,
+                    snapshot_interval=snapshot_interval, display=display,
+                    seed=args.seed, device=args.device)
+    solver.init(shapes)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGHUP)}
+    solver.install_signal_handlers()
+    try:
+        if args.weights:
+            solver.restore(args.weights.removesuffix(".npz"))
+        src = synthetic_source(shapes["data"], num_classes=args.num_classes,
+                               seed=args.seed)
+        with PrefetchLoader(src, device=args.device) as loader:
+            solver.solve(loader, args.iterations)
+    finally:
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+    print(f"done at iteration {solver.iter}")
+    return 0
+
+
 def cmd_export_caffemodel(args):
     """Export the current weights (a checkpoint, a re-exported
     .caffemodel, or the seed's initialisation) as a binary NetParameter,
@@ -325,6 +391,20 @@ def main(argv=None):
                         help="also time per-layer backward (caffe time "
                              "reports both; --no-backward for forward-only)")
     p_time.set_defaults(fn=cmd_time)
+    p_train = sub.add_parser("train", parents=[common])
+    p_train.add_argument("--solver", default="sgd",
+                         help="solver type (sgd|nesterov|adagrad|rmsprop|"
+                              "adadelta|adam) or a solver .prototxt path")
+    p_train.add_argument("--lr", type=float, default=0.01)
+    p_train.add_argument("--momentum", type=float, default=0.9)
+    p_train.add_argument("--weight-decay", type=float, default=0.0)
+    p_train.add_argument("--lr-policy", default="fixed")
+    p_train.add_argument("--gamma", type=float, default=0.1)
+    p_train.add_argument("--step-size", type=int, default=100000)
+    p_train.add_argument("--snapshot-prefix", default="snapshot")
+    p_train.add_argument("--snapshot-interval", type=int, default=0)
+    p_train.add_argument("--display", type=int, default=20)
+    p_train.set_defaults(fn=cmd_train)
 
     p_expp = sub.add_parser("export_prototxt", parents=[common])
     p_expp.add_argument("--output", required=True,

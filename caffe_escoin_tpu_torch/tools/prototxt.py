@@ -44,7 +44,9 @@ standard fields are reparsed and any param the reparse does not reproduce
 moves to the extension field, so round trips are exact by construction.
 The text is byte-identical to the JAX package's for the same specs.
 
-The solver half (``solver_from_prototxt``) comes with the training port.
+The SolverParameter half (``solver_from_prototxt``, ``load_solver``,
+``solver_to_prototxt``) maps a solver prototxt to ``engine.solvers.
+SolverConfig`` and the run settings, and back, as the JAX package writes it.
 """
 
 from __future__ import annotations
@@ -913,3 +915,92 @@ def net_to_prototxt(specs: List[LayerSpec],
 def save_net(path: str, specs, input_shapes=None, **kw) -> None:
     with open(path, "w") as fh:
         fh.write(net_to_prototxt(specs, input_shapes, **kw))
+
+
+# ------------------------------------------------------------------
+# SolverParameter -> SolverConfig (+ run settings)
+# ------------------------------------------------------------------
+
+# SolverParameter.SolverType enum / `type` string -> the solver_type
+_SOLVER_TYPES = {
+    "SGD": "sgd", "NESTEROV": "nesterov", "ADAGRAD": "adagrad",
+    "RMSPROP": "rmsprop", "ADADELTA": "adadelta", "ADAM": "adam",
+}
+
+
+def solver_from_prototxt(text: str):
+    """A solver prototxt -> (SolverConfig, run dict). The run dict holds
+    the fields outside SolverConfig: the net path, test_iter /
+    test_interval, display, the snapshot prefix and cadence, random_seed
+    (read by ``engine.solver.Solver`` and ``tools.cli train``)."""
+    from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
+
+    msg = parse_text(text)
+    t = str(_one(msg, "type", _one(msg, "solver_type", "SGD")))
+    cfg = SolverConfig(
+        solver_type=_SOLVER_TYPES.get(t.upper(), t.lower()),
+        base_lr=_one(msg, "base_lr", 0.01),
+        momentum=_one(msg, "momentum", 0.9),
+        weight_decay=_one(msg, "weight_decay", 0.0),
+        regularization_type=str(_one(msg, "regularization_type", "L2")),
+        delta=_one(msg, "delta", 1e-8),
+        rms_decay=_one(msg, "rms_decay", 0.99),
+        adam_beta1=_one(msg, "momentum", 0.9),
+        adam_beta2=_one(msg, "momentum2", 0.999),
+        clip_gradients=_one(msg, "clip_gradients", -1.0),
+        iter_size=_one(msg, "iter_size", 1),
+        lr_policy=str(_one(msg, "lr_policy", "fixed")),
+        gamma=_one(msg, "gamma", 0.1),
+        step_size=_one(msg, "stepsize", 100000),
+        stepvalues=tuple(msg.get("stepvalue", [])),
+        power=_one(msg, "power", 1.0),
+        max_iter=_one(msg, "max_iter", 100000),
+    )
+    run = {
+        "net": _one(msg, "net"),
+        "train_net": _one(msg, "train_net"),
+        "test_net": _one(msg, "test_net"),
+        "test_iter": _one(msg, "test_iter", 0),
+        "test_interval": _one(msg, "test_interval", 0),
+        "display": _one(msg, "display", 0),
+        "snapshot": _one(msg, "snapshot", 0),
+        "snapshot_prefix": _one(msg, "snapshot_prefix", ""),
+        "random_seed": _one(msg, "random_seed"),
+    }
+    return cfg, run
+
+
+def load_solver(path: str):
+    with open(path) as fh:
+        return solver_from_prototxt(fh.read())
+
+
+def solver_to_prototxt(cfg, run: Optional[Dict[str, Any]] = None) -> str:
+    """SolverConfig (+ run dict) -> SolverParameter text, the inverse of
+    solver_from_prototxt (exact on the SolverConfig fields)."""
+    inv_types = {v: k for k, v in _SOLVER_TYPES.items()}
+    lines = [
+        f'type: {_fmt_scalar(inv_types.get(cfg.solver_type, cfg.solver_type.upper()))}',
+        f"base_lr: {_fmt_scalar(float(cfg.base_lr))}",
+        f"momentum: {_fmt_scalar(float(cfg.momentum))}",
+        f"momentum2: {_fmt_scalar(float(cfg.adam_beta2))}",
+        f"weight_decay: {_fmt_scalar(float(cfg.weight_decay))}",
+        f"regularization_type: {_fmt_scalar(cfg.regularization_type)}",
+        f"delta: {_fmt_scalar(float(cfg.delta))}",
+        f"rms_decay: {_fmt_scalar(float(cfg.rms_decay))}",
+        f"clip_gradients: {_fmt_scalar(float(cfg.clip_gradients))}",
+        f"iter_size: {_fmt_scalar(int(cfg.iter_size))}",
+        f"lr_policy: {_fmt_scalar(cfg.lr_policy)}",
+        f"gamma: {_fmt_scalar(float(cfg.gamma))}",
+        f"stepsize: {_fmt_scalar(int(cfg.step_size))}",
+        f"power: {_fmt_scalar(float(cfg.power))}",
+        f"max_iter: {_fmt_scalar(int(cfg.max_iter))}",
+    ]
+    for sv in cfg.stepvalues:
+        lines.append(f"stepvalue: {_fmt_scalar(int(sv))}")
+    for k in ("net", "train_net", "test_net", "test_iter", "test_interval",
+              "display", "snapshot", "snapshot_prefix", "random_seed"):
+        v = (run or {}).get(k)
+        if v not in (None, "", 0):
+            lines.append(f"{k}: {_fmt_scalar(v)}")
+    return "\n".join(lines) + "\n"

@@ -29,7 +29,8 @@ bare ``bench.py`` applies (``--pack``), against the unpacked rows (phase
 4d); then GoogLeNet in the three forms bench.py gives it: fused, with its
 stem folded by space-to-depth, and folded and packed (phase 4e); then the
 reference's own entry points, the command line and the parity tool, with
-their model I/O, on ResNet-50 b32 (phase 6).
+their model I/O, on ResNet-50 b32 (phase 6); then the training path, whose
+trained, pruned AlexNet goes back onto the kernels (phase 7).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -168,11 +169,49 @@ Phases, one line each (any failure exits non-zero):
      replays after the capturing first one); ``time`` with the backward
      column (its totals, the five slowest layers; backward 0 exactly on the
      convs aligned with a BSC). Every launch counter must read 0 over it.
+  7. training (f32, TF32 off; ``engine/solver.Solver``, the JAX package's
+     documented AlexNet run cut to 16 steps). 7a: AlexNet b32, 227x227,
+     1000 classes, full width and depth, xavier fillers, SGD at 0.01 with
+     momentum 0.9 and L2 weight decay 5e-4, on ``synthetic_source``
+     through ``PrefetchLoader`` (pinned host copies), under
+     ``PruningSchedule(0.9, start 0, end 12, freq 4, block, 128x128)`` on
+     the convs with cin >= 16 and the fc weights (conv1 dense, as
+     examples/train_eval_sparse.py selects): per step the loss, the time
+     between CUDA events around ``Solver.step``, whether the masks were
+     recomputed and that host time; images/s over the steps after the
+     first that recomputed none (the batch is taken from the loader before
+     the events; its host wait is printed beside), with and without that
+     wait; the peak device memory above what the earlier phases hold; then
+     2 more steady steps under ``torch.profiler``: the host time per step,
+     the device's busy time and share, and the kernels that fill it. It
+     fails on a loss that is not finite, a masked weight that is not
+     exactly 0, or a pruned layer whose share of zero 128x128 blocks
+     (per-offset planes for a conv) is off 0.9 by more than one block's
+     share; then ``test_all``
+     on the test-phase net (2 batches). 7b: one step from the same params
+     on the card and on the CPU, AlexNet b8 with both Dropout ratios 0 and
+     cifar10_bn at b100 (BatchNorm in training mode), and on the CPU in f64
+     as the reference: the loss within 1e-4 relative, each param's update
+     within 1e-3 relative L2 of the CPU's, or within twice the CPU f32
+     update's own distance from the f64 one where that is larger (conv1's
+     weight gradient is about 1e-3 off in f32 on either device); a conv
+     bias that feeds a BatchNorm, whose update is rounding noise, within
+     1e-6 absolute; the BatchNorm state within 1e-4. 7c: the trained weights
+     on the test-phase net, fused, aligned in SCONV_PAR, bf16,
+     ``use_xla_sparse=False``, on 4 inputs: launches equal to what
+     ``Net.routes`` names, which must be 4 ``sconv_fused`` + 3
+     ``bsc_spmm``; fc8's logits within 5e-2 relative L2 of the same
+     weights dense in f32; its CUDA-graph time beside phase 5's AlexNet
+     row. 7d: ``cli train --model alexnet --batch 32 --num-classes 1000
+     --iterations 4`` (snapshot under build/), then ``cli test --weights``
+     on that snapshot at ``--conv_mode 3 --sparsity 0.9``: its forward
+     times, and every launch counter at 0 (training runs dense, the
+     command line's test the XBSP arms).
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
-``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d and 4e; phase 6
-launches none). As the last line
+``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e and 7c; phase
+6 and the rest of phase 7 launch none). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -288,6 +327,24 @@ CALIB_ONCE = ("googlenet", "alexnet")
 CLI_MODEL, CLI_BATCH, CLI_CLASSES = "resnet50", 32, 1000
 CLI_ITERS = 5
 CLI_TIME_ITERS = 5
+# phase 7: training, the JAX package's documented AlexNet run
+# (docs/EXPERIMENTS_alexnet*.md, examples/train_eval_sparse.py: xavier
+# fillers, SGD at 0.01 with momentum 0.9, weight decay 5e-4, gradual block
+# pruning to 90% in 128x128 blocks) at batch 32, cut to 16 steps
+TRAIN_BATCH, TRAIN_CLASSES, TRAIN_STEPS = 32, 1000, 16
+TRAIN_SCHEDULE = dict(final_sparsity=SPARSITY, start_iter=0, end_iter=12,
+                      freq=4, granularity="block", block_shape=BLOCK)
+TRAIN_TEST_BATCHES = 2
+# steady steps run under torch.profiler after the 16 (masks frozen): the
+# device's busy share of a step and the kernels that fill it
+PROFILE_STEPS = 2
+# phase 7b: one step on the card against the same step on the CPU; (model,
+# batch) with AlexNet's Dropout ratios set to 0 (the generators differ)
+STEP_NETS = (("alexnet", 8), ("cifar10_bn", 100))
+STEP_LOSS_REL, STEP_UPDATE_REL, STEP_BN_TOL = 1e-4, 1e-3, 1e-4
+# phase 7c: what the trained, pruned AlexNet must launch per forward
+TRAINED_LAUNCHES = {"sconv_fused": 4, "bsc_spmm": 3, "sconv_gc": 0}
+CLI_TRAIN_ITERS = 4
 # the GoogLeNet stem layers phase 4e prints side by side
 STEM_LAYERS = ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
                "conv2/3x3_reduce", "conv2/3x3", "conv2/norm2", "pool2/3x3_s2")
@@ -662,6 +719,404 @@ def _phase_cli(mods, tag):
     if any(launches.values()):
         raise SystemExit("the command line launched a hand kernel")
     print(f"cli phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
+
+
+def _train_select(name, key, leaf):
+    """examples/train_eval_sparse.py's pruning select: the weights of the
+    convs with 16 or more input channels per group and of the fc layers
+    (conv1 stays dense)."""
+    if key != "w":
+        return False
+    shp = np.shape(leaf)
+    return shp[2] >= 16 if len(shp) == 4 else len(shp) == 2
+
+
+def _xavier(specs):
+    """The specs with every weight filler set to xavier, as
+    examples/train_eval_sparse.py's ``--filler xavier``."""
+    import dataclasses
+
+    return [dataclasses.replace(sp, params={**sp.params, "weight_filler":
+                                            {"type": "xavier"}})
+            if "weight_filler" in sp.params else sp for sp in specs]
+
+
+def _zero_block_share(w, block):
+    """(share of all-zero blocks, block count) of a weight as the pruning
+    ranks it: a conv's per-offset (Cin, Cout) planes, an fc's matrix, each
+    zero-padded to whole ``block`` tiles."""
+    planes = w.reshape(-1, w.shape[-2], w.shape[-1])
+    n, rows, cols = planes.shape
+    bm, bk = block
+    padded = np.zeros((n, -(-rows // bm) * bm, -(-cols // bk) * bk),
+                      w.dtype)
+    padded[:, :rows, :cols] = planes
+    live = (padded.reshape(n, padded.shape[1] // bm, bm,
+                           padded.shape[2] // bk, bk) != 0).any(axis=(2, 4))
+    return float((~live).mean()), live.size
+
+
+def _step_against_cpu(model, batch, dev, tag):
+    """Phase 7b: one SGD step of ``model`` at ``batch`` on the card and on
+    the CPU from the same params (the Solvers' CPU init generators share
+    the seed) and batch, and the same step on the CPU in f64 as the
+    reference: the loss and the BatchNorm state held to STEP_LOSS_REL and
+    STEP_BN_TOL, each param's update to the larger of STEP_UPDATE_REL and
+    twice the CPU f32 update's distance from the f64 one. A conv bias that
+    feeds a BatchNorm has a zero gradient in exact arithmetic (the mean is
+    subtracted), so its update is rounding noise: it is held to max
+    |update| <= 1e-6 on both instead."""
+    import dataclasses
+
+    import torch
+
+    from caffe_escoin_tpu_torch.data.datasets import synthetic_source
+    from caffe_escoin_tpu_torch.engine import solvers
+    from caffe_escoin_tpu_torch.engine.solver import Solver
+    from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, params_to
+
+    build, shapes = ZOO[model]
+    specs = [dataclasses.replace(sp, params={**sp.params, "ratio": 0.0})
+             if sp.type == "Dropout" else sp
+             for sp in _xavier(build(include_loss=True, **(
+                 {"num_classes": TRAIN_CLASSES} if model == "alexnet"
+                 else {})))]
+    shapes = {"data": (batch,) + tuple(shapes["data"][1:]),
+              "label": (batch,)}
+    src = synthetic_source(shapes["data"], num_classes=TRAIN_CLASSES
+                           if model == "alexnet" else 10, seed=SEED + 3)
+    data = src()
+    # the convs whose output reaches a BatchNorm through pools only (a
+    # per-channel shift passes max and average pooling unchanged)
+    producer = {t: sp for sp in specs for t in sp.tops}
+    noise = set()
+    for sp in specs:
+        if sp.type == "BatchNorm":
+            src_sp = producer[sp.bottoms[0]]
+            while src_sp.type == "Pooling":
+                src_sp = producer[src_sp.bottoms[0]]
+            if src_sp.type in ("Convolution", "ConvolutionReLU"):
+                noise.add(src_sp.name)
+    runs, t = [], []  # the card's, the CPU's, the CPU's in f64
+    for where, dtype in ((dev, torch.float32), ("cpu", torch.float32),
+                         ("cpu", torch.float64)):
+        t0 = time.perf_counter()
+        sol = Solver(Net(specs, phase="train"), SolverConfig(
+            base_lr=0.01, momentum=0.9, weight_decay=5e-4), display=1,
+            seed=SEED, device=where)
+        sol.init(shapes)
+        feed = data
+        if dtype == torch.float64:  # the reference: the same step in f64
+            sol.params = params_to(sol.params, "cpu", dtype)
+            sol.state = solvers.init_state(sol.cfg, sol.params)
+            feed = {**data, "data": data["data"].astype(np.float64)}
+        before = {n: {k: v.detach().cpu().clone() for k, v in b.items()}
+                  for n, b in sol.params.items()}
+        logs = []
+        sol.step(iter([feed]), 1, log=logs.append)
+        loss = float(logs[-1].rsplit("loss = ", 1)[1])
+        runs.append((loss, before, params_to(sol.params, "cpu"),
+                     params_to(sol.net_state, "cpu")))
+        t.append(time.perf_counter() - t0)
+    (l_gpu, b_gpu, p_gpu, s_gpu), (l_cpu, b_cpu, p_cpu, s_cpu), \
+        (_, b_ref, p_ref, _) = runs
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    # each param: the card against the CPU, held to STEP_UPDATE_REL or to
+    # twice the CPU's own distance from the f64 step, whichever is larger
+    # (AlexNet b8's conv1 weight gradient sums 24200 products per element
+    # with much cancellation; the line prints the f32 updates' distances
+    # from the f64 one)
+    worst, noise_max, errs = None, 0.0, []
+    for name, blobs in p_cpu.items():
+        for k, w in blobs.items():
+            if not torch.equal(b_gpu[name][k], b_cpu[name][k]):
+                raise SystemExit(f"step {model}: {name}/{k} started from "
+                                 f"other params on the two devices")
+            d_cpu = w - b_cpu[name][k]
+            d_gpu = p_gpu[name][k] - b_gpu[name][k]
+            if name in noise and k == "b":
+                noise_max = max(noise_max, d_cpu.abs().max().item(),
+                                d_gpu.abs().max().item())
+                continue
+            d_ref = (p_ref[name][k] - b_ref[name][k]).double()
+            rel = ((d_gpu - d_cpu).norm() / d_cpu.norm()).item()
+            cpu_err = ((d_cpu.double() - d_ref).norm() / d_ref.norm()).item()
+            gpu_err = ((d_gpu.double() - d_ref).norm() / d_ref.norm()).item()
+            bound = max(STEP_UPDATE_REL, 2 * cpu_err)
+            errs.append((f"{name}/{k}", cpu_err, gpu_err))
+            if worst is None or rel / bound > worst[1] / worst[2]:
+                worst = (f"{name}/{k}", rel, bound, cpu_err, gpu_err)
+    bn_err = max(((s_gpu[n][k] - s_cpu[n][k]).abs().max()
+                  / s_cpu[n][k].abs().max().clamp_min(1e-30)).item()
+                 for n in s_cpu for k in s_cpu[n]) if s_cpu else 0.0
+    ok = (loss_rel <= STEP_LOSS_REL and worst[1] <= worst[2]
+          and bn_err <= STEP_BN_TOL and noise_max <= 1e-6)
+    print(f"train step {model} b{batch}, card against CPU, one SGD step: "
+          f"loss {l_gpu:.6g} / {l_cpu:.6g}, rel {loss_rel:.2e} (limit "
+          f"{STEP_LOSS_REL:.0e}); the param nearest its bound {worst[0]}: "
+          f"update rel L2 {worst[1]:.2e} (bound {worst[2]:.2e}; the CPU's "
+          f"f32 update {worst[3]:.2e} and the card's {worst[4]:.2e} from "
+          f"the f64 one); the f32 updates farthest from the f64 one, CPU "
+          f"and card: " + ", ".join(
+              f"{n} {c:.2e} {g:.2e}"
+              for n, c, g in sorted(errs, key=lambda e: -max(e[1:]))[:3])
+          + (f"; BatchNorm state rel max {bn_err:.2e} (limit "
+             f"{STEP_BN_TOL:.0e}); pre-BatchNorm conv bias updates max "
+             f"{noise_max:.1e} (limit 1e-6)" if s_cpu else "")
+          + f"; {Net.num_params(p_cpu)} params; wall card {t[0]:.1f} s, "
+          f"CPU {t[1]:.1f} s, CPU f64 {t[2]:.1f} s "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit(f"the card's {model} step differs from the CPU's")
+
+
+def _phase_train(mods, tag, results, alexnet_graph_ms):
+    """Phase 7: the training path on the card (f32, TF32 off), then the
+    trained, pruned AlexNet deployed on the kernel routes; see the module
+    docstring. Adds the deployment's launches to ``results``."""
+    import collections
+
+    import torch
+
+    from caffe_escoin_tpu_torch.data.datasets import synthetic_source
+    from caffe_escoin_tpu_torch.data.pipeline import PrefetchLoader
+    from caffe_escoin_tpu_torch.engine.context import (ConvMode,
+                                                       ExecutionPolicy)
+    from caffe_escoin_tpu_torch.engine.solver import Solver
+    from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
+    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
+    from caffe_escoin_tpu_torch.tools import cli
+    from caffe_escoin_tpu_torch.utils.benchmark import force_platform
+    from caffe_escoin_tpu_torch.utils.pruning import PruningSchedule
+
+    t_phase = time.perf_counter()
+    dev = force_platform("auto")  # the card, TF32 off
+    build, in_shapes = ZOO["alexnet"]
+    specs = _xavier(build(num_classes=TRAIN_CLASSES, include_loss=True))
+    shapes = {"data": (TRAIN_BATCH,) + tuple(in_shapes["data"][1:]),
+              "label": (TRAIN_BATCH,)}
+
+    # 7a. AlexNet b32 trained under the AGP block-pruning schedule
+    solver = Solver(Net(specs, phase="train"), SolverConfig(
+        base_lr=0.01, momentum=0.9, weight_decay=5e-4), display=1,
+        test_net=Net(specs, phase="test"), test_iters=TRAIN_TEST_BATCHES,
+        seed=SEED, device=dev)
+    solver.init(shapes)
+    solver.set_pruning_schedule(PruningSchedule(**TRAIN_SCHEDULE),
+                                select=_train_select)
+    print(f"train alexnet b{TRAIN_BATCH} {shapes['data'][1]}x"
+          f"{shapes['data'][2]}, {TRAIN_CLASSES} classes, f32, xavier "
+          f"fillers, SGD lr 0.01 momentum 0.9 weight decay 5e-4, "
+          f"{Net.num_params(solver.params)} params; schedule "
+          f"{TRAIN_SCHEDULE}, pruned: convs with cin >= 16 and the fcs "
+          f"{tag}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    src = synthetic_source(shapes["data"], num_classes=TRAIN_CLASSES,
+                           seed=SEED)
+    steps, losses = [], []  # (step ms, batch wait ms) of steady steps
+    held = torch.cuda.memory_allocated(dev)  # by the earlier phases
+    with PrefetchLoader(src, device=dev) as loader:
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batch = next(loader)  # the loader's wait stays off the events
+            wait_ms = (time.perf_counter() - t0) * 1e3
+            logs = []
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            solver.step(iter([batch]), 1, log=logs.append)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            loss = float(logs[-1].rsplit("loss = ", 1)[1])
+            losses.append(loss)
+            recomputed = solver.mask_update_s
+            if recomputed is None and i > 0:  # step 0: first launches
+                steps.append((ms, wait_ms))
+            print(f"train step {i}: loss {loss:.6g}, {ms:.3f} ms between "
+                  f"CUDA events around Solver.step, {wait_ms:.1f} ms host "
+                  f"wait for the loader's batch"
+                  + (f", masks recomputed ({logs[0].split(', ', 1)[1]}) in "
+                     f"{recomputed:.3f} s host" if recomputed is not None
+                     else ", masks unchanged") + f" {tag}")
+            if not np.isfinite(loss):
+                raise SystemExit(f"train step {i}: the loss is not finite")
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        prof_batches = [next(loader) for _ in range(PROFILE_STEPS)]
+    step_ms = [a for a, _ in steps]
+    ips = TRAIN_BATCH * len(steps) / (sum(step_ms) / 1e3)
+    ips_wall = TRAIN_BATCH * len(steps) / (sum(a + b for a, b in steps)
+                                           / 1e3)
+    print(f"train alexnet b{TRAIN_BATCH}: {ips:.1f} images/s over the "
+          f"{len(steps)} steps after the first that recomputed no mask "
+          f"(step mean {sum(step_ms) / len(steps):.3f} ms, min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}); {ips_wall:.1f} "
+          f"images/s with the waits for the loader (synthetic_source on "
+          f"one host thread); peak device memory of training "
+          f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB the "
+          f"earlier phases hold (max_memory_allocated); losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)} {tag}")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.step(iter(prof_batches), PROFILE_STEPS, log=lambda *_: None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / PROFILE_STEPS)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda kv: -kv[1])
+    busy_ms = sum(ms for _, ms in kernels)
+    print(f"train profile, {PROFILE_STEPS} steady steps under "
+          f"torch.profiler: {wall_ms:.3f} ms per step on the host clock, "
+          + (f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.0%}; "
+             f"{len(kernels)} kernel names); the largest: " + ", ".join(
+                 f"{k[:60]} {ms:.3f}" for k, ms in kernels[:6])
+             if busy_ms else "the profiler saw no device time")
+          + f" {tag}")
+    pruned = []
+    for name, blobs in solver.params.items():
+        mask = solver.param_masks[name]["w"]
+        if bool((mask == 1).all()):
+            continue
+        w = blobs["w"].detach().cpu().numpy()
+        if (w[mask.cpu().numpy() == 0] != 0).any():
+            raise SystemExit(f"train: {name} has a masked weight that is "
+                             f"not 0")
+        share, n = _zero_block_share(w, BLOCK)
+        pruned.append((name, share, n))
+        if abs(share - SPARSITY) > 1.0 / n:
+            raise SystemExit(f"train: {name} has {share:.4f} of its {n} "
+                             f"blocks zero, not {SPARSITY} within one block")
+    print("train masks: pruned weights exactly 0; zero 128x128 blocks "
+          + ", ".join(f"{n} {s:.4f} of {b}" for n, s, b in pruned)
+          + f" (limit {SPARSITY} +- one block) ok {tag}")
+    if [n for n, _, _ in pruned] != ["conv2", "conv3", "conv4", "conv5",
+                                     "fc6", "fc7", "fc8"]:
+        raise SystemExit(f"train: pruned {[n for n, _, _ in pruned]}")
+    test_src = synthetic_source(shapes["data"], num_classes=TRAIN_CLASSES,
+                                seed=SEED + 1)
+    t0 = time.perf_counter()
+    metrics = solver.test_all(iter([test_src() for _ in range(
+        TRAIN_TEST_BATCHES)]), log=lambda *_: None)
+    print(f"train test_all, {TRAIN_TEST_BATCHES} batches of "
+          f"{TRAIN_BATCH} (random labels: chance is 1e-3 top-1): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in sorted(metrics.items()))
+          + f", {time.perf_counter() - t0:.2f} s {tag}")
+    if not all(np.isfinite(v) for v in metrics.values()) or \
+            sorted(metrics) != ["accuracy", "accuracy_top5", "loss"]:
+        raise SystemExit(f"train test_all gave {metrics}")
+    trained = params_to(solver.params, "cpu")
+    del solver, loader
+    torch.cuda.empty_cache()
+
+    # 7b. one step on the card held to the same step on the CPU
+    for model, batch in STEP_NETS:
+        _step_against_cpu(model, batch, dev, tag)
+
+    # 7c. the trained weights deployed on the kernel routes
+    pol_s = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+                            compute_dtype=torch.bfloat16, cast_back=False,
+                            use_xla_sparse=False)
+    in_shape = {"data": shapes["data"]}
+    net = Net(build(num_classes=TRAIN_CLASSES), policy=pol_s)
+    net.init(torch.Generator().manual_seed(SEED), in_shape)
+    fnet, fparams = fuse_inference(net, trained, state=net.state0)
+    aligned = fnet.weight_align(fparams)
+    routes = fnet.routes(aligned, in_shape)
+    expect = collections.Counter(
+        ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
+    fwd = fnet.inference_fn(params_to(aligned, dev, torch.bfloat16),
+                            return_blobs=True)
+    fwd_d = Net(fnet.specs, policy=ExecutionPolicy()).inference_fn(
+        params_to(fparams, dev), return_blobs=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    inputs = [{"data": torch.randn(in_shape["data"], generator=gen,
+                                   device=dev)} for _ in range(N_INPUTS)]
+    for m in mods.values():
+        m.reset_counts()
+    outs = [fwd(x)["fc8"].float().clone() for x in inputs]
+    torch.cuda.synchronize()
+    launches = {k: m.launches for k, m in mods.items()}
+    print(f"deploy trained alexnet b{TRAIN_BATCH}: routes "
+          f"{dict(collections.Counter(routes.values()))}; launches over "
+          f"{N_INPUTS} forwards {launches} (expected {N_INPUTS} x "
+          f"{dict(expect)}) {tag}")
+    for name, n in launches.items():
+        if (n != N_INPUTS * expect[name]
+                or expect[name] != TRAINED_LAUNCHES[name]):
+            raise SystemExit(f"deploy: {name} launched {n} times; routes "
+                             f"name {expect[name]} per forward, expected "
+                             f"{TRAINED_LAUNCHES[name]}")
+        results[name]["launches"] += n
+    num = den = 0.0
+    for x, got in zip(inputs, outs):
+        ref = fwd_d(x)["fc8"]
+        if not torch.isfinite(got).all():
+            raise SystemExit("deploy: the logits are not finite")
+        num += (got - ref).pow(2).sum().item()
+        den += ref.pow(2).sum().item()
+    rel_l2 = (num / den) ** 0.5
+    graph_ms = _graph_ms(fwd, inputs, N_INPUTS)
+    ok = rel_l2 <= LOGITS_REL_L2
+    print(f"deploy trained alexnet fc8 logits vs the same weights dense f32:"
+          f" rel L2 {rel_l2:.3e} (limit {LOGITS_REL_L2:.0e}) "
+          f"{'ok' if ok else 'FAIL'}; forward as a CUDA graph "
+          f"{graph_ms:.3f} ms, phase 4's random-weight AlexNet row "
+          f"{alexnet_graph_ms:.3f} ms {tag}")
+    if not ok:
+        raise SystemExit("the trained sparse alexnet disagrees with dense "
+                         "f32")
+    del fwd, fwd_d, aligned, fparams, trained, outs, inputs
+    torch.cuda.empty_cache()
+
+    # 7d. the command line: train, then test on its snapshot
+    os.makedirs("build", exist_ok=True)
+    stem = os.path.join("build", "cli_alexnet")
+    common = ["--model", "alexnet", "--batch", str(TRAIN_BATCH),
+              "--num-classes", str(TRAIN_CLASSES)]
+    for m in mods.values():
+        m.reset_counts()
+    t0 = time.perf_counter()
+    rc, out = _run_entry(cli.main, ["train", *common, "--iterations",
+                                    str(CLI_TRAIN_ITERS), "--display", "1",
+                                    "--snapshot-prefix", stem],
+                         f"{stem}_train.log")
+    its = [ln.rsplit("loss = ", 1)[1] for ln in out.splitlines()
+           if ln.startswith("Iteration ")]
+    snap = f"{stem}_iter_{CLI_TRAIN_ITERS}.npz"
+    print(f"cli train alexnet b{TRAIN_BATCH}: losses {' '.join(its)}; "
+          f"{out.strip().splitlines()[-1]}; exit {rc}, "
+          f"{time.perf_counter() - t0:.1f} s {tag}")
+    if rc != 0 or len(its) != CLI_TRAIN_ITERS or not os.path.exists(snap) \
+            or not all(np.isfinite(float(v)) for v in its):
+        raise SystemExit(f"cli train exited {rc}")
+    t0 = time.perf_counter()
+    rc, out = _run_entry(cli.main, [
+        "test", *common, "--weights", snap, "--conv_mode", "3", "--sparsity",
+        str(SPARSITY), "--iterations", str(CLI_ITERS)], f"{stem}_test.log")
+    its = [ln.split("forward ")[1] for ln in out.splitlines()
+           if ln.startswith("iteration ")]
+    avg = [ln for ln in out.splitlines() if ln.startswith("average")]
+    print(f"cli test alexnet b{TRAIN_BATCH} on the cli snapshot, --conv_mode"
+          f" 3 --sparsity {SPARSITY}: forward per iteration "
+          f"{', '.join(its)}; {avg[0] if avg else '?'}; exit {rc}, "
+          f"{time.perf_counter() - t0:.1f} s {tag}")
+    if rc != 0 or len(its) != CLI_ITERS:
+        raise SystemExit(f"cli test on the trained snapshot exited {rc}")
+    launches = {k: m.launches for k, m in mods.items()}
+    print(f"cli train + test launches: {launches} (expected none: training "
+          f"runs dense, the command line's test the XBSP arms) {tag}")
+    if any(launches.values()):
+        raise SystemExit("cli train or test launched a hand kernel")
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
 
 
 def main() -> int:
@@ -1716,6 +2171,7 @@ def main() -> int:
     del fwds
 
     # ---- 5. times ---------------------------------------------------------
+    sparse_graph_ms = {}  # model -> the sparse forward as a CUDA graph
     for model, batch, layers, routes, arms, inputs, inputs_bf16 in e2e:
         ms = {arm: _time_ms(fn, inputs_bf16 if arm == "dense-bf16"
                             else inputs) for arm, fn in arms.items()}
@@ -1723,6 +2179,7 @@ def main() -> int:
                                                  N_INPUTS)
         ms["dense-bf16 as a CUDA graph"] = _graph_ms(arms["dense-bf16"],
                                                      inputs_bf16, N_INPUTS)
+        sparse_graph_ms[model] = ms["sparse as a CUDA graph"]
         print(f"time {model} b{batch}: " + ", ".join(
             f"{arm} {t:.3f} ms" for arm, t in ms.items()) + f" {tag}")
         per = _layer_split(layers, arms["sparse"], inputs[0])
@@ -1794,6 +2251,10 @@ def main() -> int:
     # ---- 6. the command line ---------------------------------------------
     torch.cuda.empty_cache()
     _phase_cli(mods, tag)
+
+    # ---- 7. training, then the trained weights on the kernels -------------
+    torch.cuda.empty_cache()
+    _phase_train(mods, tag, results, sparse_graph_ms["alexnet"])
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

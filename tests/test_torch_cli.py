@@ -114,7 +114,7 @@ def test_device_query_test_and_time_run(model, capsys):
     assert any(ln.startswith("[backward]") for ln in lines)
 
 
-SUBCOMMANDS = ["device_query", "test", "time", "export_prototxt",
+SUBCOMMANDS = ["device_query", "test", "time", "train", "export_prototxt",
                "export_caffemodel", "extract_features"]
 
 

@@ -925,3 +925,58 @@ def test_layerwise_backward_times_on_cuda(dev):
     assert rows["cuda"] == rows["cpu"]
     assert rows["cuda"] >= {"conv1", "ip1", "ip2", "pool1"}
     assert not rows["cuda"] & {"conv2", "conv3"}
+
+
+def test_lenet_solver_step_on_cuda_matches_cpu(dev):
+    """One lenet Solver step (SGD, momentum, weight decay) on the card
+    against the same step on the CPU from the same params: the loss within
+    1e-5 relative, each param's update within 1e-3 relative L2 (cuDNN and
+    the CPU sum the convs in another order; TF32 is off)."""
+    from caffe_escoin_tpu_torch.engine.solver import Solver
+    from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, params_to
+
+    shapes = {"data": (8, 28, 28, 1), "label": (8,)}
+    rng = np.random.default_rng(0)
+    batch = {"data": rng.standard_normal(shapes["data"]).astype(np.float32),
+             "label": rng.integers(0, 10, 8).astype(np.int32)}
+    sols = {}
+    for where in ("cpu", dev):
+        sol = Solver(Net(ZOO["lenet"][0](include_loss=True), phase="train"),
+                     SolverConfig(base_lr=0.01, momentum=0.9,
+                                  weight_decay=5e-4), display=0,
+                     device=where)
+        sol.init(shapes)  # the same CPU generator seed on both
+        before = params_to(sol.params, "cpu")
+        before = {n: {k: v.clone() for k, v in b.items()}
+                  for n, b in before.items()}
+        sol.step(iter([batch]), 1, log=lambda *_: None)
+        sols[torch.device(where).type] = (sol, before)
+    (cpu, b_cpu), (gpu, b_gpu) = sols["cpu"], sols["cuda"]
+    assert gpu.params["conv1"]["w"].is_cuda
+    np.testing.assert_allclose(gpu._losses[-1], cpu._losses[-1], rtol=1e-5)
+    for name, blobs in cpu.params.items():
+        for k, w in blobs.items():
+            assert torch.equal(b_gpu[name][k], b_cpu[name][k])
+            d_cpu = w - b_cpu[name][k]
+            d_gpu = gpu.params[name][k].cpu() - b_gpu[name][k]
+            rel = (d_gpu - d_cpu).norm() / d_cpu.norm()
+            assert rel <= 1e-3, (name, k, float(rel))
+
+
+def test_dropout_on_a_cuda_generator(dev):
+    """The mask is drawn on the card from its generator: the same seed
+    gives the same mask, survivors are x/(1-p), and the zero share is
+    within a binomial 5-sigma bound."""
+    from caffe_escoin_tpu_torch.ops import activations as act
+
+    x = torch.randn((256, 1024), device=dev)
+    outs = [act.dropout(x, 0.5, train=True, generator=torch.Generator(
+        device=dev).manual_seed(s)) for s in (3, 3, 4)]
+    assert outs[0].is_cuda and torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+    kept = outs[0] != 0
+    assert torch.equal(outs[0][kept], x[kept] / 0.5)
+    share = 1.0 - kept.float().mean().item()
+    assert abs(share - 0.5) <= 5 * (0.25 / x.numel()) ** 0.5

@@ -37,15 +37,17 @@ SCRIPT = textwrap.dedent("""
 """)
 
 # the modules that carry their own copies of JAX-package code (numpy-only
-# helpers, spec builders, the model I/O and the command line the port may
-# not import)
+# helpers, the model specs, the model I/O, the command line and the
+# training loop the port may not import)
 COPIES = ("ops.s2d", "ops.wpack", "ops.norm", "ops.structural",
           "ops.activations", "ops.losses", "utils.pruning",
           "models.alexnet", "models.caffenet", "models.cifar",
           "models.googlenet", "models.lenet", "models.resnet", "models.vgg",
           "nn.serialize", "tools.prototxt", "tools.caffemodel", "tools.draw",
           "tools.cli", "tools.parity", "data.datasets", "engine.checkpoint",
-          "utils.timing", "utils.benchmark")
+          "utils.timing", "utils.benchmark", "engine.lr_policies",
+          "engine.solvers", "engine.solver", "utils.gradient_check",
+          "data.pipeline", "nn.convert")
 
 
 def test_port_imports_no_jax():

@@ -189,6 +189,6 @@ def test_dropout_is_identity_at_inference(ratio):
     out = act.dropout(torch.from_numpy(x), ratio)
     np.testing.assert_array_equal(out.numpy(), np.asarray(
         jact.dropout(jnp.asarray(x), ratio)))
-    if ratio:
-        with pytest.raises(NotImplementedError, match="training port"):
+    if ratio:  # training needs a generator, as the JAX op needs an rng key
+        with pytest.raises(ValueError, match="generator"):
             act.dropout(torch.from_numpy(x), ratio, train=True)
