@@ -12,7 +12,9 @@ carried over rather than shared.
 
 Device rule: every entry takes its device from its tensors. On a CUDA
 tensor a kernel entry launches its kernel or raises; on a CPU tensor it runs
-the kernel's plain PyTorch version. Nothing probes for a card.
+the kernel's plain PyTorch version. Nothing probes for a card, except where
+no tensor names a device: a data layer puts its tops on its net's device,
+and a net's device None means the card (nn/data_layers.py).
 """
 
 __version__ = "0.1.0"

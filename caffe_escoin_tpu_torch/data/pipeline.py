@@ -14,9 +14,11 @@ device work.
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Optional
+import time
+from typing import Callable, Deque, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -28,20 +30,31 @@ class PrefetchLoader:
     ``source()`` -> dict of numpy arrays (one batch); ``transform`` runs on
     the loader thread. ``device`` None yields the numpy dicts; a device
     yields tensors on it. An exception of the thread is raised by the next
-    ``__next__``; a finished source ends the iteration."""
+    ``__next__``; a finished source ends the iteration. With a
+    ``timeout`` (seconds), a ``__next__`` that gets no batch in that time
+    raises TimeoutError, so that a stalled source fails its caller instead
+    of hanging it. ``waits`` holds the host seconds each of the last
+    ``WAITS_KEPT`` ``__next__`` calls waited for its batch (the queue ran
+    dry when one is long)."""
+
+    WAITS_KEPT = 4096
 
     PREFETCH_COUNT = 4  # the reference's per data layer (base_data_layer.hpp)
 
     def __init__(self, source: Callable[[], Dict[str, np.ndarray]],
                  *, transform: Optional[Callable] = None,
                  prefetch: int = PREFETCH_COUNT,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 timeout: Optional[float] = None):
         self._source = source
+        self._timeout = timeout
         self._transform = transform
         self._device = None if device is None else torch.device(device)
         self._queue: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
+        self.waits: Deque[float] = collections.deque(
+            maxlen=self.WAITS_KEPT)
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
@@ -69,6 +82,8 @@ class PrefetchLoader:
         return self
 
     def __next__(self) -> Dict:
+        t0 = time.perf_counter()
+        waited = 0.0
         while True:
             if self._error is not None:
                 raise self._error
@@ -77,7 +92,12 @@ class PrefetchLoader:
             except queue.Empty:
                 if not self._thread.is_alive() and self._error is None:
                     raise StopIteration
+                waited += 1.0
+                if self._timeout is not None and waited >= self._timeout:
+                    raise TimeoutError(f"PrefetchLoader: no batch within "
+                                       f"{self._timeout} s")
                 continue
+            self.waits.append(time.perf_counter() - t0)
             if self._device is None:
                 return batch
             return {k: v.to(self._device, non_blocking=True)

@@ -4,9 +4,10 @@ An explicit, per-net (or per-layer) object instead of Caffe's global
 ``conv_mode`` singleton. The port carries the fields its executors read,
 with the JAX defaults: ``use_xla_sparse``, ``xbsp_arm``, ``autotune`` and
 ``autotune_cache`` select the XBSP arms (kernels/xla_block_sparse.py) and
-their measured choice (engine/autotune.py). Pallas interpret, the Pallas
-SpMM tile and the native CPU route of the JAX policy have no counterpart
-here, so their switches are absent.
+their measured choice (engine/autotune.py), and ``native_cpu`` the host
+C++ direct conv on CPU tensors (data/native.py). Pallas interpret and the
+Pallas SpMM tile of the JAX policy have no counterpart here, so their
+switches are absent.
 """
 
 from __future__ import annotations
@@ -75,6 +76,13 @@ class ExecutionPolicy:
     candidate arms per (shape, pattern) on the device and caches the
     winner (engine/autotune.py), in ``autotune_cache`` when it names a
     JSON file.
+
+    ``native_cpu`` runs a stride-1 (or a strided 1x1) SCONV conv on a CPU
+    tensor through the host C++ blocked direct conv, ``csrc/sconv.cc``'s
+    ``bsc_sconv`` (data/native.py), where the XBSP branch would run and
+    the dilation is 1: the reference's CPU product path, as the JAX
+    package's ``native_cpu`` runs it on its CPU backend. On a CUDA tensor
+    the flag changes nothing, as on the JAX package's TPU.
     """
 
     conv_mode: ConvMode = ConvMode.LOWERED_GEMM
@@ -90,6 +98,7 @@ class ExecutionPolicy:
     xbsp_arm: str = "auto"
     autotune: bool = False
     autotune_cache: str = ""
+    native_cpu: bool = False
 
 
 def resolve_mxu_dtype(mxu_dtype: str, device) -> str:

@@ -15,7 +15,9 @@ SIGINT -> stop (snapshot_after_train honored), SIGHUP -> snapshot.
 Device: ``device=None`` runs on the card (``force_platform("auto")``) and
 raises where there is none; the CPU only when the caller asks for it
 (``device="cpu"``). One CPU generator seeded with ``seed`` initializes the
-params, one on the device draws Dropout's masks.
+params, one on the device draws Dropout's masks. The Solver sets the
+device of its nets, so that a net with a data layer (nn/data_layers.py)
+feeds itself on it; ``step`` then takes empty dicts (``{}``) as batches.
 """
 
 from __future__ import annotations
@@ -99,6 +101,10 @@ class Solver:
         self.device = _resolve_device(device)
         self.net = net
         self.test_net = test_net
+        # the data layers of either net put their tops on this device
+        for n in (net, test_net):
+            if n is not None:
+                n.device = self.device
         self.test_data_iter = test_data_iter
         self.cfg = cfg
         self.snapshot_prefix = snapshot_prefix

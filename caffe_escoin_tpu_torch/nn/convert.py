@@ -20,8 +20,11 @@ def params_from_jax(params: Dict[str, Any],
                     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The JAX ``Net``'s params and BatchNorm state (layer name -> dict of
     arrays, e.g. numpy) as the port's (CPU tensors, names unchanged), so
-    both nets built from the same specs compute the same function. Works
-    on anything ``np.asarray`` takes, so it needs no jax import."""
+    both nets built from the same specs compute the same function: the
+    layers keep the JAX names and layouts of their params (conv and
+    Deconvolution ``w`` [KH, KW, Cin, Cout] and ``b``; the recurrent
+    ``wx``, ``wh``, ``b``; Embed's and Parameter's ``w``; ...). Works on
+    anything ``np.asarray`` takes, so it needs no jax import."""
     return _to_torch(params), _to_torch(state or {})
 
 

@@ -215,7 +215,8 @@ def fuse_inference(net: Net, params: Dict[str, Any],
     finals = _final_tops(specs)
     specs, new_params = _fold_affine(net, specs, dict(params), state, finals)
     specs = _fold_residual(specs, finals)
-    fused = Net(specs, policy=net.policy, phase=net.phase)
+    fused = Net(specs, policy=net.policy, phase=net.phase,
+                device=net.device)
     names = {s.name for s in specs}
     # carry the state of BatchNorm layers that did not fold
     fused.state0 = {k: v for k, v in state.items() if k in names}
@@ -410,7 +411,8 @@ def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
             s = dataclasses.replace(s, params=dict(s.params, pack_in=r_in))
         new_specs.append(s)
 
-    out = Net(new_specs, policy=net.policy, phase=net.phase)
+    out = Net(new_specs, policy=net.policy, phase=net.phase,
+              device=net.device)
     out.state0 = net.state0
     out.blob_shapes = {
         b: ((shp[0], shp[1], shp[2] // packed[b], shp[3] * packed[b])
@@ -485,7 +487,8 @@ def fold_stem_s2d(net: Net, params: Dict[str, Any]
         n_folded += 1
     if not n_folded:
         return net, params
-    out = Net(out_specs, policy=net.policy, phase=net.phase)
+    out = Net(out_specs, policy=net.policy, phase=net.phase,
+              device=net.device)
     out.state0 = net.state0
     out.blob_shapes = dict(net.blob_shapes)
     return out, new_params

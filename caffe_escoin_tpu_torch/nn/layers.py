@@ -1,19 +1,20 @@
 """The layers (port of ``caffe_escoin_tpu/nn/layers.py``: Input, the
 convolutions (Convolution, ConvolutionReLU, EscConvolution), InnerProduct,
 Pooling, the activations, Dropout, Softmax, BatchNorm, Scale, Bias, MVN,
-LRN, the structural layers, DummyData, Accuracy and the seven losses).
-Dropout and BatchNorm have a training forward (``train=True``, which
-``Net.forward`` passes them): Dropout draws its mask from a generator, and
-BatchNorm normalizes by the batch statistics and returns its new moving
-averages.
+LRN, the structural layers, DummyData, Accuracy, the seven losses,
+Deconvolution, SPP, Im2col, RNN, LSTM, LSTMUnit, Embed, BatchReindex,
+Filter, Parameter and Python; the data layers are in nn/data_layers.py).
+Dropout, stochastic Pooling and BatchNorm have a training forward
+(``train=True``, which ``Net.forward`` passes them): Dropout and stochastic
+pooling draw from a generator, and BatchNorm normalizes by the batch
+statistics and returns its new moving averages.
 Convolution and InnerProduct carry the sparse machinery (weight_align ->
 AlignedConvWeight -> mode dispatch) and name the kernel route they take
 (``route``). Convolution, Pooling and LRN also run on the W-pair packed
 layout that nn/fuse.pack_narrow_chains marks, and Convolution on the
-space-to-depth layout that nn/fuse.fold_stem_s2d gives a stem. The rest
-are thin. ``category`` is the timing bucket (utils/timing.py). The other
-registered types of the JAX package (Deconvolution, SPP, Im2col, the
-recurrent layers, Embed, BatchReindex, Filter, Parameter, Python) wait.
+space-to-depth layout that nn/fuse.fold_stem_s2d gives a stem; a
+Convolution of another spatial rank (1-D, 3-D) runs dense. The rest are
+thin. ``category`` is the timing bucket (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -30,10 +31,12 @@ from caffe_escoin_tpu_torch.nn.fillers import fill
 from caffe_escoin_tpu_torch.nn.net import Layer, register_layer
 from caffe_escoin_tpu_torch.ops import activations as act
 from caffe_escoin_tpu_torch.ops import conv as conv_ops
+from caffe_escoin_tpu_torch.ops import deconv as deconv_ops
 from caffe_escoin_tpu_torch.ops import linear as linear_ops
 from caffe_escoin_tpu_torch.ops import losses as loss_ops
 from caffe_escoin_tpu_torch.ops import norm as norm_ops
 from caffe_escoin_tpu_torch.ops import pool as pool_ops
+from caffe_escoin_tpu_torch.ops import recurrent as rec_ops
 from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
 from caffe_escoin_tpu_torch.ops import structural as struct_ops
 from caffe_escoin_tpu_torch.ops import wpack
@@ -47,6 +50,19 @@ def _pair(v):
             return (v[0], v[0])
         return tuple(v)
     return (v, v)
+
+
+def _ntuple(v, n):
+    """Caffe's repeated-field rule: a scalar or a 1-list applies to every
+    spatial dim, else one entry per dim."""
+    if isinstance(v, (tuple, list)):
+        t = tuple(v)
+        if len(t) == 1:
+            return t * n
+        if len(t) != n:
+            raise ValueError(f"expected {n} spatial values, got {t}")
+        return t
+    return (v,) * n
 
 
 def _pack(p):
@@ -92,9 +108,18 @@ class ConvolutionLayer(Layer):
     nn/fuse.fold_stem_s2d: the conv runs on ``ops/s2d.s2d_input`` of its
     input, and its kernel, stride and pad describe the remapped kernel).
     The params stay logical: a packed conv repacks its weight when it
-    aligns it, or per call on the dense path."""
+    aligns it, or per call on the dense path. An input of another rank
+    than 4, [N, *spatial, C] with 1 or 3 spatial dims, runs the dense N-D
+    conv (``ops.conv.convnd_dense``; sparse execution is 2-D only, as in
+    the reference)."""
 
     category = "conv"
+
+    def _nd_conf(self, in_shape):
+        """(kernel, stride, pad, dilation) of an N-D conv of this input."""
+        n = len(in_shape) - 2
+        return tuple(_ntuple(self.p.get(k, d), n) for k, d in (
+            ("kernel", 3), ("stride", 1), ("pad", 0), ("dilation", 1)))
 
     def _in_shape(self, in_shape):
         """The shape of the input the conv runs on: the space-to-depth grid
@@ -134,7 +159,14 @@ class ConvolutionLayer(Layer):
         return (sh, s_p), (ph, pl), (1, 1)
 
     def init_params(self, gen, in_shapes):
-        c = self._conf(self._in_shape(in_shapes[0]))
+        if len(in_shapes[0]) != 4:
+            kernel = self._nd_conf(in_shapes[0])[0]
+            c = dict(kernel=kernel, cin=in_shapes[0][-1],
+                     groups=self.p.get("group", 1),
+                     cout=self.p["num_output"],
+                     bias=self.p.get("bias_term", True))
+        else:
+            c = self._conf(self._in_shape(in_shapes[0]))
         cin_g = c["cin"] // c["groups"]
         fan_in = math.prod(c["kernel"]) * cin_g
         params = {"w": fill(gen, c["kernel"] + (cin_g, c["cout"]),
@@ -146,6 +178,12 @@ class ConvolutionLayer(Layer):
         return params
 
     def out_shapes(self, in_shapes):
+        if len(in_shapes[0]) != 4:
+            conf = self._nd_conf(in_shapes[0])
+            spatial = tuple(conv_ops._out_spatial(s, k, st, p, d)
+                            for s, k, st, p, d in zip(in_shapes[0][1:-1],
+                                                      *conf))
+            return [(in_shapes[0][0], *spatial, self.p["num_output"])]
         in_shape = self._in_shape(in_shapes[0])
         c = self._conf(in_shape)
         r_in, r_out = _pack(self.p)
@@ -164,6 +202,8 @@ class ConvolutionLayer(Layer):
         structure."""
         if isinstance(params, AlignedConvWeight):
             return params
+        if params["w"].ndim != 4:
+            return params  # N-D: dense only, as in the reference
         r_in, r_out = _pack(self.p)
         if r_in == 1 and r_out == 1:
             return weight_align(params["w"], params.get("b"),
@@ -203,6 +243,16 @@ class ConvolutionLayer(Layer):
             params = _cast(params, cd)
             if residual is not None:
                 residual = residual.to(cd)
+        if x.dim() != 4:
+            if residual is not None:
+                raise ValueError("fuse_add is 2-D only")
+            _, stride, pad, dil = self._nd_conf(x.shape)
+            out = conv_ops.convnd_dense(
+                x, params["w"], params.get("b"), stride=stride, padding=pad,
+                dilation=dil, groups=self.p.get("group", 1), relu=fuse_relu)
+            if cd is not None and self.policy.cast_back:
+                out = out.to(in_dtype)
+            return [out]
         if self.p.get("s2d_r"):
             x = s2d_ops.s2d_input(x, self.p["s2d_r"],
                                   _pair(self.p["s2d_kernel"]),
@@ -332,9 +382,15 @@ class InnerProductLayer(Layer):
 
 @register_layer("Pooling")
 class PoolingLayer(Layer):
-    """Max, average and global pooling. ``pack_in``/``pack_out`` (set by
-    nn/fuse.pack_narrow_chains) make it pool between W-pair packed layouts
-    (ops/wpack.py), so packed chains flow through it."""
+    """Max, average, stochastic and global pooling. ``pack_in``/``pack_out``
+    (set by nn/fuse.pack_narrow_chains) make it pool between W-pair packed
+    layouts (ops/wpack.py), so packed chains flow through it. Stochastic
+    pooling samples in training from the generator ``Net.forward`` passes,
+    and takes the weighted average otherwise."""
+
+    def __init__(self, spec, policy):
+        super().__init__(spec, policy)
+        self.uses_generator = self.p.get("mode") == "stochastic"
 
     def _args(self):
         p = self.p
@@ -355,11 +411,16 @@ class PoolingLayer(Layer):
                                           a["padding"][0], a["ceil_mode"]),
                  wo // r_out, c // r_in * r_out)]
 
-    def forward(self, params, inputs, state=None):
+    def forward(self, params, inputs, state=None, *, train=False,
+                generator=None):
         (x,) = inputs
         if self.p.get("global_pooling", False):
             return [pool_ops.pool2d(x, (1, 1), mode=self.p.get("mode", "avg"),
-                                    global_pool=True)]
+                                    global_pool=True, train=train,
+                                    generator=generator)]
+        if self.uses_generator:
+            return [pool_ops.pool2d(x, **self._args(), train=train,
+                                    generator=generator)]
         r_in, r_out = _pack(self.p)
         if r_in > 1 or r_out > 1:
             return [pool_ops.pool2d_packed(x, **self._args(), r_in=r_in,
@@ -776,3 +837,222 @@ class DummyDataLayer(Layer):
 
     def out_shapes(self, in_shapes):
         return [tuple(self.p["shape"])]
+
+
+@register_layer("Deconvolution")
+class DeconvolutionLayer(Layer):
+    """Transposed conv (deconv_layer.cpp), ``ops.deconv.deconv2d``. The
+    weight is [KH, KW, Cin, Cout] (the `.caffemodel` blob [Cin, Cout, KH,
+    KW], tools/caffemodel.py). The JAX layer ignores ``group``; this one
+    raises on a group other than 1 rather than compute another function."""
+
+    category = "conv"
+
+    def __init__(self, spec, policy):
+        super().__init__(spec, policy)
+        if self.p.get("group", 1) != 1:
+            raise ValueError(f"{spec.name}: Deconvolution with group "
+                             f"{self.p['group']} is not supported")
+
+    def _geometry(self):
+        p = self.p
+        return (_pair(p.get("kernel", 3)), _pair(p.get("stride", 1)),
+                _pair(p.get("pad", 0)), _pair(p.get("dilation", 1)))
+
+    def init_params(self, gen, in_shapes):
+        (kh, kw), _, _, _ = self._geometry()
+        cin = in_shapes[0][-1]
+        params = {"w": fill(gen, (kh, kw, cin, self.p["num_output"]),
+                            self.p.get("weight_filler", {"type": "xavier"}),
+                            fan_in=kh * kw * cin)}
+        if self.p.get("bias_term", True):
+            params["b"] = fill(gen, (self.p["num_output"],),
+                               self.p.get("bias_filler", {"type": "constant"}))
+        return params
+
+    def out_shapes(self, in_shapes):
+        n, h, w, _ = in_shapes[0]
+        kernel, stride, pad, dil = self._geometry()
+        ho, wo = ((s - 1) * st + d * (k - 1) + 1 - 2 * p for s, k, st, p, d
+                  in zip((h, w), kernel, stride, pad, dil))
+        return [(n, ho, wo, self.p["num_output"])]
+
+    def forward(self, params, inputs, state=None):
+        _, stride, pad, dil = self._geometry()
+        return [deconv_ops.deconv2d(inputs[0], params["w"], params.get("b"),
+                                    stride=stride, padding=pad,
+                                    dilation=dil)]
+
+
+@register_layer("SPP")
+class SPPLayer(_MetaShapes, Layer):
+    """Spatial pyramid pooling (spp_layer.cpp), ``ops.pool.spp``."""
+
+    def forward(self, params, inputs, state=None):
+        return [pool_ops.spp(inputs[0], self.p.get("pyramid_height", 3),
+                             mode=self.p.get("mode", "max"))]
+
+
+@register_layer("Im2col")
+class Im2colLayer(_MetaShapes, Layer):
+    """The lowering as a layer (im2col_layer.cpp): [N, Ho, Wo, KH*KW*C] in
+    (kh, kw, c) column order, ``ops.conv.im2col``."""
+
+    def forward(self, params, inputs, state=None):
+        p = self.p
+        cols, _ = conv_ops.im2col(inputs[0], _pair(p.get("kernel", 3)),
+                                  stride=_pair(p.get("stride", 1)),
+                                  padding=_pair(p.get("pad", 0)),
+                                  dilation=_pair(p.get("dilation", 1)))
+        return [cols]
+
+
+class _RecurrentLayer(Layer):
+    """Shared by RNN and LSTM: bottoms x [T, N, D] and cont [T, N]; params
+    wx [D, G*H], wh [H, G*H], b [G*H] with G gates."""
+
+    gates = 1
+
+    def init_params(self, gen, in_shapes):
+        d, h = in_shapes[0][-1], self.p["num_output"]
+        g = self.gates * h
+        wf = self.p.get("weight_filler", {"type": "xavier"})
+        return {"wx": fill(gen, (d, g), wf, fan_in=d),
+                "wh": fill(gen, (h, g), wf, fan_in=h),
+                "b": fill(gen, (g,), self.p.get("bias_filler",
+                                                {"type": "constant"}))}
+
+    def out_shapes(self, in_shapes):
+        t, n, _ = in_shapes[0]
+        return [(t, n, self.p["num_output"])]
+
+
+@register_layer("RNN")
+class RNNLayer(_RecurrentLayer):
+    """Caffe's RNN (rnn_layer.cpp), ``ops.recurrent.rnn_forward``."""
+
+    def forward(self, params, inputs, state=None):
+        x, cont = inputs
+        return [rec_ops.rnn_forward(x, cont, params["wx"], params["wh"],
+                                    params["b"])]
+
+
+@register_layer("LSTM")
+class LSTMLayer(_RecurrentLayer):
+    """Caffe's LSTM (lstm_layer.cpp), gate order i, f, o, g; the top is the
+    hidden sequence."""
+
+    gates = 4
+
+    def forward(self, params, inputs, state=None):
+        x, cont = inputs
+        hs, _ = rec_ops.lstm_forward(x, cont, params["wx"], params["wh"],
+                                     params["b"])
+        return [hs]
+
+
+@register_layer("LSTMUnit")
+class LSTMUnitLayer(Layer):
+    """One LSTM cell step (lstm_unit_layer.cpp): bottoms c_prev [N, H],
+    gate pre-activations [N, 4H] (order i, f, o, g) and cont [N]; tops
+    (c, h). cont 0 resets the cell."""
+
+    def forward(self, params, inputs, state=None):
+        c_prev, gates, cont = inputs
+        c_prev = c_prev * cont.reshape(-1, 1).to(gates.dtype)
+        return list(rec_ops.lstm_step(c_prev, gates))
+
+    def out_shapes(self, in_shapes):
+        n, four_h = in_shapes[1]
+        return [(n, four_h // 4), (n, four_h // 4)]
+
+
+@register_layer("Embed")
+class EmbedLayer(Layer):
+    """Embedding lookup (embed_layer.cpp): integer-valued indices ->
+    rows of w [input_dim, num_output]."""
+
+    def init_params(self, gen, in_shapes):
+        return {"w": fill(gen, (self.p["input_dim"], self.p["num_output"]),
+                          self.p.get("weight_filler", {"type": "xavier"}),
+                          fan_in=self.p["input_dim"])}
+
+    def out_shapes(self, in_shapes):
+        return [tuple(in_shapes[0]) + (self.p["num_output"],)]
+
+    def forward(self, params, inputs, state=None):
+        return [params["w"][inputs[0].long()]]
+
+
+@register_layer("BatchReindex")
+class BatchReindexLayer(Layer):
+    """Gathers batch items by an index blob (batch_reindex_layer.cpp)."""
+
+    def out_shapes(self, in_shapes):
+        return [tuple(in_shapes[1][:1]) + tuple(in_shapes[0][1:])]
+
+    def forward(self, params, inputs, state=None):
+        x, idx = inputs
+        return [x[idx.long()]]
+
+
+@register_layer("Filter")
+class FilterLayer(Layer):
+    """Keeps the batch items whose selector (the last bottom) is nonzero
+    (filter_layer.cpp): one top per other bottom, holding only the kept
+    items, then the selector mask (1.0 kept, 0.0 dropped) over the whole
+    batch. The JAX layer cannot change a shape under jit, so it returns
+    the batch with the dropped items zeroed; here the output is Caffe's,
+    whose batch size depends on the data: ``out_shapes`` gives the input's
+    (an upper bound), and a net with Filter runs eagerly."""
+
+    graph_safe = False
+
+    def out_shapes(self, in_shapes):
+        return [tuple(s) for s in in_shapes[:-1]] + [tuple(in_shapes[-1][:1])]
+
+    def forward(self, params, inputs, state=None):
+        *xs, selector = inputs
+        keep = selector.reshape(selector.shape[0], -1)[:, 0] != 0
+        return [x[keep] for x in xs] + [keep.to(xs[0].dtype)]
+
+
+@register_layer("Parameter")
+class ParameterLayer(Layer):
+    """Emits a learnable blob of ``shape`` (parameter_layer.cpp)."""
+
+    def init_params(self, gen, in_shapes):
+        return {"w": fill(gen, tuple(self.p["shape"]),
+                          self.p.get("filler", {"type": "constant"}))}
+
+    def out_shapes(self, in_shapes):
+        return [tuple(self.p["shape"])]
+
+    def forward(self, params, inputs, state=None):
+        return [params["w"]]
+
+
+@register_layer("Python")
+class PythonLayer(Layer):
+    """A user's layer class, resolved when the Net is built: the reference's
+    PythonLayer (`include/caffe/layers/python_layer.hpp`, prototxt
+    ``python_param {module, layer, param_str}``). The class
+    ``<module>.<layer>`` must subclass ``caffe_escoin_tpu_torch.nn.Layer``;
+    its instance takes this layer's place (``__new__`` returns it), so its
+    own init_params, forward and out_shapes run. ``param_str`` reaches it
+    as ``spec.params["param_str"]``."""
+
+    def __new__(cls, spec, policy):
+        import importlib
+
+        module = spec.params.get("module")
+        lname = spec.params.get("layer")
+        if not module or not lname:
+            raise ValueError(
+                f"Python layer {spec.name!r} needs python_param "
+                f"module/layer (got module={module!r}, layer={lname!r})")
+        target = getattr(importlib.import_module(module), lname)
+        if not (isinstance(target, type) and issubclass(target, Layer)):
+            raise TypeError(f"{module}.{lname} must subclass "
+                            f"caffe_escoin_tpu_torch.nn.Layer")
+        return target(spec, policy)

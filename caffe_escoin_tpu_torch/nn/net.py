@@ -9,6 +9,12 @@ pass through host-side transforms (pruning, ``fuse_inference``,
 BatchNorm moving statistics live in a separate ``state`` dict, which a
 training forward returns updated (``return_state=True``); Dropout's masks
 come from the ``generator`` it is given.
+
+A data layer (nn/data_layers.py) has no bottom to take a device from, so
+its tops land on the net's ``device``: None means the card (an error
+without one), and tests pass ``"cpu"``. Such a net, and one with a layer
+whose output shape depends on the data (Filter), runs eagerly:
+``inference_fn(cuda_graph=True)`` refuses it (``Layer.graph_safe``).
 """
 
 from __future__ import annotations
@@ -65,6 +71,13 @@ class Layer(torch.nn.Module):
     has_state = False
     # Dropout: in training, forward takes train=True and the generator
     uses_generator = False
+    # False for a layer a CUDA graph must not capture: host I/O at forward
+    # time (the data layers) or an output shape that depends on the data
+    graph_safe = True
+    # set by Net: the net's phase ("train"/"test") and device (None: the
+    # card), which the data layers read
+    net_phase: Optional[str] = None
+    device: Optional[torch.device] = None
 
     def __init__(self, spec: LayerSpec, policy: ExecutionPolicy):
         super().__init__()
@@ -114,7 +127,7 @@ class Net(torch.nn.Module):
 
     def __init__(self, specs: Sequence[LayerSpec], *,
                  policy: Optional[ExecutionPolicy] = None,
-                 phase: str = "test"):
+                 phase: str = "test", device=None):
         super().__init__()
         self.policy = policy or ExecutionPolicy()
         self.phase = phase
@@ -124,11 +137,32 @@ class Net(torch.nn.Module):
             if s.type not in LAYER_REGISTRY:
                 raise KeyError(f"layer type {s.type!r} not registered "
                                f"(known: {sorted(LAYER_REGISTRY)})")
-            layers.append(LAYER_REGISTRY[s.type](s, self.policy))
+            layer = LAYER_REGISTRY[s.type](s, self.policy)
+            layer.net_phase = phase
+            layers.append(layer)
         self.layers = torch.nn.ModuleList(layers)
+        self.device = device
         self.state0: Dict[str, Any] = {}
         # blob name -> shape, set by init and carried by the graph passes
         self.blob_shapes: Dict[str, Tuple[int, ...]] = {}
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """Where the data layers put their tops (None: the card)."""
+        return self._device
+
+    @device.setter
+    def device(self, device):
+        self._device = None if device is None else torch.device(device)
+        for layer in self.layers:
+            layer.device = self._device
+
+    def close(self):
+        """Stop the loader threads of the data layers (a net without data
+        layers has none); a later forward starts them again."""
+        for layer in self.layers:
+            if hasattr(layer, "close"):
+                layer.close()
 
     def init(self, gen: torch.Generator,
              input_shapes: Dict[str, Tuple[int, ...]]):
@@ -296,7 +330,17 @@ class Net(torch.nn.Module):
         replay the graph. A replay returns the graph's own output tensors:
         they stay valid until the next call with the same signature
         overwrites them, so clone what must outlive it. CPU inputs run
-        eagerly."""
+        eagerly. A net with a layer that is not ``graph_safe`` (a data
+        layer, Filter, HDF5Output) raises a ValueError that names it."""
+        if cuda_graph:
+            unsafe = [f"{l.spec.name} ({l.spec.type})" for l in self.layers
+                      if not l.graph_safe]
+            if unsafe:
+                raise ValueError(
+                    f"inference_fn(cuda_graph=True): {', '.join(unsafe)} "
+                    f"cannot be captured (host I/O at forward time or a "
+                    f"data-dependent shape); run this net eagerly")
+
         def run(inputs):
             with torch.inference_mode():
                 return self.forward(aligned_params, inputs, state=state,

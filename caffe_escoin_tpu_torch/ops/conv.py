@@ -24,10 +24,17 @@
                     kernel (kernels/sconv_fused.py), the SpMM for a 1x1
                     conv, the garbage-column direct kernel
                     (kernels/sconv_gc.py), or im2col + SpMM.
+                    With ``native_cpu``, on a CPU tensor, where the XBSP
+                    branch would run a stride-1 (or strided 1x1) conv of
+                    dilation 1, the host C++ direct conv runs instead
+                    (``csrc/sconv.cc`` through data/native.py; the JAX
+                    package's ``ops/conv.py:212-254``).
 
 ``conv_route`` names the route of a layer from shapes alone (with
 autotune on, from the autotune cache), and ``conv2d`` dispatches through
-it. A layer whose weight is denser than the policy's threshold runs dense.
+it; the native host route depends on the tensor's device, so it is taken
+at run time and never named. A layer whose weight is denser than the
+policy's threshold runs dense.
 Activations are NHWC and weights HWIO, as in the JAX package.
 """
 
@@ -87,6 +94,32 @@ def conv2d_dense(x, w_hwio, bias=None, *, stride=(1, 1), padding=(0, 0),
                    dilation=tuple(dilation), groups=groups)
     out = out.permute(0, 2, 3, 1)
     return _epilogue(out, relu, residual).contiguous()
+
+
+_CONV_ND = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def convnd_dense(x, w, bias=None, *, stride=None, padding=None,
+                 dilation=None, groups=1, relu=False):
+    """Dense N-D convolution, 1 to 3 spatial dims (the reference's
+    ``im2col_nd_*`` path, `src/caffe/util/im2col.cpp:141+`; the JAX
+    package's ``convnd_dense``, ``ops/conv.py:101-125``). x: [N, *S, Cin],
+    w: [*K, Cin/g, Cout] -> [N, *So, Cout]. Sparse execution stays 2-D."""
+    nsp = x.dim() - 2
+    if w.dim() != nsp + 2:
+        raise ValueError(f"weight rank {w.dim()} does not match input "
+                         f"spatial rank {nsp}")
+    if nsp not in _CONV_ND:
+        raise ValueError(f"{nsp}-D convolution: torch convolves 1-3 spatial "
+                         f"dims")
+    out = _CONV_ND[nsp](
+        x.movedim(-1, 1), w.to(x.dtype).permute(nsp + 1, nsp,
+                                                *range(nsp)),
+        None if bias is None else bias.to(x.dtype),
+        stride=tuple(stride or (1,) * nsp),
+        padding=tuple(padding or (0,) * nsp),
+        dilation=tuple(dilation or (1,) * nsp), groups=groups)
+    return _epilogue(out.movedim(1, -1), relu).contiguous()
 
 
 def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
@@ -317,13 +350,53 @@ def _run_route(route, x, aligned: AlignedConvWeight, *, stride, padding,
     return out
 
 
+def _native_ok(x, aligned: AlignedConvWeight, stride, dilation,
+               policy: ExecutionPolicy) -> bool:
+    """The JAX package's gate of its native host route (``ops/conv.py:
+    212-221``): ``native_cpu`` on a CPU tensor, dilation 1, a BSC under the
+    XBSP branch, a conv the stride block leaves to the sparse route (stride
+    1, or a 1x1 conv it subsamples), and the native library built."""
+    if not (policy.native_cpu and x.device.type == "cpu"
+            and dilation == (1, 1) and xbs.supported(aligned, policy)
+            and (stride == (1, 1) or aligned.kernel_shape == (1, 1))):
+        return False
+    from caffe_escoin_tpu_torch.data import native
+
+    return native.load_library() is not None
+
+
+def _run_native(x, aligned: AlignedConvWeight, *, stride, padding, relu,
+                residual):
+    """The host direct conv (csrc/sconv.cc) on x's numpy view in f32. The
+    residual add comes before the ReLU, so with a residual the kernel runs
+    without ReLU and the add and ReLU follow in f32; then one cast to x's
+    dtype. No autograd: the result is a new leaf."""
+    from caffe_escoin_tpu_torch.data import native
+
+    if stride != (1, 1):
+        x, padding = _subsample_1x1(x, stride, padding), (0, 0)
+    out = native.native_bsc_sconv(
+        x.detach().float().numpy(), aligned, padding=padding,
+        relu=relu and residual is None)
+    if out is None:
+        raise RuntimeError("native bsc_sconv failed")
+    out = torch.from_numpy(out)
+    if residual is not None:
+        out = _epilogue(out, relu, residual.float())
+    return out.to(x.dtype)
+
+
 def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                  relu, policy: ExecutionPolicy, batch_parallel: bool = True,
                  residual=None):
-    """Direct sparse convolution, whatever the weight's sparsity: the XBSP
-    arms with ``use_xla_sparse``, else the kernels' route (the JAX
-    package's ``ops/conv.py:167-381``)."""
+    """Direct sparse convolution, whatever the weight's sparsity: the native
+    host route where ``_native_ok``, else the XBSP arms with
+    ``use_xla_sparse``, else the kernels' route (the JAX package's
+    ``ops/conv.py:167-381``)."""
     stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
+    if _native_ok(x, aligned, stride, dilation, policy):
+        return _run_native(x, aligned, stride=stride, padding=padding,
+                           relu=relu, residual=residual)
     if xbs.supported(aligned, policy):
         route = _xbsp_route(x, aligned, stride, padding, dilation, policy)
     else:
@@ -340,10 +413,16 @@ def conv2d(x, aligned: AlignedConvWeight, *,
            mode: Optional[ConvMode] = None,
            policy: Optional[ExecutionPolicy] = None, residual=None):
     """Mode-dispatched convolution over an aligned weight: runs the route
-    ``conv_route`` names."""
+    ``conv_route`` names, or the native host route where a profitable SCONV
+    conv passes ``_native_ok``."""
     policy = policy or ExecutionPolicy()
     mode = policy.conv_mode if mode is None else mode
     stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
+    if (mode in (ConvMode.SCONV, ConvMode.SCONV_PAR)
+            and aligned.sparsity >= policy.sconv_threshold
+            and _native_ok(x, aligned, stride, dilation, policy)):
+        return _run_native(x, aligned, stride=stride, padding=padding,
+                           relu=relu, residual=residual)
     route = conv_route(x, aligned, stride=stride, padding=padding,
                        dilation=dilation, mode=mode, policy=policy)
     return _run_route(route, x, aligned, stride=stride, padding=padding,

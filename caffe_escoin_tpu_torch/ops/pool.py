@@ -1,6 +1,6 @@
-"""Pooling, max / average / global, with Caffe's semantics, and pooling
-between W-pair packed layouts (port of ``caffe_escoin_tpu/ops/pool.py:20-252``;
-stochastic pooling and SPP wait).
+"""Pooling, max / average / stochastic / global, with Caffe's semantics,
+pooling between W-pair packed layouts, and spatial pyramid pooling (port of
+``caffe_escoin_tpu/ops/pool.py``).
 
 * ceil-mode output sizing, with the last window required to start inside
   the padded input (``_pooled_size``);
@@ -32,21 +32,88 @@ def _pooled_size(size, k, s, p, ceil_mode):
     return out
 
 
+def _pool_patches(x, kernel, stride, padding, ho, wo):
+    """[N,H,W,C] -> [N,Ho,Wo,C,kh*kw] window patches (zero-padded edges)."""
+    kh, kw = kernel
+    sh, sw = stride
+    ph, pw = padding
+    n, h, w, c = x.shape
+    pad_h2 = max(0, (ho - 1) * sh + kh - h - ph)
+    pad_w2 = max(0, (wo - 1) * sw + kw - w - pw)
+    xp = F.pad(x, (0, 0, pw, pad_w2, ph, pad_h2))
+    return torch.stack([xp[:, i:i + (ho - 1) * sh + 1:sh,
+                           j:j + (wo - 1) * sw + 1:sw]
+                        for i in range(kh) for j in range(kw)], dim=-1)
+
+
+def _window_sum(pats):
+    """The sum over each window, added left to right in window order: the
+    order XLA's reduction takes, so the TEST output is the JAX package's
+    bit for bit."""
+    acc = pats[..., 0]
+    for i in range(1, pats.shape[-1]):
+        acc = acc + pats[..., i]
+    return acc
+
+
+def _stochastic(pats, train, generator):
+    total = _window_sum(pats)
+    if not train:
+        safe = torch.where(total > 0, total, torch.ones_like(total))
+        return torch.where(total > 0, _window_sum(pats * pats) / safe,
+                           torch.zeros_like(total))
+    if generator is None:
+        raise ValueError("stochastic pooling in training needs a generator")
+    # threshold r ~ U(0, sum); the first window element whose cumulative
+    # sum crosses it is the sample (pooling_layer.cpp:119-160)
+    r = torch.rand(total.shape, generator=generator, device=pats.device,
+                   dtype=pats.dtype) * total
+    ge = pats.cumsum(dim=-1) > r[..., None]
+    first = ge & ~F.pad(ge[..., :-1], (1, 0), value=False)
+    return (pats * first.to(pats.dtype)).sum(dim=-1)
+
+
+def _avg_clipped(x, kernel, stride, padding, ho, wo):
+    """Average pooling with Caffe's clipped divisor for any padding (torch's
+    own pooling takes padding up to half the window only)."""
+    kh, kw = kernel
+    sh, sw = stride
+    ph, pw = padding
+    n, h, w, c = x.shape
+    total = _pool_patches(x, kernel, stride, padding, ho, wo).sum(dim=-1)
+
+    def extent(o, k, s, p, size):
+        start = torch.arange(o) * s - p
+        return (torch.clamp(start + k, max=size + p) - start).to(x.dtype)
+
+    div = (extent(ho, kh, sh, ph, h)[:, None]
+           * extent(wo, kw, sw, pw, w)[None, :]).to(x.device)
+    return total / div[None, :, :, None]
+
+
 def pool2d(x, kernel, *, stride=None, padding=(0, 0), mode="max",
-           ceil_mode=True, global_pool=False):
-    """x: [N, H, W, C] -> [N, Ho, Wo, C]."""
+           ceil_mode=True, global_pool=False, train=False, generator=None):
+    """x: [N, H, W, C] -> [N, Ho, Wo, C]. ``train`` and ``generator``
+    matter to stochastic pooling only."""
     n, h, w, c = x.shape
     if global_pool:
         if mode == "max":
             return x.amax(dim=(1, 2), keepdim=True)
         if mode == "avg":
             return x.mean(dim=(1, 2), keepdim=True)
-        raise ValueError(f"unknown pool mode {mode!r}")
+        if mode != "stochastic":
+            raise ValueError(f"unknown pool mode {mode!r}")
+        kernel, stride, padding = (h, w), (1, 1), (0, 0)
     kh, kw = kernel
     sh, sw = stride or kernel
     ph, pw = padding
     ho = _pooled_size(h, kh, sh, ph, ceil_mode)
     wo = _pooled_size(w, kw, sw, pw, ceil_mode)
+    if mode == "stochastic":
+        return _stochastic(_pool_patches(x, (kh, kw), (sh, sw), (ph, pw), ho,
+                                         wo), train, generator)
+    if mode == "avg" and (2 * ph > kh or 2 * pw > kw):
+        return _avg_clipped(x, (kh, kw), (sh, sw), (ph, pw), ho, wo)
     if mode == "avg":
         # torch's count_include_pad divisor is Caffe's clipped one, and its
         # ceil sizing (the last window starts inside the input or the left
@@ -180,3 +247,19 @@ def pool2d_packed(x, kernel, *, stride=None, padding=(0, 0), mode="max",
             v, j = divmod(w, r_out)
             out[:, :, v, j * c:(j + 1) * c] *= kw / extent
     return out.contiguous()
+
+
+def spp(x, pyramid_height: int, *, mode="max"):
+    """Spatial pyramid pooling (spp_layer.cpp): level l pools to 2^l x 2^l
+    bins, each level flattened and all concatenated -> [N, C * sum 4^l]
+    (each level's (bin_h, bin_w, c) order, as the JAX package's)."""
+    n, h, w, c = x.shape
+    outs = []
+    for level in range(pyramid_height):
+        bins = 2 ** level
+        kh, kw = -(-h // bins), -(-w // bins)
+        ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+        pooled = pool2d(x, (kh, kw), stride=(kh, kw), padding=(ph, pw),
+                        mode=mode, ceil_mode=True)
+        outs.append(pooled[:, :bins, :bins, :].reshape(n, -1))
+    return torch.cat(outs, dim=-1)

@@ -21,13 +21,15 @@ schema (`src/caffe/proto/caffe.proto`):
 
 Layout conversions applied by ``assign_to_params``:
   * conv weights: Caffe [Cout, Cin/g, KH, KW] -> HWIO [KH, KW, Cin/g, Cout]
+  * deconv weights: Caffe [Cin, Cout/g, KH, KW] (`deconv_layer.cpp` swaps
+    the conv roles) -> [KH, KW, Cin, Cout]
   * fc weights:   Caffe [Cout, K] -> [K, Cout]; when the fc consumes a
     spatial blob, Caffe's K is flattened (c, h, w) while this framework
     flattens NHWC as (h, w, c) — rows are re-permuted using the known
     bottom shape (`Net.blob_shapes`).
 
 ``save_caffemodel`` writes the same bytes as the JAX package's for the same
-params. Deconvolution's import and export rules come with that layer.
+params.
 """
 
 from __future__ import annotations
@@ -237,6 +239,10 @@ def assign_to_params(net, params: Dict, loaded: Dict[str, Dict],
             p["w"] = _conv_to_hwio(blobs[0])
             if len(blobs) > 1 and "b" in p:
                 p["b"] = blobs[1].reshape(-1)
+        elif t == "Deconvolution":
+            p["w"] = np.ascontiguousarray(blobs[0].transpose(2, 3, 0, 1))
+            if len(blobs) > 1 and "b" in p:
+                p["b"] = blobs[1].reshape(-1)
         elif t == "InnerProduct":
             w = blobs[0]
             if w.ndim > 2:  # stored as [1,1,Cout,K] in some legacy models
@@ -358,6 +364,11 @@ def save_caffemodel(net, params: Dict, path: str, *,
         if t in ("Convolution", "ConvolutionReLU", "EscConvolution") \
                 and "w" in p:
             blobs.append(_hwio_to_caffe_conv(p["w"]))
+            if "b" in p:
+                blobs.append(_np(p["b"]).reshape(-1))
+        elif t == "Deconvolution" and "w" in p:
+            blobs.append(np.ascontiguousarray(_np(p["w"]).transpose(2, 3, 0,
+                                                                    1)))
             if "b" in p:
                 blobs.append(_np(p["b"]).reshape(-1))
         elif t == "InnerProduct" and "w" in p:

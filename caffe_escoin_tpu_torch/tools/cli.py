@@ -16,8 +16,13 @@ Usage:
       --conv_mode 3 --weights snap.npz --sparsity 0.9 --iterations 4
   python -m caffe_escoin_tpu_torch.tools.cli train --model lenet \\
       --solver sgd --lr 0.01 --iterations 100 --snapshot-prefix /tmp/lenet
+  python -m caffe_escoin_tpu_torch.tools.cli convert_imageset list.txt \
+      train.mdb --root-folder imgs/ --backend lmdb --shuffle
+  python -m caffe_escoin_tpu_torch.tools.cli compute_image_mean \
+      train.cerec mean.npy
 
-`convert_imageset` and `compute_image_mean` come with the data port.
+`convert_imageset` and `compute_image_mean` run on the host and write the
+JAX CLI's bytes for the same inputs.
 """
 
 from __future__ import annotations
@@ -319,6 +324,69 @@ def cmd_export_prototxt(args):
     return 0
 
 
+def cmd_convert_imageset(args):
+    """`tools/convert_imageset.cpp`: a "<path> <label>" list file -> a record
+    database, `--backend cerec` (the default) or `--backend lmdb` (Datum
+    records under "%08d" keys, data/lmdb_io.py). Images are decoded with
+    PIL, as color unless `--gray`, resized when both resize flags are
+    set; `--shuffle` permutes the list with Python's `random` from
+    `--seed`, as the JAX CLI does."""
+    import numpy as np
+
+    from caffe_escoin_tpu_torch.data.datasets import write_cerec
+    from caffe_escoin_tpu_torch.nn.data_layers import load_image
+
+    root = args.root_folder
+    with open(args.listfile) as f:
+        entries = [ln.split() for ln in f if ln.strip()]
+    if args.shuffle:
+        import random
+
+        random.Random(args.seed).shuffle(entries)
+    imgs, labels = [], []
+    for path, label in entries:
+        imgs.append(load_image(
+            os.path.join(root, path), color=not args.gray,
+            new_height=args.resize_height, new_width=args.resize_width))
+        labels.append(float(label))
+    if args.backend == "lmdb":
+        from caffe_escoin_tpu_torch.data.lmdb_io import (datum_encode,
+                                                         write_lmdb)
+
+        items = [(b"%08d" % i, datum_encode(np.asarray(img), label=int(lb)))
+                 for i, (img, lb) in enumerate(zip(imgs, labels))]
+        write_lmdb(args.output, items)
+    else:
+        write_cerec(args.output, np.stack(imgs),
+                    np.asarray(labels, np.float32))
+    print(f"wrote {len(imgs)} records to {args.output}")
+    return 0
+
+
+def cmd_compute_image_mean(args):
+    """`tools/compute_image_mean.cpp`: a .cerec file -> its per-pixel mean
+    [H, W, C] as float32 .npy (summed in float64)."""
+    import numpy as np
+
+    from caffe_escoin_tpu_torch.data.datasets import (cerec_source,
+                                                      read_cerec_header)
+
+    header = read_cerec_header(args.source)
+    n = header["num"]
+    src = cerec_source(args.source, batch=min(64, n), loop=True)
+    total = np.zeros(header["sample_shape"], np.float64)
+    count = 0
+    while count < n:
+        d = np.asarray(src()["data"], np.float64)[:n - count]
+        total += d.sum(axis=0)
+        count += len(d)
+    mean = (total / max(1, count)).astype(np.float32)
+    np.save(args.output, mean)
+    print(f"mean over {count} images -> {args.output} "
+          f"(channel means: {mean.mean(axis=(0, 1))})")
+    return 0
+
+
 def cmd_extract_features(args):
     """`tools/extract_features.cpp`: run the net forward and dump the named
     blobs of each batch to an .npz archive."""
@@ -421,6 +489,24 @@ def main(argv=None):
     p_exp.add_argument("--output", required=True,
                        help="destination .caffemodel path")
     p_exp.set_defaults(fn=cmd_export_caffemodel)
+
+    p_conv = sub.add_parser("convert_imageset")
+    p_conv.add_argument("listfile")
+    p_conv.add_argument("output")
+    p_conv.add_argument("--root-folder", default="")
+    p_conv.add_argument("--resize-height", type=int, default=0)
+    p_conv.add_argument("--resize-width", type=int, default=0)
+    p_conv.add_argument("--gray", action="store_true")
+    p_conv.add_argument("--shuffle", action="store_true")
+    p_conv.add_argument("--seed", type=int, default=0)
+    p_conv.add_argument("--backend", choices=["cerec", "lmdb"],
+                        default="cerec")
+    p_conv.set_defaults(fn=cmd_convert_imageset)
+
+    p_mean = sub.add_parser("compute_image_mean")
+    p_mean.add_argument("source")
+    p_mean.add_argument("output")
+    p_mean.set_defaults(fn=cmd_compute_image_mean)
 
     p_ext = sub.add_parser("extract_features", parents=[common])
     p_ext.add_argument("--blobs", required=True,

@@ -24,7 +24,13 @@ Layout and convention conversions applied:
   `models/resnet/test_sconv.prototxt:53`.
 * Data/ImageData/WindowData layers are synthesized into Input
   declarations from batch_size + crop_size (``synthesize_data=True``);
-  pass False to keep them as data layers.
+  pass False to keep them as data layers (nn/data_layers.py): each field
+  of the layer's data_param, memory_data_param, image_data_param,
+  hdf5_data_param, hdf5_output_param or window_data_param becomes a spec
+  param of its own name (``source``, ``batch_size``, ``backend``, ...;
+  ``batch`` overrides ``batch_size``), and ``transform_param`` a dict
+  (``crop_size``, ``mirror``, ``scale``, ``mean_value`` as a list,
+  ``mean_file``: a .npy [H, W, C] here, where Caffe reads a binaryproto).
 * V1 `layers {}` blocks with enum types (upgrade_proto.cpp's
   UpgradeV1Net) are accepted via the enum-name table, and V0 connections
   (`layers { layer { ... } }`) upgraded as UpgradeV0LayerParameter does.
@@ -339,8 +345,32 @@ def _channel_axis(ax: int, default_ok=True) -> int:
     raise ValueError(f"prototxt: cannot map Caffe axis {ax} to NHWC")
 
 
+# the data layers' parameter messages (caffe.proto), whose fields the
+# layers of nn/data_layers.py read under the same names
+_DATA_PARAMS = {"Data": "data_param", "MemoryData": "memory_data_param",
+                "ImageData": "image_data_param",
+                "HDF5Data": "hdf5_data_param",
+                "HDF5Output": "hdf5_output_param",
+                "WindowData": "window_data_param"}
+
+
+def _data_layer_params(type_: str, msg) -> Dict[str, Any]:
+    p = {k: v[0] for k, v in _one(msg, _DATA_PARAMS[type_], {}).items()}
+    tp = _one(msg, "transform_param")
+    if tp:
+        p["transform_param"] = {k: list(v) if k == "mean_value" else v[0]
+                                for k, v in tp.items()}
+        if type_ == "WindowData" and "crop_size" in tp:
+            p.setdefault("crop_size", _one(tp, "crop_size"))
+    if "backend" in p:
+        p["backend"] = str(p["backend"])
+    return p
+
+
 def _layer_params(type_: str, msg) -> Dict[str, Any]:
     p: Dict[str, Any] = {}
+    if type_ in _DATA_PARAMS:
+        return _data_layer_params(type_, msg)
     if type_ in ("Convolution", "ConvolutionReLU", "EscConvolution",
                  "Deconvolution"):
         cp = _one(msg, "convolution_param", {})
@@ -579,6 +609,8 @@ def net_from_prototxt(
                 tops.append(t)
 
         p = _layer_params(type_, msg)
+        if batch is not None and "batch_size" in p:
+            p["batch_size"] = batch
         # ParamSpec entries: lr_mult/decay_mult multipliers + name sharing
         share = None
         pspecs = []

@@ -30,7 +30,9 @@ bare ``bench.py`` applies (``--pack``), against the unpacked rows (phase
 stem folded by space-to-depth, and folded and packed (phase 4e); then the
 reference's own entry points, the command line and the parity tool, with
 their model I/O, on ResNet-50 b32 (phase 6); then the training path, whose
-trained, pruned AlexNet goes back onto the kernels (phase 7).
+trained, pruned AlexNet goes back onto the kernels (phase 7); then the data
+slice: ResNet-50 fed by a Data layer over an LMDB, and AlexNet trained from
+three sources (phase 8).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -147,7 +149,8 @@ Phases, one line each (any failure exits non-zero):
      bias and the weight's groups, for a conv; ``torch.addmm`` with the dense weight for an SpMM;
      the port never calls either), and sconv_gc beside sconv_fused on the
      same layer, each arm timed eager (20 calls between CUDA events, host
-     dispatch included) and as a CUDA graph of 20 calls (device time).
+     dispatch included) and as a CUDA graph of 20 calls (device time; every
+     graph time in this script is the median of 5 replays).
      Each line also gives the case's bound: the larger of its bytes over
      the card's memory rate and its FLOPs over the bf16 tensor-core rate
      (``BOUND_RATES``). The bytes count, once each, the columns of x (or
@@ -207,11 +210,44 @@ Phases, one line each (any failure exits non-zero):
      on that snapshot at ``--conv_mode 3 --sparsity 0.9``: its forward
      times, and every launch counter at 0 (training runs dense, the
      command line's test the XBSP arms).
+  8. the data slice, every file in a temporary directory. 8a: 256 random
+     uint8 images 3x256x256 from seed 0 written as an LMDB
+     (``write_lmdb`` + ``datum_encode``, 50 MB) and as a ``.cerec``, and
+     their mean by ``cli compute_image_mean``; where PIL imports, 64 of
+     them as PNGs through ``cli convert_imageset --backend lmdb``, whose
+     pixels must read back equal (else the line says why it skipped).
+     8b: ResNet-50 b32 built by ``net_from_prototxt(...,
+     synthesize_data=False)`` from prototxt text whose first layer is a
+     TEST-phase Data layer over the LMDB (``crop_size: 224``,
+     ``mean_file``) and then the ZOO's ResNet-50; the net's device is None
+     (the card); pruned, fused and aligned as phase 4's kernel-route row:
+     launches over 4 forwards equal to ``Net.routes`` (51 ``sconv_fused``,
+     1 ``bsc_spmm`` each), fc1000 within 5e-2 relative L2 of the dense f32
+     net on the same transformed batches; the eager forward with the pop
+     and the loader's waits. 8c: AlexNet b32 as phase 7a (xavier, SGD 0.01,
+     momentum 0.9, weight decay 5e-4, f32, no pruning schedule) for 8
+     steps from each of three sources: the synthetic ``PrefetchLoader``;
+     ``NativeCerecLoader`` (2 C++ workers, shuffled) over the ``.cerec``
+     with the TRAIN transformer (crop 227, mirror, the mean, scale 1/128)
+     on a ``PrefetchLoader`` thread; the Data layer over the LMDB with the
+     same transform. Per source the ms per step between CUDA events, the
+     wall per step with the batch, images/s and the loader's waits; every
+     loss finite. 8d: the native host library must build (``build/
+     native/``); a ResNet-50 stride-1 layer (res3 3x3, b32, 28x28,
+     128->128, 90% in 32x32 blocks) through ``native_cpu`` on CPU tensors
+     (``ops.conv.conv2d``, the C++ conv counted) against the plain f32
+     conv, max abs err <= 1e-4 max|ref|; its host ms and the CPU's name.
+     8e: Deconvolution, SPP, Im2col, RNN, LSTM, LSTMUnit, Embed,
+     BatchReindex, Filter, Parameter, Python, a 3-D convolution and
+     stochastic pooling (TEST) once on the card and once on the CPU on the
+     same f32 inputs and params, within 1e-4 relative L2; stochastic
+     pooling's TRAIN draw on a CUDA generator must pick window members.
+     Every loader wait has a timeout, so a hang fails the run.
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
-``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e and 7c; phase
-6 and the rest of phase 7 launch none). As the last line
+``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e, 7c and 8b;
+phase 6 and the rest of phases 7 and 8 launch none). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -237,6 +273,9 @@ BLOCK = (128, 128)
 SEED = 0
 N_INPUTS = 4
 TIMED_ITERS = 20
+# a CUDA graph's time is the median of this many replays, each between its
+# own events: one replay alone has read 2.6x its usual time once
+GRAPH_REPLAYS = 5
 PARITY_REL, PARITY_ABS = 1e-2, 1e-2
 LOGITS_REL_L2 = 5e-2
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16
@@ -349,6 +388,51 @@ CLI_TRAIN_ITERS = 4
 STEM_LAYERS = ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
                "conv2/3x3_reduce", "conv2/3x3", "conv2/norm2", "pool2/3x3_s2")
 
+# phase 8: the data slice. DATA_IMAGES random uint8 images from seed 0 in an
+# LMDB and a .cerec; ResNet-50 b32 from a TEST-phase Data layer over the
+# LMDB, whose routes must name DATA_RESNET_LAUNCHES; AlexNet b32 trained
+# DATA_TRAIN_STEPS steps from each of three sources; the native host conv at
+# one ResNet-50 layer (NATIVE_SHAPE: label, batch, h, cin, cout, k, pad,
+# block); the rest of the layer catalog on the card against the CPU
+DATA_IMAGES, DATA_HW, DATA_CLASSES, DATA_BATCH = 256, 256, 1000, 32
+DATA_PNGS = 64
+DATA_TIMED = 8
+DATA_TRAIN_STEPS = 8
+# 8c's transform scale: mean-subtracted pixels times 1/128 span about the
+# synthetic source's range, where phase 7a's xavier + SGD 0.01 run is
+# stable; at the raw pixel range its loss diverges within three steps
+DATA_TRAIN_SCALE = 1.0 / 128
+DATA_WAIT_TIMEOUT = 120.0
+DATA_RESNET_LAUNCHES = {"sconv_fused": 51, "bsc_spmm": 1}
+DATA_LAYER = """layer {{ name: "data" type: "Data" top: "data" top: "label"
+  include {{ phase: TEST }}
+  transform_param {{ crop_size: 224 mean_file: "{mean}" }}
+  data_param {{ source: "{db}" batch_size: {batch} backend: LMDB }} }}"""
+NATIVE_SHAPE = ("res3 3x3 b32 28x28 128->128", 32, 28, 128, 128, 3, 1,
+                (32, 32))
+NATIVE_REPS = 3
+# (type, params, bottoms, tops): a shape is a normal f32 bottom; "cont" the
+# [T, N] indicator, "idx" indices into 10 rows, "reindex" 5 batch indices,
+# "sel" a selector over 6 items, "pos" a positive map; Python's params are
+# the phase's own user layer
+CATALOG_CASES = [
+    ("Deconvolution", dict(num_output=8, kernel=4, stride=2, pad=1),
+     [(2, 14, 14, 16)], 1),
+    ("SPP", dict(pyramid_height=3), [(2, 13, 13, 8)], 1),
+    ("Im2col", dict(kernel=3, stride=2, pad=1), [(2, 9, 9, 4)], 1),
+    ("RNN", dict(num_output=16), [(6, 4, 8), "cont"], 1),
+    ("LSTM", dict(num_output=16), [(6, 4, 8), "cont"], 1),
+    ("LSTMUnit", {}, [(4, 16), (4, 64), (4,)], 2),
+    ("Embed", dict(input_dim=10, num_output=12), ["idx"], 1),
+    ("BatchReindex", {}, [(6, 3, 2), "reindex"], 1),
+    ("Filter", {}, [(6, 3, 2), "sel"], 2),
+    ("Parameter", dict(shape=(3, 4), filler={"type": "gaussian"}), [], 1),
+    ("Python", {}, [(2, 5, 5, 3)], 1),
+    ("Convolution", dict(num_output=6, kernel=3, pad=1), [(2, 4, 6, 6, 4)],
+     1),
+    ("Pooling", dict(kernel=3, stride=2, mode="stochastic"), ["pos"], 1),
+]
+CATALOG_REL_L2 = 1e-4
 
 def _card_line() -> str:
     proc = subprocess.run(
@@ -378,9 +462,9 @@ def _time_ms(fn, args, iters=TIMED_ITERS):
 
 def _graph_ms(fn, args, iters=TIMED_ITERS):
     """Mean device ms per call: ``iters`` calls cycling ``args`` captured in
-    one CUDA graph, replayed between CUDA events after warm-up. The host's
-    dispatch drops out, so a short kernel is timed, not the Python that
-    launches it."""
+    one CUDA graph, replayed between CUDA events after warm-up, the median
+    of GRAPH_REPLAYS replays. The host's dispatch drops out, so a short
+    kernel is timed, not the Python that launches it."""
     import torch
 
     side = torch.cuda.Stream()
@@ -395,14 +479,17 @@ def _graph_ms(fn, args, iters=TIMED_ITERS):
             fn(args[i % len(args)])
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
     del graph
-    return start.elapsed_time(end) / iters
+    return float(np.median(times)) / iters
 
 
 def _layer_split(layers, fwd, x):
@@ -1117,6 +1204,475 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     if any(launches.values()):
         raise SystemExit("cli train or test launched a hand kernel")
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
+
+
+class _Events:
+    """Milliseconds between two CUDA events around each timed region."""
+
+    def __init__(self):
+        import torch
+
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+
+    def __enter__(self):
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.end.record()
+        torch.cuda.synchronize()
+        self.ms = self.start.elapsed_time(self.end)
+
+
+def _cpu_name() -> str:
+    """The host CPU as /proc/cpuinfo (or lscpu) names it, with its machine
+    type and widest vector extension."""
+    import platform
+
+    name, flags = "", set()
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key, _, value = line.partition(":")
+                if key.strip() == "model name" and not name:
+                    name = value.strip()
+                elif key.strip() == "flags" and not flags:
+                    flags = set(value.split())
+    except OSError:
+        pass
+    if not name or name == "unknown":
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((ln.split(":", 1)[1].strip() for ln in
+                         out.splitlines() if ln.startswith("Model name")),
+                        name or "unnamed")
+        except (OSError, subprocess.SubprocessError):
+            name = name or "unnamed"
+    isa = next((f for f in ("avx512f", "avx2") if f in flags), "")
+    return f"{name} ({platform.machine()}{', ' + isa if isa else ''})"
+
+
+def _rel_l2(got, ref) -> float:
+    num = (got.double() - ref.double()).pow(2).sum().item()
+    den = ref.double().pow(2).sum().item()
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _fmt_ms(values) -> str:
+    return " ".join(f"{v:.1f}" for v in values)
+
+
+def _phase_data(mods, tag, results, dev):
+    """Phase 8: the data slice on the card; see the module docstring. Adds
+    8b's launches to ``results``. Every file goes to a temporary
+    directory that the phase removes."""
+    import tempfile
+
+    import torch
+
+    from caffe_escoin_tpu_torch.data import datasets, lmdb_io, native
+    from caffe_escoin_tpu_torch.data.pipeline import PrefetchLoader
+    from caffe_escoin_tpu_torch.data.transformer import (DataTransformer,
+                                                         TransformParams)
+    from caffe_escoin_tpu_torch.engine.context import (ConvMode,
+                                                       ExecutionPolicy)
+    from caffe_escoin_tpu_torch.engine.solver import Solver
+    from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import (LayerSpec, Net, fuse_inference,
+                                           params_to)
+    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
+    from caffe_escoin_tpu_torch.ops import conv as conv_ops
+    from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
+    from caffe_escoin_tpu_torch.tools import cli
+    from caffe_escoin_tpu_torch.tools.prototxt import (net_from_prototxt,
+                                                       net_to_prototxt)
+    from caffe_escoin_tpu_torch.utils.pruning import prune_conv_weight
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        # 8a. the databases, from seed 0
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED)
+        n, hw = DATA_IMAGES, DATA_HW
+        imgs = rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+        labels = rng.integers(0, DATA_CLASSES, n)
+        db = os.path.join(tmp, "train_lmdb")
+        os.makedirs(db)
+        lmdb_io.write_lmdb(db, [(b"%08d" % i, lmdb_io.datum_encode(
+            imgs[i], int(labels[i]))) for i in range(n)])
+        t_lmdb = time.perf_counter() - t0
+        cerec = os.path.join(tmp, "train.cerec")
+        t0 = time.perf_counter()
+        datasets.write_cerec(cerec, imgs, labels)
+        t_cerec = time.perf_counter() - t0
+        mean_npy = os.path.join(tmp, "mean.npy")
+        t0 = time.perf_counter()
+        rc, _ = _run_entry(cli.main, ["compute_image_mean", cerec, mean_npy],
+                           os.path.join(tmp, "mean.log"))
+        t_mean = time.perf_counter() - t0
+        mean = np.load(mean_npy)
+        want = imgs.astype(np.float64).mean(axis=0)
+        if rc != 0 or mean.shape != (hw, hw, 3) or \
+                np.abs(mean - want).max() > 1e-3:
+            raise SystemExit(f"compute_image_mean: exit {rc}, mean "
+                             f"{mean.shape} off by "
+                             f"{np.abs(mean - want).max():.3e}")
+        mdb_mb = os.path.getsize(os.path.join(db, "data.mdb")) / 1e6
+        print(f"data write: {n} random uint8 images {hw}x{hw}x3 from seed "
+              f"{SEED}: LMDB {mdb_mb:.1f} MB (write_lmdb + datum_encode) in {t_lmdb:.2f} s, .cerec "
+              f"{os.path.getsize(cerec) / 1e6:.1f} MB (f32 records) in "
+              f"{t_cerec:.2f} s, cli compute_image_mean in {t_mean:.2f} s "
+              f"(mean {mean.mean():.3f}, max |diff| to numpy "
+              f"{np.abs(mean - want).max():.2e}) {tag}")
+        try:
+            from PIL import Image
+        except ImportError as e:
+            print(f"data convert_imageset: skipped, PIL does not import on "
+                  f"this machine ({e}) {tag}")
+        else:
+            pngs = os.path.join(tmp, "png")
+            os.makedirs(pngs)
+            with open(os.path.join(tmp, "list.txt"), "w") as fh:
+                for i in range(DATA_PNGS):
+                    Image.fromarray(imgs[i]).save(
+                        os.path.join(pngs, f"im{i}.png"))
+                    fh.write(f"im{i}.png {labels[i]}\n")
+            out_db = os.path.join(tmp, "png_lmdb")
+            os.makedirs(out_db)
+            t0 = time.perf_counter()
+            rc, _ = _run_entry(cli.main, [
+                "convert_imageset", os.path.join(tmp, "list.txt"), out_db,
+                "--root-folder", pngs, "--backend", "lmdb"],
+                os.path.join(tmp, "convert.log"))
+            t_conv = time.perf_counter() - t0
+            back = list(lmdb_io.LmdbReader(out_db).items())
+            ok = rc == 0 and len(back) == DATA_PNGS
+            for i, (_, raw) in enumerate(back):
+                arr, lb = lmdb_io.datum_decode(raw)
+                ok = ok and lb == labels[i] and np.array_equal(
+                    arr, imgs[i].astype(arr.dtype))
+            print(f"data convert_imageset --backend lmdb: {DATA_PNGS} PNGs "
+                  f"in {t_conv:.2f} s, pixels and labels read back "
+                  f"{'equal' if ok else 'DIFFERENT'} {tag}")
+            if not ok:
+                raise SystemExit("convert_imageset: the LMDB does not hold "
+                                 "the PNGs")
+
+        # 8b. ResNet-50 b32 from a TEST-phase Data layer over the LMDB
+        t0 = time.perf_counter()
+        build, _ = ZOO["resnet50"]
+        head, body = net_to_prototxt(build(), None, name="resnet50").split(
+            "\n", 1)
+        text = "\n".join([head, DATA_LAYER.format(
+            mean=mean_npy, db=db, batch=DATA_BATCH), body])
+        specs, shapes, _ = net_from_prototxt(text, phase="test",
+                                             synthesize_data=False)
+        if shapes or specs[0].type != "Data":
+            raise SystemExit(f"prototxt: inputs {shapes}, first layer "
+                             f"{specs[0].type}")
+        pol_s = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR,
+                                block_shape=BLOCK,
+                                compute_dtype=torch.bfloat16,
+                                cast_back=False, use_xla_sparse=False)
+        net = Net(specs, policy=pol_s, phase="test")  # device None: the card
+        params = net.init(torch.Generator().manual_seed(SEED), {})
+        fnet, fparams = fuse_inference(net, _prune(net, params),
+                                       state=net.state0)
+        aligned = fnet.weight_align(fparams)
+        routes = fnet.routes(aligned, {})
+        expect = collections.Counter(
+            ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
+        if dict(expect) != DATA_RESNET_LAUNCHES:
+            raise SystemExit(f"data resnet50: routes name {dict(expect)}, "
+                             f"expected {DATA_RESNET_LAUNCHES}")
+        fwd = fnet.inference_fn(params_to(aligned, dev, torch.bfloat16),
+                                return_blobs=True)
+        dense = Net([s for s in fnet.specs if s.type != "Data"],
+                    policy=ExecutionPolicy()).inference_fn(
+            params_to(fparams, dev), return_blobs=True)
+        print(f"data resnet50 b{DATA_BATCH}: prototxt Data layer (TEST, "
+              f"LMDB, crop 224, mean_file) + the ZOO's ResNet-50, "
+              f"{len(fnet.layers)} layers fused, {SPARSITY:.0%} in "
+              f"{BLOCK[0]}x{BLOCK[1]} blocks, SCONV_PAR bf16 kernel routes; "
+              f"routes {dict(collections.Counter(routes.values()))}, set-up "
+              f"{time.perf_counter() - t0:.1f} s {tag}")
+        try:
+            for m in mods.values():
+                m.reset_counts()
+            outs = []
+            for _ in range(N_INPUTS):
+                blobs = fwd({})
+                outs.append((blobs["data"].clone(),
+                             blobs["fc1000"].float().clone()))
+            sync()
+            launches = {k: m.launches for k, m in mods.items()}
+            print(f"data resnet50 launches over {N_INPUTS} forwards: "
+                  f"{launches} (expected {N_INPUTS} x {dict(expect)}) {tag}")
+            for name, cnt in launches.items():
+                if cnt != N_INPUTS * expect.get(name, 0):
+                    raise SystemExit(f"data resnet50 launched {name} {cnt} "
+                                     f"times")
+                results[name]["launches"] += cnt
+            num = den = 0.0
+            for x, logits in outs:
+                if x.device != dev or x.shape != (DATA_BATCH, 224, 224, 3) \
+                        or logits.shape != (DATA_BATCH, 1000) \
+                        or not torch.isfinite(logits).all():
+                    raise SystemExit(f"data resnet50: data {tuple(x.shape)} "
+                                     f"on {x.device}, logits not finite or "
+                                     f"{tuple(logits.shape)}")
+                ref = dense({"data": x})["fc1000"]
+                num += (logits - ref).pow(2).sum().item()
+                den += ref.pow(2).sum().item()
+            rel = (num / den) ** 0.5
+            ok = rel <= LOGITS_REL_L2
+            print(f"data resnet50 fc1000 logits vs dense f32 on the same "
+                  f"transformed batches: rel L2 {rel:.3e} (limit "
+                  f"{LOGITS_REL_L2:.0e}) {'ok' if ok else 'FAIL'} {tag}")
+            if not ok:
+                raise SystemExit("data resnet50 disagrees with dense f32")
+            times = []
+            for _ in range(DATA_TIMED):
+                sync()
+                t0 = time.perf_counter()
+                fwd({})
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            waits = [w * 1e3 for w in fnet.layers[0].loader.waits]
+            print(f"data resnet50 eager forward with the Data layer's pop, "
+                  f"host clock around forward + synchronize, {DATA_TIMED} "
+                  f"forwards: mean {np.mean(times):.2f} ms (min "
+                  f"{min(times):.2f}, max {max(times):.2f}); the loader's "
+                  f"waits over all {len(waits)} pops, ms: {_fmt_ms(waits)} "
+                  f"{tag}")
+        finally:
+            fnet.close()
+        del fwd, dense, aligned, fparams, outs
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 8c. AlexNet b32 training from three sources
+        build, in_shapes = ZOO["alexnet"]
+        specs = _xavier(build(num_classes=DATA_CLASSES, include_loss=True))
+        shapes = {"data": (DATA_BATCH,) + tuple(in_shapes["data"][1:]),
+                  "label": (DATA_BATCH,)}
+        crop = shapes["data"][1]
+        cfg = SolverConfig(base_lr=0.01, momentum=0.9, weight_decay=5e-4)
+        train_tp = TransformParams(crop_size=crop, mirror=True,
+                                   scale=DATA_TRAIN_SCALE, mean_image=mean,
+                                   phase="train")
+
+        def train(source, net, init_shapes, next_batch, loader_of):
+            solver = Solver(net, cfg, seed=SEED, device=dev, display=1)
+            solver.init(init_shapes)
+            rows, losses = [], []
+            try:
+                for i in range(DATA_TRAIN_STEPS):
+                    logs = []
+                    sync()
+                    t0 = time.perf_counter()
+                    batch = next_batch()
+                    if cuda:
+                        with _Events() as ev:
+                            solver.step(iter([batch]), 1, log=logs.append)
+                        ms = ev.ms
+                    else:
+                        solver.step(iter([batch]), 1, log=logs.append)
+                        ms = float("nan")
+                    sync()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    losses.append(float(logs[-1].rsplit("loss = ", 1)[1]))
+                    rows.append((ms, wall))
+                waits = [w * 1e3 for w in loader_of().waits]
+            finally:
+                net.close()
+            steady = rows[1:]
+            ev_ms = [a for a, _ in steady]
+            walls = [b for _, b in steady]
+            ips = DATA_BATCH * len(walls) / (sum(walls) / 1e3)
+            print(f"data train alexnet b{DATA_BATCH} from {source}: "
+                  f"{np.mean(ev_ms):.2f} ms per step between CUDA events "
+                  f"(min {min(ev_ms):.2f}, max {max(ev_ms):.2f}), "
+                  f"{np.mean(walls):.2f} ms wall with the batch, "
+                  f"{ips:.1f} images/s over steps 1-{DATA_TRAIN_STEPS - 1}; "
+                  f"loader waits ms {_fmt_ms(waits)}; losses "
+                  f"{' '.join(f'{v:.4f}' for v in losses)} {tag}")
+            if not all(np.isfinite(losses)):
+                raise SystemExit(f"data train from {source}: a loss is not "
+                                 f"finite")
+            del solver
+            if cuda:
+                torch.cuda.empty_cache()
+
+        loader = PrefetchLoader(
+            datasets.synthetic_source(shapes["data"],
+                                      num_classes=DATA_CLASSES, seed=SEED),
+            device=dev, timeout=DATA_WAIT_TIMEOUT)
+        try:
+            train("synthetic_source on PrefetchLoader's thread",
+                  Net(specs, phase="train"), shapes, lambda: next(loader),
+                  lambda: loader)
+        finally:
+            loader.close()
+        lib = native.load_library()
+        if lib is None:
+            raise SystemExit(f"the native library did not build: "
+                             f"{native.build_error}")
+        print(f"data native library: {native.library_path(native._cxx()).name}"
+              f" under build/native ("
+              + (f"g++ {native.build_seconds:.1f} s" if native.build_seconds
+                 else "built before") + f") {tag}")
+        with native.NativeCerecLoader(cerec, DATA_BATCH, (hw, hw, 3),
+                                      shuffle=True, seed=SEED, workers=2,
+                                      timeout=DATA_WAIT_TIMEOUT) as nl:
+            loader = PrefetchLoader(
+                lambda: next(nl), transform=DataTransformer(train_tp,
+                                                            seed=SEED),
+                device=dev, timeout=DATA_WAIT_TIMEOUT)
+            try:
+                train("NativeCerecLoader (2 C++ workers, shuffled) + the "
+                      "TRAIN transformer (crop, mirror, mean, scale) on "
+                      "PrefetchLoader's thread", Net(specs, phase="train"),
+                      shapes, lambda: next(loader), lambda: loader)
+            finally:
+                loader.close()
+        data_spec = LayerSpec("data", "Data", (), ("data", "label"),
+                              params=dict(source=db, batch_size=DATA_BATCH,
+                                          backend="lmdb", transform_param=dict(
+                                              crop_size=crop, mirror=True,
+                                              scale=DATA_TRAIN_SCALE,
+                                              mean_file=mean_npy)))
+        dnet = Net([data_spec] + specs, phase="train")
+        train("the Data layer over the LMDB (one thread: decode and "
+              "transform)", dnet, {}, lambda: {},
+              lambda: dnet.layers[0].loader)
+
+    # 8d. the native host route
+    label, batch, h, cin, cout, k, pad, block = NATIVE_SHAPE
+    rng = np.random.default_rng(SEED + 3)
+    w = prune_conv_weight(rng.standard_normal((k, k, cin, cout)).astype(
+        np.float32) * (2.0 / (k * k * cin)) ** 0.5, SPARSITY, block)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=block,
+                          native_cpu=True)
+    al = weight_align(w, b, policy=pol)
+    x = torch.from_numpy(rng.standard_normal((batch, h, h, cin)).astype(
+        np.float32))
+    calls = [0]
+    real = native.native_bsc_sconv
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    native.native_bsc_sconv = counting
+    try:
+        out = conv_ops.conv2d(x, al, padding=(pad, pad), relu=True,
+                              policy=pol)
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_REPS):
+            conv_ops.conv2d(x, al, padding=(pad, pad), relu=True, policy=pol)
+        host_ms = (time.perf_counter() - t0) / NATIVE_REPS * 1e3
+    finally:
+        native.native_bsc_sconv = real
+    t0 = time.perf_counter()
+    for _ in range(NATIVE_REPS):
+        ref = conv_ops.conv2d_dense(x, torch.from_numpy(w), b,
+                                    padding=(pad, pad), relu=True)
+    plain_ms = (time.perf_counter() - t0) / NATIVE_REPS * 1e3
+    err = (out - ref).abs().max().item()
+    bound = 1e-4 * ref.abs().max().item()
+    ok = calls[0] == NATIVE_REPS + 1 and err <= bound
+    print(f"data native_cpu {label}, {SPARSITY:.0%} in {block[0]}x{block[1]} "
+          f"blocks ({al.bsc.nnz_blocks} live), CPU tensors through "
+          f"ops.conv.conv2d (SCONV_PAR, native_cpu): csrc/sconv.cc ran "
+          f"{calls[0]} times; max abs err {err:.3e} vs the plain f32 conv "
+          f"(bound {bound:.3e}) {'ok' if ok else 'FAIL'}; host "
+          f"{host_ms:.1f} ms per call ({min(8, os.cpu_count() or 1)} "
+          f"threads), the plain dense conv (F.conv2d, CPU) {plain_ms:.1f} "
+          f"ms; CPU {_cpu_name()}, {os.cpu_count()} cores {tag}")
+    if not ok:
+        raise SystemExit("the native host route failed")
+
+    # 8e. the other new layer types and stochastic pooling, card vs CPU
+    import types
+
+    from caffe_escoin_tpu_torch.nn import Layer
+
+    user = types.ModuleType("chip_smoke_user_layers")
+
+    class DoubleLayer(Layer):
+        def forward(self, params, inputs, state=None):
+            return [inputs[0] * 2.0]
+
+    user.DoubleLayer = DoubleLayer
+    sys.modules[user.__name__] = user
+    rng = np.random.default_rng(SEED + 4)
+    worst = []
+    for kind, p, bottoms, n_tops in CATALOG_CASES:
+        xs = {}
+        for i, bt in enumerate(bottoms):
+            if bt == "cont":
+                v = np.ones((6, 4), np.float32)
+                v[0] = 0
+            elif bt == "idx":
+                v = rng.integers(0, 10, (5, 3)).astype(np.int64)
+            elif bt == "reindex":
+                v = rng.integers(0, 6, 5).astype(np.int64)
+            elif bt == "sel":
+                v = np.array([1, 0, 1, 1, 0, 1], np.float32)
+            elif bt == "pos":
+                v = rng.uniform(0.1, 2.0, (2, 9, 9, 4)).astype(np.float32)
+            else:
+                v = rng.standard_normal(bt).astype(np.float32)
+            xs[f"in{i}"] = v
+        tops = tuple(f"t{i}" for i in range(n_tops))
+        if kind == "Python":
+            p = dict(module=user.__name__, layer="DoubleLayer")
+        lnet = Net([LayerSpec("l", kind, tuple(xs), tops, params=p)])
+        lp = lnet.init(torch.Generator().manual_seed(SEED),
+                       {k: v.shape for k, v in xs.items()})
+        cpu = lnet(lp, {k: torch.from_numpy(v) for k, v in xs.items()})
+        got = lnet(params_to(lp, dev), {k: torch.from_numpy(v).to(dev)
+                                        for k, v in xs.items()})
+        for t in tops:
+            if got[t].device != dev or got[t].shape != cpu[t].shape:
+                raise SystemExit(f"{kind} {t}: {tuple(got[t].shape)} on "
+                                 f"{got[t].device}")
+            worst.append((_rel_l2(got[t].cpu(), cpu[t]), f"{kind}.{t}"))
+    bad = [(r, n) for r, n in worst if not r <= CATALOG_REL_L2]
+    x = torch.rand((4, 8, 8, 16), device=dev) + 0.1
+    from caffe_escoin_tpu_torch.ops.pool import pool2d
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s = pool2d(x, (2, 2), stride=(2, 2), mode="stochastic", train=True,
+               generator=gen)
+    win = x.reshape(4, 4, 2, 4, 2, 16).permute(0, 1, 3, 5, 2, 4).reshape(
+        4, 4, 4, 16, 4)
+    member = bool((win == s[..., None]).any(-1).all())
+    picked_max = (s == win.amax(-1)).float().mean().item()
+    print(f"data layers on the card vs the CPU ({len(CATALOG_CASES)} "
+          f"layers, f32, TF32 off): worst rel L2 {max(worst)[0]:.2e} "
+          f"({max(worst)[1]}; limit {CATALOG_REL_L2:.0e}) "
+          f"{'ok' if not bad else 'FAIL ' + str(bad)}; stochastic pooling "
+          f"TRAIN on a CUDA generator: every sample a member of its window "
+          f"{member}, the window max picked {picked_max:.3f} of the time "
+          f"(uniform 0.25) {tag}")
+    if bad or not member:
+        raise SystemExit("the catalog layers differ between the card and "
+                         "the CPU")
+    print(f"data phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
 
 
 def main() -> int:
@@ -2255,6 +2811,10 @@ def main() -> int:
     # ---- 7. training, then the trained weights on the kernels -------------
     torch.cuda.empty_cache()
     _phase_train(mods, tag, results, sparse_graph_ms["alexnet"])
+
+    # ---- 8. the data slice -------------------------------------------------
+    torch.cuda.empty_cache()
+    _phase_data(mods, tag, results, dev)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

@@ -35,6 +35,14 @@ padded to 640, and group=2's block-diagonal weights (also against the
 dense grouped ``F.conv2d``); ``bsc_spmm`` at AlexNet's fc6; and the LRN and
 s2d ops replayed from a CUDA graph.
 
+The data slice: a Data layer's tops land on the card (pinned host copies)
+as the batches of the file it reads, and the layer types of the rest of
+the catalog (Deconvolution, SPP, Im2col, the recurrent layers, Embed,
+BatchReindex, Filter, Parameter, N-D and stochastic pooling) give on the
+card what they give on the CPU for the same f32 inputs and params, within
+1e-4 relative L2 (TF32 off); stochastic pooling's TRAIN draw on a CUDA
+generator picks window members.
+
 The timer and the graph forward: ``device_time`` replays CUDA graphs,
 ``Net.inference_fn(cuda_graph=True)`` replays the eager forward's results,
 and a capture that would have to measure an autotune key raises.
@@ -980,3 +988,110 @@ def test_dropout_on_a_cuda_generator(dev):
     assert torch.equal(outs[0][kept], x[kept] / 0.5)
     share = 1.0 - kept.float().mean().item()
     assert abs(share - 0.5) <= 5 * (0.25 / x.numel()) ** 0.5
+
+
+def test_data_layer_tops_land_on_the_card(dev, tmp_path):
+    """A net whose device is None (the card) gets the Data layer's batches
+    there, the records of the file in order; inference_fn refuses to
+    capture it."""
+    from caffe_escoin_tpu_torch.data import datasets
+    from caffe_escoin_tpu_torch.nn import LayerSpec, Net
+
+    rng = np.random.default_rng(0)
+    data = rng.standard_normal((6, 5, 5, 3)).astype(np.float32)
+    path = str(tmp_path / "d.cerec")
+    datasets.write_cerec(path, data, np.arange(6))
+    net = Net([LayerSpec("data", "Data", (), ("data", "label"),
+                         params=dict(source=path, batch_size=4)),
+               LayerSpec("pool", "Pooling", ("data",),
+                         params=dict(kernel=2, stride=2))])
+    try:
+        params = net.init(torch.Generator().manual_seed(0), {})
+        for first in (0, 4):
+            out = net(params, {}, return_blobs=True)
+            assert out["data"].is_cuda and out["label"].is_cuda
+            idx = [(first + i) % 6 for i in range(4)]
+            np.testing.assert_array_equal(out["data"].cpu().numpy(),
+                                          data[idx])
+            assert out["label"].cpu().tolist() == idx
+        with pytest.raises(ValueError, match="Data"):
+            net.inference_fn(params, cuda_graph=True)
+    finally:
+        net.close()
+
+
+# (type, params, bottoms): a shape is a normal f32 bottom; "cont" the [T, N]
+# indicator, "idx" indices into 10 rows, "reindex" 5 batch indices, "sel"
+# a selector over 6 items, "pos" a positive map
+CATALOG_CASES = [
+    ("Deconvolution", dict(num_output=8, kernel=4, stride=2, pad=1),
+     [(2, 14, 14, 16)]),
+    ("SPP", dict(pyramid_height=3), [(2, 13, 13, 8)]),
+    ("Im2col", dict(kernel=3, stride=2, pad=1), [(2, 9, 9, 4)]),
+    ("RNN", dict(num_output=16), [(6, 4, 8), "cont"]),
+    ("LSTM", dict(num_output=16), [(6, 4, 8), "cont"]),
+    ("LSTMUnit", {}, [(4, 16), (4, 64), (4,)]),
+    ("Embed", dict(input_dim=10, num_output=12), ["idx"]),
+    ("BatchReindex", {}, [(6, 3, 2), "reindex"]),
+    ("Filter", {}, [(6, 3, 2), "sel"]),
+    ("Parameter", dict(shape=(3, 4), filler={"type": "gaussian"}), []),
+    ("Convolution", dict(num_output=6, kernel=3, pad=1), [(2, 4, 6, 6, 4)]),
+    ("Pooling", dict(kernel=3, stride=2, mode="stochastic"), ["pos"]),
+]
+
+
+def _catalog_inputs(bottoms, rng):
+    out = {}
+    for i, b in enumerate(bottoms):
+        if b == "cont":
+            v = np.ones((6, 4), np.float32)
+            v[0] = 0
+        elif b == "idx":
+            v = rng.integers(0, 10, (5, 3)).astype(np.int64)
+        elif b == "reindex":
+            v = rng.integers(0, 6, 5).astype(np.int64)
+        elif b == "sel":
+            v = np.array([1, 0, 1, 1, 0, 1], np.float32)
+        elif b == "pos":
+            v = rng.uniform(0.1, 2.0, (2, 9, 9, 4)).astype(np.float32)
+        else:
+            v = rng.standard_normal(b).astype(np.float32)
+        out[f"in{i}"] = v
+    return out
+
+
+@pytest.mark.parametrize("case", CATALOG_CASES, ids=[
+    f"{c[0]}{'_3d' if c[0] == 'Convolution' else ''}" for c in
+    CATALOG_CASES])
+def test_catalog_layer_on_cuda_matches_cpu(dev, case):
+    from caffe_escoin_tpu_torch.nn import LayerSpec, Net, params_to
+
+    kind, params, bottoms = case
+    xs = _catalog_inputs(bottoms, np.random.default_rng(0))
+    net = Net([LayerSpec("l", kind, tuple(xs), ("t0", "t1")[:2 if kind in (
+        "LSTMUnit", "Filter") else 1], params=params)])
+    p = net.init(torch.Generator().manual_seed(0),
+                 {k: v.shape for k, v in xs.items()})
+    cpu = net(p, {k: torch.from_numpy(v) for k, v in xs.items()})
+    gpu = net(params_to(p, dev), {k: torch.from_numpy(v).to(dev)
+                                  for k, v in xs.items()})
+    assert set(cpu) == set(gpu)
+    for k, ref in cpu.items():
+        got = gpu[k]
+        assert got.is_cuda and got.shape == ref.shape
+        rel = ((got.cpu().double() - ref.double()).norm()
+               / ref.double().norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-4, (kind, k, rel)
+
+
+def test_stochastic_pool_train_on_a_cuda_generator(dev):
+    from caffe_escoin_tpu_torch.ops.pool import pool2d
+
+    x = torch.rand((4, 8, 8, 16), device=dev) + 0.1
+    a, b = (pool2d(x, (2, 2), stride=(2, 2), mode="stochastic", train=True,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+            for _ in range(2))
+    assert a.is_cuda and torch.equal(a, b)
+    win = x.reshape(4, 4, 2, 4, 2, 16).permute(0, 1, 3, 5, 2, 4).reshape(
+        4, 4, 4, 16, 4)
+    assert ((win == a[..., None]).any(-1)).all()
