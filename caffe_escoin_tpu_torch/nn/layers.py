@@ -495,7 +495,7 @@ class BatchNormLayer(Layer):
         if not train:
             return [out]
         lam = self.p.get("moving_average_fraction", 0.999)
-        m = float(math.prod(x.shape[i] for i in axes))
+        m = float(norm_ops.batch_count(x, axes))
         bias_corr = m / (m - 1.0) if m > 1 else 1.0
         with torch.no_grad():
             new_state = {

@@ -226,7 +226,7 @@ class Net(torch.nn.Module):
                 *, state: Optional[Dict[str, Any]] = None,
                 return_blobs: bool = False, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                return_state: bool = False):
+                return_state: bool = False, layer_hook=None):
         """Topological forward. Returns the final tops (blobs no later layer
         reads), or every blob with ``return_blobs=True``.
 
@@ -236,7 +236,12 @@ class Net(torch.nn.Module):
         Dropout with masks drawn from ``generator`` (a ``torch.Generator``
         on the inputs' device). With ``return_state=True`` the result is
         ``(result, new_state)``; in training new_state holds the updated
-        moving averages (a new dict; ``state`` is not changed)."""
+        moving averages (a new dict; ``state`` is not changed).
+
+        ``layer_hook(layer, params) -> (params, post)``, where given, hands
+        each layer the params it returns and passes each of the layer's
+        outputs through ``post`` (None: as they are); the tensor-parallel
+        forward (``parallel/tp.forward_sharded``) gathers shards so."""
         blobs: Dict[str, torch.Tensor] = dict(inputs)
         if state is None:
             state = self.state0
@@ -247,6 +252,9 @@ class Net(torch.nn.Module):
             ins = [blobs[b] for b in spec.bottoms]
             consumed.update(spec.bottoms)
             lp = params.get(spec.share_params or spec.name, {})
+            post = None
+            if layer_hook is not None:
+                lp, post = layer_hook(layer, lp)
             if layer.has_state and train:
                 outs, new_state[spec.name] = layer(lp, ins, state[spec.name],
                                                    train=True)
@@ -256,6 +264,8 @@ class Net(torch.nn.Module):
                 outs = layer(lp, ins, train=True, generator=generator)
             else:
                 outs = layer(lp, ins)
+            if post is not None:
+                outs = [post(o) for o in outs]
             for t, o in zip(spec.tops, outs):
                 blobs[t] = o
         if return_blobs:

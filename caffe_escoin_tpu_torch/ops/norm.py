@@ -1,13 +1,26 @@
 """Normalisation (port of ``caffe_escoin_tpu/ops/norm.py``: LRN across
 channels, BatchNorm at global and at batch statistics, Scale, the fused
-BatchNorm + Scale, MVN)."""
+BatchNorm + Scale, MVN).
+
+Under ``batch_stats_over(group)`` a training BatchNorm normalizes by the
+statistics of the batch of every rank of ``group``, which the JAX
+package's batch-sharded step computes over its global batch
+(parallel/dp.py)."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
+import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+# the process group whose ranks' batches a training BatchNorm normalizes
+# over (None: this rank's batch alone)
+_STATS_GROUP = contextvars.ContextVar("batch_stats_group", default=None)
 
 
 @functools.lru_cache(maxsize=256)
@@ -59,13 +72,59 @@ def batch_norm_inference(x, mean, var, *, eps=1e-5):
     return (x - mean) * torch.rsqrt(var + eps)
 
 
+@contextlib.contextmanager
+def batch_stats_over(group):
+    """Inside, a training BatchNorm takes its batch statistics over the
+    batches of every rank of ``group`` (a torch.distributed process group;
+    None: this rank's alone)."""
+    token = _STATS_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _STATS_GROUP.reset(token)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """An all-reduce sum that autograd differentiates: the gradient that
+    reaches each rank's input is the sum of every rank's output gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def batch_count(x, axis) -> int:
+    """The number of values per channel a training BatchNorm's statistics
+    cover: this batch's, times the ranks of ``batch_stats_over``'s group."""
+    group = _STATS_GROUP.get()
+    n = math.prod(x.shape[i] for i in axis)
+    return n if group is None else n * dist.get_world_size(group)
+
+
 def batch_norm_train(x, *, axis=(0, 1, 2), eps=1e-5):
     """(normalized, batch mean, batch variance) for the training forward;
     the variance is the biased one (divided by the count), as Caffe
-    normalizes."""
-    mean = x.mean(dim=axis)
-    var = x.var(dim=axis, correction=0)
-    return (x - mean) * torch.rsqrt(var + eps), mean, var
+    normalizes. Under ``batch_stats_over`` both are sums over the group's
+    ranks (two all-reduces, the variance's about the global mean)."""
+    group = _STATS_GROUP.get()
+    if group is None:
+        mean = x.mean(dim=axis)
+        var = x.var(dim=axis, correction=0)
+        return (x - mean) * torch.rsqrt(var + eps), mean, var
+    count = batch_count(x, axis)
+    mean = _SumOverGroup.apply(x.sum(dim=axis), group) / count
+    d = x - mean
+    var = _SumOverGroup.apply((d * d).sum(dim=axis), group) / count
+    return d * torch.rsqrt(var + eps), mean, var
 
 
 def scale_bias(x, gamma, beta=None):

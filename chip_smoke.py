@@ -32,7 +32,8 @@ reference's own entry points, the command line and the parity tool, with
 their model I/O, on ResNet-50 b32 (phase 6); then the training path, whose
 trained, pruned AlexNet goes back onto the kernels (phase 7); then the data
 slice: ResNet-50 fed by a Data layer over an LMDB, and AlexNet trained from
-three sources (phase 8).
+three sources (phase 8); then the parallel paths at world size 1 over
+NCCL, the channel permutation and the image tools (phase 9).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -243,11 +244,40 @@ Phases, one line each (any failure exits non-zero):
      same f32 inputs and params, within 1e-4 relative L2; stochastic
      pooling's TRAIN draw on a CUDA generator must pick window members.
      Every loader wait has a timeout, so a hang fails the run.
+  9. parallel/ at world size 1 over NCCL, in a group made from an
+     in-process store (destroyed at the end); every run's launches counted
+     (set to 0 just before, read just after) against what its routes name.
+     9a: ``halo.spatial_sconv2d(engine="pallas")`` at VGG-16 conv2_2 (b16
+     112x112, 128->128, 90% in 128x128 blocks, bf16): 1 ``sconv_gc``
+     launch, max|halo - sconv_gc.sconv(x, padding=(1, 1))| exactly 0 (the
+     slab is the same bytes), both timed (``device_time``); the halo chain
+     and tower over VGG-16 conv3_1-3_3 (b16 56x56) against the three convs
+     in sequence, within the bf16 rule. 9b: ``tp.tp_conv_lowered`` at
+     VGG-16 conv1_2 (b16 224x224, 64->64, 64x64 blocks): 1 ``bsc_spmm``
+     launch, exactly the lowered route's output, both timed. 9c: one
+     ``dp.make_dp_train_step`` step of AlexNet b32 (phase 7a's config,
+     deterministic cuDNN) against one ``Solver`` step from the same params,
+     every update within 1e-6 relative L2; ``make_dp_eval_step`` on
+     ResNet-50 b32 on the kernel routes (launches equal to ``Net.routes``,
+     prob within 5e-2 of dense f32); ``scaling.measure`` (kernel routes),
+     ``measure_halo`` and ``measure_tp`` at world 1 with the card's name and
+     power limit; ``dryrun_multichip(1)``. 9d: ResNet-50 pruned element-wise
+     to 90% (phase 4c's weights), fused: ``permute.deploy_unstructured`` at
+     min_density 0 must leave the f32 ELL route's fc1000 within 1e-3
+     relative L2, and its live-block counts before and after are printed
+     (random weights: almost no reduction expected, none claimed); at
+     min_density 0.05, aligned to 128x128 BSC on the kernel routes:
+     launches equal to ``Net.routes``, fc1000 within 5e-2 of dense f32 on
+     the deployed weights. 9e: ``vision.Classifier.predict`` on AlexNet
+     (fused, without its Softmax, kernel routes): 4 images 256x256 become
+     40 crops, the averaged fc8 within 5e-2 relative L2 of the dense f32
+     net's; ``Detector.detect_windows`` on 8 windows likewise. The phase's
+     wall time beside its 60 s budget.
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
-``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e, 7c and 8b;
-phase 6 and the rest of phases 7 and 8 launch none). As the last line
+``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e, 7c, 8b and
+9; phase 6 and the rest of phases 7 and 8 launch none). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -433,6 +463,22 @@ CATALOG_CASES = [
     ("Pooling", dict(kernel=3, stride=2, mode="stochastic"), ["pos"], 1),
 ]
 CATALOG_REL_L2 = 1e-4
+# phase 9: parallel/ at world size 1 over NCCL. The halo path at VGG-16
+# conv2_2 (label, batch, h=w, cin, cout) and the halo chain and tower over
+# conv3_1-3_3 (batch, h=w, (cin, cout) per conv); tp_conv_lowered at VGG-16
+# conv1_2 in 64x64 blocks, the lowered row of PERF.md (label, batch, h=w,
+# cin, cout, block); the DP step (AlexNet) and eval (ResNet-50) batch; the
+# permutation's densification threshold; the Classifier's images and the
+# Detector's windows
+PAR_HALO = ("vgg16 conv2_2", 16, 112, 128, 128)
+PAR_STACK = (16, 56, ((128, 256), (256, 256), (256, 256)))
+PAR_TP = ("vgg16 conv1_2", 16, 224, 64, 64, (64, 64))
+PAR_DP_BATCH = 32
+PAR_MIN_DENSITY = 0.05
+PAR_VISION_IMAGES, PAR_VISION_HW, PAR_WINDOWS = 4, 256, 8
+DP_UPDATE_REL = 1e-6
+PERMUTE_LOSSLESS_REL = 1e-3
+PAR_BUDGET_S = 60
 
 def _card_line() -> str:
     proc = subprocess.run(
@@ -1675,6 +1721,426 @@ def _phase_data(mods, tag, results, dev):
     print(f"data phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
 
 
+def _phase_parallel(mods, tag, results, dev):
+    """Phase 9: parallel/, tools/scaling.py, the dry run, sparse/permute.py
+    and tools/vision.py at world size 1 over NCCL, in a group made from an
+    in-process store and destroyed at the end; see the module docstring.
+    Adds the launches of every checked run to ``results``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from caffe_escoin_tpu_torch.engine import solvers
+    from caffe_escoin_tpu_torch.engine.context import (ConvMode,
+                                                       ExecutionPolicy,
+                                                       SparseFormat)
+    from caffe_escoin_tpu_torch.engine.solver import Solver
+    from caffe_escoin_tpu_torch.kernels import sconv_gc
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
+    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
+    from caffe_escoin_tpu_torch.ops import conv as conv_ops
+    from caffe_escoin_tpu_torch.parallel import dp, halo, tp
+    from caffe_escoin_tpu_torch.parallel import mesh as mesh_lib
+    from caffe_escoin_tpu_torch.parallel.dryrun import dryrun_multichip
+    from caffe_escoin_tpu_torch.sparse import permute
+    from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
+    from caffe_escoin_tpu_torch.tools import scaling, vision
+    from caffe_escoin_tpu_torch.utils.benchmark import device_time
+    from caffe_escoin_tpu_torch.utils.pruning import prune_conv_weight
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    platform = "cuda" if cuda else "cpu"
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def launched(fn):
+        """(fn(), the launches it made per kernel): the counts are set to 0
+        just before and read just after."""
+        for m in mods.values():
+            m.reset_counts()
+        out = fn()
+        sync()
+        return out, {k: m.launches for k, m in mods.items()}
+
+    def count(label, got, expect):
+        want = {k: expect.get(k, 0) for k in mods}
+        print(f"parallel {label} launches: {got} (expected {want}) {tag}")
+        if got != want:
+            raise SystemExit(f"parallel {label} launched {got}, expected "
+                             f"{want}")
+        for k, n in got.items():
+            results[k]["launches"] += n
+
+    def kernels_of(routes):
+        return dict(collections.Counter(
+            ROUTE_KERNELS[r] for r in routes if r in ROUTE_KERNELS))
+
+    def max_err(got, ref):
+        return (got.float() - ref.float()).abs().max().item()
+
+    def rel_l2(got, ref):
+        got, ref = got.double(), ref.double()
+        return ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+    def conv_weight(k, cin, cout, block):
+        wt = prune_conv_weight(
+            rng.standard_normal((k, k, cin, cout)).astype(np.float32)
+            * np.float32((2.0 / (k * k * cin)) ** 0.5), SPARSITY, block)
+        b = rng.standard_normal(cout).astype(np.float32) * np.float32(0.1)
+        return weight_align(wt, b, policy=ExecutionPolicy(
+            block_shape=block)).to(dev, torch.bfloat16)
+
+    pol_k = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+                            compute_dtype=torch.bfloat16, cast_back=False,
+                            use_xla_sparse=False)
+    made = not dist.is_initialized()
+    mesh_lib.multihost_init(platform=platform)
+    try:
+        mesh = mesh_lib.make_mesh()
+        print(f"parallel: world {dist.get_world_size()}, backend "
+              f"{dist.get_backend()}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, group from an "
+              f"in-process store {tag}")
+
+        # 9a. the halo path on sconv_gc, then the chain and the tower
+        label, b, hw, cin, cout = PAR_HALO
+        al = conv_weight(3, cin, cout, BLOCK)
+        x = torch.randn((b, hw, hw, cin), generator=gen, device=dev
+                        ).bfloat16()
+
+        def halo_fwd(y):
+            return halo.spatial_sconv2d(y, al, mesh=mesh, padding=(1, 1),
+                                        policy=pol_k, relu=True,
+                                        engine="pallas")
+
+        def gc_fwd(y):
+            return sconv_gc.sconv(y, al, padding=(1, 1), relu=True)
+
+        out, got = launched(lambda: halo_fwd(x))
+        count(f"halo engine=pallas {label}", got, {"sconv_gc": 1})
+        err = max_err(out, gc_fwd(x))
+        ms = {k: device_time(f, x, iters=TIMED_ITERS) * 1e3
+              for k, f in (("halo", halo_fwd), ("sconv_gc", gc_fwd),
+                           ("halo again", halo_fwd))}
+        print(f"parallel halo engine=pallas {label} (b{b} {hw}x{hw}, "
+              f"{cin}->{cout}, {SPARSITY:.0%} in {BLOCK[0]}x{BLOCK[1]} "
+              f"blocks, bf16): max|halo - sconv_gc.sconv(x, padding=(1, "
+              f"1))| {err} (must be 0); device ms, CUDA-graph replays: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" {tag}")
+        if err != 0:
+            raise SystemExit("the halo path differs from sconv_gc")
+        b, hw, chans = PAR_STACK
+        als = [conv_weight(3, ci, co, BLOCK) for ci, co in chans]
+        x = torch.randn((b, hw, hw, chans[0][0]), generator=gen, device=dev
+                        ).bfloat16()
+
+        def in_sequence(y):
+            for a in als:
+                y = conv_ops.conv2d(y, a, padding=(1, 1), relu=True,
+                                    policy=pol_k)
+            return y
+
+        ref = in_sequence(x)
+        for kind, fn in (("chain", halo.spatial_sconv_chain),
+                         ("tower", halo.spatial_sconv_tower)):
+            # the rows each conv sees: the chain's one halo per layer, the
+            # tower's summed halo shrinking by one per layer
+            rows = ([hw + 2] * 3 if kind == "chain"
+                    else [hw + 6, hw + 4, hw + 2])
+            routes = [conv_ops.conv_route(
+                torch.empty((b, r, hw, a.cin), dtype=torch.bfloat16,
+                            device="meta"), a, padding=(0, 1), policy=pol_k)
+                for r, a in zip(rows, als)]
+            out, got = launched(lambda: fn(x, als, mesh=mesh, policy=pol_k,
+                                           relu=True))
+            count(f"halo {kind} vgg16 conv3_1-3_3", got, kernels_of(routes))
+            err, peak = max_err(out, ref), ref.float().abs().max().item()
+            ok = out.shape == ref.shape and err <= PARITY_REL * peak \
+                + PARITY_ABS
+            print(f"parallel halo {kind} vgg16 conv3_1-3_3 (b{b} {hw}x{hw}, "
+                  f"{chans}): routes {routes}; max|{kind} - the three convs "
+                  f"in sequence| {err:.3e} (max|ref| {peak:.3e}, limit "
+                  f"{PARITY_REL:g} x max|ref| + {PARITY_ABS:g}) "
+                  f"{'ok' if ok else 'FAIL'} {tag}")
+            if not ok:
+                raise SystemExit(f"the halo {kind} differs from the convs in "
+                                 f"sequence")
+        del x, ref, out, als
+
+        # 9b. tensor parallelism on bsc_spmm
+        label, b, hw, cin, cout, block = PAR_TP
+        pol_tp = dataclasses.replace(pol_k, block_shape=block)
+        al = conv_weight(3, cin, cout, block)
+        x = torch.randn((b, hw, hw, cin), generator=gen, device=dev
+                        ).bfloat16()
+
+        def tp_fwd(y):
+            return tp.tp_conv_lowered(y, al, mesh=mesh, padding=(1, 1),
+                                      relu=True, policy=pol_tp)
+
+        def lowered_fwd(y):
+            return conv_ops.conv2d_lowered_sparse(
+                y, al, stride=(1, 1), padding=(1, 1), dilation=(1, 1),
+                relu=True, policy=pol_tp)
+
+        out, got = launched(lambda: tp_fwd(x))
+        count(f"tp_conv_lowered {label}", got, {"bsc_spmm": 1})
+        err = max_err(out, lowered_fwd(x))
+        del out
+        ms = {k: device_time(f, x, iters=TIMED_ITERS) * 1e3
+              for k, f in (("tp", tp_fwd), ("lowered route", lowered_fwd),
+                           ("tp again", tp_fwd))}
+        print(f"parallel tp_conv_lowered {label} (b{b} {hw}x{hw}, "
+              f"{cin}->{cout}, {SPARSITY:.0%} in {block[0]}x{block[1]} "
+              f"blocks, bf16): max|tp - the lowered route| {err} (must be "
+              f"0); device ms, CUDA-graph replays: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" {tag}")
+        if err != 0:
+            raise SystemExit("tp_conv_lowered differs from the lowered route")
+        del x
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 9c. data parallelism: one AlexNet step against the Solver's
+        build, in_shapes = ZOO["alexnet"]
+        specs = _xavier(build(num_classes=TRAIN_CLASSES, include_loss=True))
+        shapes = {"data": (PAR_DP_BATCH,) + tuple(in_shapes["data"][1:]),
+                  "label": (PAR_DP_BATCH,)}
+        cfg = solvers.SolverConfig(base_lr=0.01, momentum=0.9,
+                                   weight_decay=5e-4)
+        solver = Solver(Net(specs, phase="train"), cfg, seed=SEED,
+                        device=dev, display=0)
+        solver.init(shapes)
+        p0 = solvers.tree_map(lambda t: t.detach().clone(), solver.params)
+        p_dp = solvers.tree_map(lambda t: t.clone(), p0)
+        batch = {"data": torch.randn(shapes["data"], generator=gen,
+                                     device=dev),
+                 "label": torch.randint(0, TRAIN_CLASSES, shapes["label"],
+                                        generator=gen, device=dev)}
+        step = dp.make_dp_train_step(
+            Net(specs, phase="train", device=dev), cfg, mesh,
+            lr_mults=solver.lr_mults, decay_mults=solver.decay_mults)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            _, _, _, loss = step(p_dp, solvers.init_state(cfg, p_dp), {},
+                                 dp.shard_batch(mesh, batch), cfg.base_lr, 1,
+                                 torch.Generator(device=dev).manual_seed(SEED))
+            solver.step(iter([batch]), 1, log=lambda m: None)
+        worst, where = 0.0, ""
+        for name, blobs in p0.items():
+            for k, w0 in blobs.items():
+                rel = rel_l2(p_dp[name][k] - w0, solver.params[name][k] - w0)
+                if rel >= worst:
+                    worst, where = rel, f"{name}.{k}"
+        ok = worst <= DP_UPDATE_REL
+        print(f"parallel dp step alexnet b{PAR_DP_BATCH} (phase 7a's "
+              f"config, world 1) vs one Solver step from the same params: "
+              f"loss {float(loss):.6f} vs {solver._losses[-1]:.6f}; worst "
+              f"update rel L2 {worst:.3e} at {where} (limit "
+              f"{DP_UPDATE_REL:g}) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("the DP step differs from the Solver step")
+        del solver, p0, p_dp, batch, step
+        if cuda:
+            torch.cuda.empty_cache()
+
+        build, in_shapes = ZOO["resnet50"]
+        shapes = {"data": (PAR_DP_BATCH,) + tuple(in_shapes["data"][1:])}
+        net = Net(build(), policy=pol_k)
+        init = net.init(torch.Generator().manual_seed(SEED), shapes)
+        fnet, fparams = fuse_inference(net, _prune(net, init),
+                                       state=net.state0)
+        aligned = fnet.weight_align(fparams)
+        routes = fnet.routes(aligned, shapes)
+        x = torch.randn(shapes["data"], generator=gen, device=dev) * 0.1
+        fwd = dp.make_dp_eval_step(fnet, mesh)
+        weights = params_to(aligned, dev, torch.bfloat16)
+        out, got = launched(lambda: fwd(weights, dp.shard_batch(
+            mesh, {"data": x})))
+        count(f"dp eval resnet50 b{PAR_DP_BATCH}", got,
+              kernels_of(routes.values()))
+        with torch.inference_mode():
+            ref = Net(fnet.specs, policy=ExecutionPolicy()).apply(
+                params_to(fparams, dev), {"data": x})["prob"]
+        rel = rel_l2(out["prob"], ref)
+        ok = rel <= LOGITS_REL_L2
+        print(f"parallel dp eval resnet50 b{PAR_DP_BATCH} kernel routes: "
+              f"prob vs dense f32 rel L2 {rel:.3e} (limit "
+              f"{LOGITS_REL_L2:g}) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("the DP forward disagrees with dense f32")
+        del out, weights, aligned
+        t0 = time.perf_counter()
+        rows = [scaling.measure("resnet50", 1, PAR_DP_BATCH, SPARSITY,
+                                TIMED_ITERS, platform=platform,
+                                policy=ExecutionPolicy(
+                                    conv_mode=ConvMode.SCONV_PAR,
+                                    block_shape=BLOCK,
+                                    use_xla_sparse=False)),
+                scaling.measure_halo(1, SPARSITY, TIMED_ITERS,
+                                     platform=platform),
+                scaling.measure_tp(1, SPARSITY, TIMED_ITERS,
+                                   platform=platform)]
+        print(f"parallel scaling.measure resnet50 b{PAR_DP_BATCH} world 1, "
+              f"the port's kernel routes, f32 activations (the JAX harness "
+              f"runs the XBSP arms): "
+              f"{rows[0]['samples_per_s']} samples/s, "
+              f"{rows[0]['gnnz_per_s']} Gnnz/s, {rows[0]['time_s'] * 1e3:.3f}"
+              f" ms per forward; measure_halo {rows[1]['gnnz_per_s']} "
+              f"Gnnz/s ({rows[1]['time_s'] * 1e3:.4f} ms); measure_tp "
+              f"{rows[2]['gnnz_per_s']} Gnnz/s "
+              f"({rows[2]['time_s'] * 1e3:.4f} ms); device_time medians of "
+              f"CUDA-graph replays, {time.perf_counter() - t0:.1f} s wall "
+              f"[{rows[0]['device']}]")
+        if any(r["devices"] != 1 or not r["time_s"] > 0 for r in rows):
+            raise SystemExit(f"scaling rows {rows}")
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dryrun_multichip(1, platform=platform)
+        line = buf.getvalue().strip()
+        print(f"parallel {line}; {time.perf_counter() - t0:.1f} s wall "
+              f"{tag}")
+        if not line.startswith("dryrun_multichip(1): OK"):
+            raise SystemExit(f"dry run: {line}")
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 9d. the permutation on phase 4c's element-wise pruned weights
+        t0 = time.perf_counter()
+        enet, eparams = fuse_inference(net, _prune(net, init, block=None),
+                                       state=net.state0)
+        pairs = permute.find_permutable_pairs(enet)
+        perm0, rep0 = permute.deploy_unstructured(
+            enet, eparams, block_shape=BLOCK, min_density=0.0)
+        t_perm = time.perf_counter() - t0
+        before = sum(r["blocks_before"] for r in rep0["permuted"])
+        after = sum(r["blocks_after"] for r in rep0["permuted"])
+        print(f"parallel permute resnet50 {SPARSITY:.0%} element-wise "
+              f"(phase 4c's weights), fused: {len(pairs)} permutable pairs, "
+              f"{len(rep0['permuted'])} permuted; live {BLOCK[0]}x{BLOCK[1]}"
+              f" blocks of the permuted producers {before} -> {after}; "
+              f"{t_perm:.1f} s host {tag}")
+        ell_net = Net(enet.specs, policy=ExecutionPolicy(
+            conv_mode=ConvMode.LOWERED_SPARSE,
+            sparse_format=SparseFormat.ELL, block_shape=BLOCK))
+        with torch.inference_mode():
+            logits = [ell_net.apply(params_to(ell_net.weight_align(p), dev),
+                                    {"data": x}, return_blobs=True)["fc1000"]
+                      for p in (eparams, perm0)]
+        rel = rel_l2(logits[1], logits[0])
+        ok = rel <= PERMUTE_LOSSLESS_REL
+        print(f"parallel permute min_density 0: ELL route f32, permuted vs "
+              f"unpermuted fc1000 rel L2 {rel:.3e} (limit "
+              f"{PERMUTE_LOSSLESS_REL:g}) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("the permutation changed the net's function")
+        del logits, perm0
+        dep, rep = permute.deploy_unstructured(
+            enet, eparams, block_shape=BLOCK, min_density=PAR_MIN_DENSITY)
+        knet = Net(enet.specs, policy=pol_k)
+        kal = knet.weight_align(dep)
+        routes = knet.routes(kal, shapes)
+        live = sum(kal[n].bsc.nnz_blocks for n in routes
+                   if getattr(kal[n], "bsc", None) is not None)
+        slots = sum(kal[n].bsc.n_brows * kal[n].bsc.n_bcols for n in routes
+                    if getattr(kal[n], "bsc", None) is not None)
+        kfwd = knet.inference_fn(params_to(kal, dev, torch.bfloat16),
+                                 return_blobs=True)
+        out, got = launched(lambda: kfwd({"data": x}))
+        count(f"permute min_density {PAR_MIN_DENSITY:g} resnet50 "
+              f"b{PAR_DP_BATCH}", got, kernels_of(routes.values()))
+        with torch.inference_mode():
+            ref = Net(enet.specs, policy=ExecutionPolicy()).apply(
+                params_to(dep, dev), {"data": x},
+                return_blobs=True)["fc1000"]
+        rel = rel_l2(out["fc1000"], ref)
+        ok = rel <= LOGITS_REL_L2
+        zeroed = np.mean([r["extra_zeroed_frac"] for r in rep["densified"]])
+        print(f"parallel permute min_density {PAR_MIN_DENSITY:g}: "
+              f"{len(rep['densified'])} layers densified, mean extra zeroed "
+              f"{zeroed:.4f}; live blocks {live} of {slots} after "
+              f"densification; routes "
+              f"{dict(collections.Counter(routes.values()))}; fc1000 vs "
+              f"dense f32 on the deployed weights rel L2 {rel:.3e} (limit "
+              f"{LOGITS_REL_L2:g}) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("the deployed net disagrees with dense f32")
+        del out, kfwd, kal, dep, eparams, init, fparams
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 9e. the Classifier and the Detector on AlexNet, kernel routes
+        build, in_shapes = ZOO["alexnet"]
+        specs = [s for s in build() if s.type != "Softmax"]  # fc8 logits
+        n_crops = 10 * PAR_VISION_IMAGES
+        shapes = {"data": (n_crops,) + tuple(in_shapes["data"][1:])}
+        net = Net(specs, policy=pol_k, device=dev)
+        init = net.init(torch.Generator().manual_seed(SEED), shapes)
+        vnet, vparams = fuse_inference(net, _prune(net, init, keep_norm=True),
+                                       state=net.state0)
+        vnet.device = dev
+        valigned = vnet.weight_align(vparams)
+        dense_net = Net(vnet.specs, device=dev)
+        dense_net.blob_shapes = vnet.blob_shapes
+        images = [rng.random((PAR_VISION_HW, PAR_VISION_HW, 3)).astype(
+            np.float32) * np.float32(2.0) for _ in range(PAR_VISION_IMAGES)]
+        kw = dict(output_name="fc8", image_dims=(PAR_VISION_HW,) * 2,
+                  mean=[1.0, 1.0, 1.0])
+        clf = vision.Classifier(vnet, valigned, **kw)
+        preds, got = launched(lambda: clf.predict(images))
+        count(f"vision Classifier alexnet {PAR_VISION_IMAGES} images x 10 "
+              f"crops", got, kernels_of(vnet.routes(valigned, shapes)
+                                       .values()))
+        ref = vision.Classifier(dense_net, vparams, **kw).predict(images)
+        rel = rel_l2(torch.from_numpy(preds), torch.from_numpy(ref))
+        ok = preds.shape == (PAR_VISION_IMAGES, 1000) and rel <= \
+            LOGITS_REL_L2
+        print(f"parallel vision Classifier.predict alexnet: "
+              f"{PAR_VISION_IMAGES} images {PAR_VISION_HW}x{PAR_VISION_HW} "
+              f"-> {n_crops} crops 227x227 on the kernel routes, averaged "
+              f"fc8 {preds.shape} vs dense f32 rel L2 {rel:.3e} (limit "
+              f"{LOGITS_REL_L2:g}) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("the Classifier disagrees with dense f32")
+        windows = [(int(y), int(x), int(y) + 96, int(x) + 128) for y, x in
+                   rng.integers(0, PAR_VISION_HW - 128, (PAR_WINDOWS, 2))]
+        det = vision.Detector(vnet, valigned, output_name="fc8")
+        dets, got = launched(lambda: det.detect_windows(
+            [(images[0], windows)]))
+        count(f"vision Detector alexnet {PAR_WINDOWS} windows", got,
+              kernels_of(vnet.routes(valigned, {
+                  "data": (PAR_WINDOWS,) + shapes["data"][1:]}).values()))
+        ref = vision.Detector(dense_net, vparams,
+                              output_name="fc8").detect_windows(
+            [(images[0], windows)])
+        rel = rel_l2(torch.from_numpy(np.stack([d["prediction"]
+                                                for d in dets])),
+                     torch.from_numpy(np.stack([d["prediction"]
+                                                for d in ref])))
+        ok = (len(dets) == PAR_WINDOWS and rel <= LOGITS_REL_L2
+              and [d["window"] for d in dets] == windows)
+        print(f"parallel vision Detector.detect_windows alexnet: "
+              f"{PAR_WINDOWS} windows with context padding, warped to "
+              f"227x227 (PIL), fc8 vs dense f32 rel L2 {rel:.3e} (limit "
+              f"{LOGITS_REL_L2:g}) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("the Detector disagrees with dense f32")
+    finally:
+        if made:
+            dist.destroy_process_group()
+    wall = time.perf_counter() - t_phase
+    print(f"parallel phase: {wall:.1f} s wall (budget {PAR_BUDGET_S} s) "
+          f"{tag}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -2815,6 +3281,10 @@ def main() -> int:
     # ---- 8. the data slice -------------------------------------------------
     torch.cuda.empty_cache()
     _phase_data(mods, tag, results, dev)
+
+    # ---- 9. parallel/, permute, vision at world size 1 ---------------------
+    torch.cuda.empty_cache()
+    _phase_parallel(mods, tag, results, dev)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

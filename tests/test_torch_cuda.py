@@ -46,6 +46,12 @@ generator picks window members.
 The timer and the graph forward: ``device_time`` replays CUDA graphs,
 ``Net.inference_fn(cuda_graph=True)`` replays the eager forward's results,
 and a capture that would have to measure an autotune key raises.
+
+parallel/ at world size 1, over NCCL (a group from an in-process store):
+the halo path's ``engine="pallas"`` launches ``sconv_gc`` once and gives
+the bits of ``sconv_gc.sconv`` on the whole map; ``tp_conv_lowered``
+launches ``bsc_spmm`` once and gives the bits of the lowered route; the
+halo chain and tower give the three convs run in sequence.
 """
 
 import numpy as np
@@ -1095,3 +1101,85 @@ def test_stochastic_pool_train_on_a_cuda_generator(dev):
     win = x.reshape(4, 4, 2, 4, 2, 16).permute(0, 1, 3, 5, 2, 4).reshape(
         4, 4, 4, 16, 4)
     assert ((win == a[..., None]).any(-1)).all()
+
+
+@pytest.fixture
+def mesh1(dev):
+    """A (1, 1) mesh over a world of one NCCL rank, made for the test."""
+    import torch.distributed as dist
+
+    from caffe_escoin_tpu_torch.parallel import mesh as mesh_lib
+
+    made = not dist.is_initialized()
+    mesh_lib.multihost_init(platform="cuda")
+    try:
+        yield mesh_lib.make_mesh()
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _kernel_policy():
+    from caffe_escoin_tpu_torch.engine.context import ConvMode
+
+    return ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=(64, 64),
+                           use_xla_sparse=False)
+
+
+def test_halo_pallas_engine_at_world1_is_sconv_gc(dev, mesh1):
+    from caffe_escoin_tpu_torch.parallel import halo
+
+    rng = np.random.default_rng(0)
+    pol = _kernel_policy()
+    al = _weight(rng, 3, 64, 64, 0.75, (64, 64), False, dev)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 20, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    sconv_gc.reset_counts()
+    got = halo.spatial_sconv2d(x, al, mesh=mesh1, padding=(1, 1), policy=pol,
+                               relu=True, engine="pallas")
+    assert sconv_gc.launches == 1
+    want = sconv_gc.sconv(x, al, padding=(1, 1), relu=True)
+    assert torch.equal(got, want)
+
+
+def test_tp_conv_lowered_at_world1_is_the_lowered_route(dev, mesh1):
+    from caffe_escoin_tpu_torch.ops.conv import conv2d_lowered_sparse
+    from caffe_escoin_tpu_torch.parallel import tp
+
+    rng = np.random.default_rng(1)
+    pol = _kernel_policy()
+    al = _weight(rng, 3, 64, 64, 0.75, (64, 64), False, dev)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 16, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    bsc_spmm.reset_counts()
+    got = tp.tp_conv_lowered(x, al, mesh=mesh1, padding=(1, 1), relu=True,
+                             policy=pol)
+    assert bsc_spmm.launches == 1
+    want = conv2d_lowered_sparse(x, al, stride=(1, 1), padding=(1, 1),
+                                 dilation=(1, 1), relu=True, policy=pol)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["chain", "tower"])
+def test_halo_stack_at_world1_is_the_convs_in_sequence(dev, mesh1, kind):
+    from caffe_escoin_tpu_torch.ops import conv as conv_ops
+    from caffe_escoin_tpu_torch.parallel import halo
+
+    rng = np.random.default_rng(2)
+    pol = _kernel_policy()
+    als = [_weight(rng, k, cin, cout, 0.75, (64, 64), False, dev)
+           for k, cin, cout in ((3, 64, 128), (1, 128, 128), (3, 128, 64))]
+    x = torch.from_numpy(rng.standard_normal((2, 12, 12, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    fn = (halo.spatial_sconv_chain if kind == "chain"
+          else halo.spatial_sconv_tower)
+    got = fn(x, als, mesh=mesh1, policy=pol, relu=True)
+    want = x
+    for a in als:
+        p = (a.kernel_shape[0] - 1) // 2
+        want = conv_ops.conv2d(want, a, padding=(p, p), relu=True,
+                               policy=pol)
+    assert got.shape == want.shape
+    ref = want.float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= 1e-2 * ref.abs().max().item() + 1e-2, err

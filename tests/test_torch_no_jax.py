@@ -50,7 +50,9 @@ COPIES = ("ops.s2d", "ops.wpack", "ops.norm", "ops.structural",
           "engine.solvers", "engine.solver", "utils.gradient_check",
           "data.pipeline", "nn.convert", "data.transformer",
           "data.lmdb_io", "data.native", "nn.data_layers", "ops.deconv",
-          "ops.recurrent")
+          "ops.recurrent", "sparse.permute", "tools.vision", "tools.scaling",
+          "parallel.mesh", "parallel.launch", "parallel.halo", "parallel.tp",
+          "parallel.dp", "parallel.dryrun")
 
 
 def test_port_imports_no_jax():
