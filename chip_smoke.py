@@ -33,7 +33,10 @@ their model I/O, on ResNet-50 b32 (phase 6); then the training path, whose
 trained, pruned AlexNet goes back onto the kernels (phase 7); then the data
 slice: ResNet-50 fed by a Data layer over an LMDB, and AlexNet trained from
 three sources (phase 8); then the parallel paths at world size 1 over
-NCCL, the channel permutation and the image tools (phase 9).
+NCCL, the channel permutation and the image tools (phase 9); then the
+example scripts on real digits: LeNet and AlexNet trained, pruned and
+scored on the sparse paths, the siamese pair and the net surgery (phase
+10).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -273,15 +276,44 @@ Phases, one line each (any failure exits non-zero):
      40 crops, the averaged fc8 within 5e-2 relative L2 of the dense f32
      net's; ``Detector.detect_windows`` on 8 windows likewise. The phase's
      wall time beside its 60 s budget.
+  10. the example scripts (``caffe_escoin_tpu_torch/examples/``, called in
+     process through their ``run``) on the 1,797 real digits, f32 with
+     TF32 off; each step of every Solver timed between CUDA events around
+     ``Solver._step`` beside the wall per step and the mask recomputes'
+     host time. 10a: ``train_eval_sparse`` as docs/EXPERIMENTS.md's LeNet
+     table (``EX_LENET``: 800 iterations, one-shot element-wise and 8x8
+     block legs at 70/80/90% with 300 masked fine-tune steps each, the
+     unstructured deployment at 90%), scored dense and on the XBSP arms
+     (SCONV_PAR, bf16 products): dense accuracy >= 0.95, every row's
+     achieved sparsity within 0.01 of its target and its sparse score
+     within 2/256 of its fine-tuned one; the table printed. 10b: AlexNet
+     as docs/EXPERIMENTS_alexnet.md:76-79 (227x227, b64, xavier, SGD 0.01,
+     gradual 90% in 128x128 blocks; ``EX_ALEXNET``) with its steps cut to
+     60 dense + 60 ramp + 20 frozen (``--examples-full``: 1200 + 800 +
+     500, phase 10 alone after the build): every loss finite, each pruned
+     weight's zero-block share 0.9 +- one block, the sparse score within
+     2/256; then the same weights aligned with ``use_xla_sparse=False`` on
+     the 256 test digits: launches equal to what ``Net.routes`` names (4
+     ``sconv_fused`` and 3 ``bsc_spmm`` per batch, fc8's 4096x10 BSC with
+     bn 16 among them), fc8 within 5e-2 relative L2 of the same weights
+     dense f32, the accuracy within 2/256 of the XBSP score. 10c:
+     ``siamese_digits`` at its defaults (400 iterations, b64): one
+     parameter copy, negative pairs farther apart than positive ones.
+     10d: ``net_surgery`` (CaffeNet, 100 classes): the 227x227 score map
+     within 1e-5 of the classifier's probabilities, a 451x451 input gives
+     a map larger than 1x1. Every other part launches no kernel (counted).
+     The phase's wall time beside its 90 s budget.
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
-``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e, 7c, 8b and
-9; phase 6 and the rest of phases 7 and 8 launch none). As the last line
+``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e, 7c, 8b, 9
+and 10b's kernel routes; phase 6 and the rest of phases 7, 8 and 10 launch
+none). As the last line
 {"ok": true, "device": {...}}.
 
-Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
-device and nvcc; exits 1 without them.
+Run from the repository root: ``python3 chip_smoke.py`` (or
+``python3 chip_smoke.py --examples-full``: the build and phase 10 alone,
+10b at full length). Needs one CUDA device and nvcc; exits 1 without them.
 """
 
 from __future__ import annotations
@@ -292,6 +324,7 @@ import io
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -479,6 +512,29 @@ PAR_VISION_IMAGES, PAR_VISION_HW, PAR_WINDOWS = 4, 256, 8
 DP_UPDATE_REL = 1e-6
 PERMUTE_LOSSLESS_REL = 1e-3
 PAR_BUDGET_S = 60
+# phase 10: the examples (caffe_escoin_tpu_torch/examples/). 10a:
+# docs/EXPERIMENTS.md's LeNet table (800 iterations; element-wise and 8x8
+# block one-shot legs at 70/80/90%, 300 fine-tune steps each; the
+# unstructured deployment at 90%); 10b: docs/EXPERIMENTS_alexnet.md:76-79's
+# AlexNet recipe (gradual 90% in 128x128 blocks, b64, SGD 0.01, xavier),
+# its 1200 + 800 + 500 steps cut to 60 + 60 + 20 (7 mask recomputes;
+# ``--examples-full`` runs the whole recipe); 10d at 100 classes, as the
+# JAX script
+EX_LENET = ["--model", "lenet", "--iters", "800", "--sparsities",
+            "0.7,0.8,0.9", "--modes", "oneshot,deploy"]
+EX_ALEXNET = ["--model", "alexnet", "--block", "128,128", "--sparsities",
+              "0.9", "--modes", "gradual", "--batch", "64", "--base_lr",
+              "0.01", "--filler", "xavier"]
+EX_ALEXNET_SHORT = ["--iters", "60", "--gradual_iters", "60",
+                    "--finetune_iters", "20"]
+EX_ALEXNET_FULL = ["--iters", "1200", "--gradual_iters", "800",
+                   "--finetune_iters", "500"]
+EX_DENSE_MIN = 0.95
+# two of the 256 test digits; the targets' element share (partial edge
+# blocks make a block row's achieved sparsity differ from its block share)
+EX_DELTA, EX_SPARSITY_TOL = 2 / 256, 0.01
+EX_SURGERY_CLASSES = 100
+EX_BUDGET_S = 90
 
 def _card_line() -> str:
     proc = subprocess.run(
@@ -2141,9 +2197,269 @@ def _phase_parallel(mods, tag, results, dev):
           f"{tag}")
 
 
-def main() -> int:
+@contextlib.contextmanager
+def _solver_clock(dev):
+    """While open, every ``Solver`` records its iterations: the loss of
+    each, its time between CUDA events around ``Solver._step`` (forward,
+    backward, update and masks; the host clock on the CPU), the wall of
+    each ``Solver.step`` call (batches and mask recomputes included, ended
+    by a synchronize) and the host seconds of each mask recompute
+    (``Solver.mask_update_s``)."""
+    import torch
+
+    from caffe_escoin_tpu_torch.engine.solver import Solver
+
+    cuda = dev.type == "cuda"
+    clock = dict(losses=[], spans=[], wall=0.0, iters=0, masks=[])
+    step, inner, remask = (Solver.step, Solver._step,
+                           Solver._maybe_update_masks)
+
+    def timed_inner(self, *a, **k):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = inner(self, *a, **k)
+            end.record()
+            clock["spans"].append((start, end))
+        else:
+            t0 = time.perf_counter()
+            loss = inner(self, *a, **k)
+            clock["spans"].append((time.perf_counter() - t0, None))
+        clock["losses"].append(float(loss))
+        return loss
+
+    def timed_step(self, data_iter, iters, log=print):
+        t0, it0 = time.perf_counter(), self.iter
+        out = step(self, data_iter, iters, log=log)
+        if cuda:
+            torch.cuda.synchronize()
+        clock["wall"] += time.perf_counter() - t0
+        clock["iters"] += self.iter - it0
+        return out
+
+    def timed_remask(self, log=print):
+        remask(self, log=log)
+        if self.mask_update_s is not None:
+            clock["masks"].append(self.mask_update_s)
+
+    Solver.step, Solver._step = timed_step, timed_inner
+    Solver._maybe_update_masks = timed_remask
+    try:
+        yield clock
+    finally:
+        Solver.step, Solver._step = step, inner
+        Solver._maybe_update_masks = remask
+
+
+def _clock_line(clock) -> str:
+    """Steps, ms per step between CUDA events (median, mean), wall per step
+    with and without the mask recomputes, and their host time."""
+    ms = [s * 1e3 if e is None else s.elapsed_time(e)
+          for s, e in clock["spans"]]
+    n, masks = max(1, clock["iters"]), clock["masks"]
+    return (f"{clock['iters']} steps: {statistics.median(ms):.2f} ms median "
+            f"({statistics.mean(ms):.2f} mean) between events around "
+            f"Solver._step, wall {clock['wall'] / n * 1e3:.2f} ms per step "
+            f"({(clock['wall'] - sum(masks)) / n * 1e3:.2f} without the "
+            f"{len(masks)} mask recomputes, {sum(masks):.2f} s of host "
+            f"together)")
+
+
+def _ex_rows(res, label, tag, dense_min=None):
+    """Print an example's table and fail unless every row's achieved
+    sparsity is within ``EX_SPARSITY_TOL`` of its target and its sparse
+    score within ``EX_DELTA`` of its fine-tuned one (and the dense score
+    at least ``dense_min``)."""
+    from caffe_escoin_tpu_torch.examples import train_eval_sparse as tes
+
+    for line in tes.markdown(res).splitlines():
+        if line:
+            print(f"examples {label} | {line}")
+    bad = [r for r in res["rows"]
+           if abs(r["achieved_sparsity"] - r["target_sparsity"])
+           > EX_SPARSITY_TOL or abs(r["sparse_exec_delta"]) > EX_DELTA]
+    ok = not bad and (dense_min is None or res["dense_acc"] >= dense_min)
+    print(f"examples {label}: dense {res['dense_acc']:.4f}"
+          + (f" (limit >= {dense_min})" if dense_min is not None else "")
+          + f", {len(res['rows'])} rows, every achieved sparsity within "
+          f"{EX_SPARSITY_TOL} of its target and every |sparse-exec - "
+          f"fine-tuned| <= {EX_DELTA:.4f}: {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit(f"examples {label}: dense {res['dense_acc']}, rows "
+                         f"out of bounds {bad}")
+
+
+def _phase_examples(mods, tag, results, dev, full=False):
+    """Phase 10: the example scripts of caffe_escoin_tpu_torch/examples/
+    on the card; see the module docstring. ``full`` runs 10b at the JAX
+    package's recipe length (``EX_ALEXNET_FULL``). Adds 10b's kernel-route
+    launches to ``results``."""
+    import dataclasses
+    from argparse import Namespace
+
+    import torch
+
+    from caffe_escoin_tpu_torch.examples import net_surgery, siamese_digits
+    from caffe_escoin_tpu_torch.examples import train_eval_sparse as tes
+    from caffe_escoin_tpu_torch.nn import Net, params_to
+    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    platform = dev.type
+    quiet = dict(log=lambda *_: None)
+
+    def launches():
+        if cuda:
+            torch.cuda.synchronize()
+        return {k: m.launches for k, m in mods.items()}
+
+    def no_launches(label):
+        got = launches()
+        print(f"examples {label} launches: {got} (expected none: the XBSP "
+              f"arms, dense layers and training) {tag}")
+        if any(got.values()):
+            raise SystemExit(f"examples {label} launched a hand kernel")
+
+    # 10a. LeNet: docs/EXPERIMENTS.md's table
+    for m in mods.values():
+        m.reset_counts()
+    t0 = time.perf_counter()
+    with _solver_clock(dev) as clock:
+        res, _ = tes.run(tes.parse_args(EX_LENET + ["--platform", platform]),
+                         **quiet)
+    _ex_rows(res, "lenet", tag, dense_min=EX_DENSE_MIN)
+    dep = res["unstructured_deployment"]
+    print(f"examples lenet: unstructured deployment at "
+          f"{dep['sparsity']:.0%}: live blocks {dep['blocks_before']} -> "
+          f"{dep['blocks_after_permute']}, block density "
+          f"{dep['block_density_after_densify']}, accuracy "
+          f"{dep['acc_after_pipeline']:.4f}; {_clock_line(clock)}; "
+          f"{time.perf_counter() - t0:.1f} s wall {tag}")
+    no_launches("lenet")
+
+    # 10b. AlexNet: docs/EXPERIMENTS_alexnet.md's recipe
+    argv = EX_ALEXNET + (EX_ALEXNET_FULL if full else EX_ALEXNET_SHORT)
+    args = tes.parse_args(argv + ["--platform", platform])
+    t0 = time.perf_counter()
+    with _solver_clock(dev) as clock:
+        res, exp = tes.run(args, **quiet)
+    wall = time.perf_counter() - t0
+    _ex_rows(res, "alexnet", tag)
+    row, s = res["rows"][0], exp.solver
+    losses = clock["losses"]
+    if not losses or not all(np.isfinite(losses)):
+        raise SystemExit(f"examples alexnet: a loss is not finite "
+                         f"({len(losses)} steps)")
+    pruned = []
+    for name in ("conv2", "conv3", "conv4", "conv5", "fc6", "fc7", "fc8"):
+        share, n = _zero_block_share(s.params[name]["w"].cpu().numpy(),
+                                     exp.block)
+        pruned.append((name, share, n))
+        if abs(share - row["target_sparsity"]) > 1.0 / n:
+            raise SystemExit(f"examples alexnet: {name} has {share:.4f} of "
+                             f"its {n} blocks zero, not "
+                             f"{row['target_sparsity']} within one block")
+    print(f"examples alexnet ({' '.join(argv)}): losses finite, "
+          f"{losses[0]:.4f} first, {losses[-1]:.4f} last; zero "
+          f"{exp.block[0]}x{exp.block[1]} blocks " + ", ".join(
+              f"{n} {sh:.4f} of {b}" for n, sh, b in pruned)
+          + f" (limit {row['target_sparsity']} +- one block) ok; "
+          f"{_clock_line(clock)}; {wall:.1f} s wall {tag}")
+    no_launches("alexnet (XBSP scoring)")
+    # the same aligned weights on the kernel routes
+    pol = dataclasses.replace(exp.sparse_net.policy, use_xla_sparse=False)
+    specs = tes.model_specs(args.model, args.filler, include_loss=True)
+    knet = Net(specs, policy=pol, phase="test", device=dev)
+    aligned = knet.weight_align(s.params)
+    ted, tel = exp.test_data
+    b = args.batch
+    shapes = {"data": (b,) + ted.shape[1:], "label": (b,)}
+    routes = knet.routes(aligned, shapes)
+    expect = collections.Counter(ROUTE_KERNELS[r] for r in routes.values()
+                                 if r in ROUTE_KERNELS)
+    head = next(l.spec.bottoms[0] for l in knet.layers
+                if l.spec.type == "SoftmaxWithLoss")
+    state = params_to(s.net_state, dev)
+    fwd = knet.inference_fn(params_to(aligned, dev), state=state,
+                            return_blobs=True)
+    fwd_d = exp.test_net.inference_fn(params_to(s.params, dev), state=state,
+                                      return_blobs=True)
+    batches = [{"data": torch.as_tensor(ted[i:i + b]).to(dev),
+                "label": torch.as_tensor(tel[i:i + b]).to(dev)}
+               for i in range(0, len(ted) - b + 1, b)]
+    for m in mods.values():
+        m.reset_counts()
+    got = torch.cat([fwd(x)[head].float() for x in batches])
+    counted = launches()
+    ref = torch.cat([fwd_d(x)[head].float() for x in batches])
+    rel = _rel_l2(got, ref)
+    labels = np.concatenate([tel[i:i + b] for i in
+                             range(0, len(ted) - b + 1, b)])
+    acc_k = float((got.argmax(-1).cpu().numpy() == labels).mean())
+    ok = (all(counted[k] == len(batches) * expect[k] for k in mods)
+          and expect["sconv_fused"] >= 4 and rel <= LOGITS_REL_L2
+          and abs(acc_k - row["acc_sparse_exec"]) <= EX_DELTA)
+    print(f"examples alexnet kernel routes (use_xla_sparse=False): routes "
+          f"{dict(collections.Counter(routes.values()))}, launches over "
+          f"{len(batches)} batches of {b} {counted} (expected "
+          f"{len(batches)} x {dict(expect)}); {head} vs the same weights "
+          f"dense f32 rel L2 {rel:.3e} (limit {LOGITS_REL_L2:g}); accuracy "
+          f"dense {row['acc_finetuned']:.4f}, XBSP "
+          f"{row['acc_sparse_exec']:.4f}, kernel routes {acc_k:.4f} (limit "
+          f"{EX_DELTA:.4f} from XBSP): "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("examples alexnet on the kernel routes failed")
+    for k, n in counted.items():
+        results[k]["launches"] += n
+    del exp, s, fwd, fwd_d, aligned, got, ref, batches
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 10c. the siamese pair at its defaults
+    for m in mods.values():
+        m.reset_counts()
+    t0 = time.perf_counter()
+    r = siamese_digits.run(Namespace(iters=400, batch=64, base_lr=0.02,
+                                     platform=platform), **quiet)
+    shared = "conv1_p" not in r["solver"].params
+    ok = shared and r["neg"] > r["pos"]
+    print(f"examples siamese_digits (400 iterations, b64): one parameter "
+          f"copy {shared}, mean distance positive {r['pos']:.3f}, negative "
+          f"{r['neg']:.3f}, pair accuracy at 0.5 {r['pair_acc']:.3f}; "
+          f"{time.perf_counter() - t0:.1f} s wall "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("examples siamese_digits failed")
+    no_launches("siamese_digits")
+
+    # 10d. net surgery
+    t0 = time.perf_counter()
+    err, shape = net_surgery.run(platform, EX_SURGERY_CLASSES, **quiet)
+    print(f"examples net_surgery (CaffeNet, {EX_SURGERY_CLASSES} classes): "
+          f"227x227 score map vs the classifier max abs err {err:.3e} "
+          f"(limit {net_surgery.PARITY_TOL:g}); 451x451 -> score map "
+          f"{shape}; {time.perf_counter() - t0:.1f} s wall ok {tag}")
+    no_launches("net_surgery")
+    print(f"examples phase: {time.perf_counter() - t_phase:.1f} s wall "
+          f"(budget {EX_BUDGET_S} s{', full length' if full else ''}) "
+          f"{tag}")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
     import torch.nn.functional as F
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU; see the module docstring.")
+    ap.add_argument("--examples-full", action="store_true",
+                    help="after the build, run phase 10 alone, with 10b at "
+                         "the JAX recipe's length (1200 + 800 + 500 steps)")
+    args = ap.parse_args(argv)
 
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2221,6 +2537,14 @@ def main() -> int:
             f"{k} {f['n']} instances, {min(f['regs'])}-{max(f['regs'])} "
             f"registers, {min(f['smem'])}-{max(f['smem'])} B static shared, "
             f"{f['spill']} B spilled" for k, f in fams.items()) + f" {tag}")
+
+    if args.examples_full:
+        _phase_examples(mods, tag, collections.defaultdict(
+            lambda: {"launches": 0}), dev, full=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. kernel parity at main-path shapes -----------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3285,6 +3609,10 @@ def main() -> int:
     # ---- 9. parallel/, permute, vision at world size 1 ---------------------
     torch.cuda.empty_cache()
     _phase_parallel(mods, tag, results, dev)
+
+    # ---- 10. the examples: real digits, trained, pruned, scored sparse -----
+    torch.cuda.empty_cache()
+    _phase_examples(mods, tag, results, dev)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

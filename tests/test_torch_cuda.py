@@ -52,6 +52,11 @@ the halo path's ``engine="pallas"`` launches ``sconv_gc`` once and gives
 the bits of ``sconv_gc.sconv`` on the whole map; ``tp_conv_lowered``
 launches ``bsc_spmm`` once and gives the bits of the lowered route; the
 halo chain and tower give the three convs run in sequence.
+
+The examples (caffe_escoin_tpu_torch/examples/): a LeNet leg of
+train_eval_sparse on the card gives the CPU's accuracies within 1/256 from
+the same weights, and AlexNet on the digits, block-pruned and aligned on
+the kernel routes, launches what ``Net.routes`` names.
 """
 
 import numpy as np
@@ -1183,3 +1188,86 @@ def test_halo_stack_at_world1_is_the_convs_in_sequence(dev, mesh1, kind):
     ref = want.float()
     err = (got.float() - ref).abs().max().item()
     assert err <= 1e-2 * ref.abs().max().item() + 1e-2, err
+
+
+def _example_args(**kw):
+    from caffe_escoin_tpu_torch.examples import train_eval_sparse
+
+    args = train_eval_sparse.parse_args([])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def test_example_lenet_leg_on_cuda_matches_cpu(dev, tmp_path):
+    """The one-shot block-90% LeNet leg of examples/train_eval_sparse.py
+    (5 masked fine-tune steps, then dense and aligned scoring of the 256
+    test digits) on the card and on the CPU from the same weights (the
+    port's init): each accuracy within 1/256 (cuDNN's f32 sums and the
+    XBSP arms' bf16 products on the card)."""
+    from caffe_escoin_tpu_torch.examples.train_eval_sparse import (
+        Experiment, clone)
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, params_to
+
+    base = Net(ZOO["lenet"][0](include_loss=True)).init(
+        torch.Generator().manual_seed(0),
+        {"data": (1, 28, 28, 1), "label": (1,)})
+    rows = {}
+    for where in ("cpu", "cuda"):
+        exp = Experiment(_example_args(platform=where, finetune_iters=5,
+                                       workdir=str(tmp_path / where)),
+                         log=lambda *_: None)
+        try:
+            exp.base_params = params_to(clone(base), exp.device)
+            exp.base_state = {}
+            rows[where] = exp.oneshot("block", (8, 8), 0.9)
+            assert exp.solver.params["ip1"]["w"].device.type == where
+        finally:
+            exp.close()
+    for key in ("acc_pruned", "acc_finetuned", "acc_sparse_exec"):
+        assert abs(rows["cuda"][key] - rows["cpu"][key]) <= 1 / 256 + 1e-9, (
+            key, rows)
+    assert rows["cuda"]["achieved_sparsity"] == rows["cpu"][
+        "achieved_sparsity"]
+
+
+def test_example_alexnet_on_the_kernel_routes_launches_its_routes(dev):
+    """AlexNet on the digits (examples/train_eval_sparse.py's model, xavier
+    fillers, 10 classes), its conv2-5 and fc6-8 pruned to 90% in 128x128
+    blocks (the gradual leg's selection, fc8 4096x10 included: its BSC has
+    bn = 16), aligned in SCONV_PAR with ``use_xla_sparse=False``: scoring
+    one batch of 64 launches what ``Net.routes`` names, 4 sconv_fused and
+    3 bsc_spmm."""
+    from caffe_escoin_tpu_torch.engine.context import ConvMode
+    from caffe_escoin_tpu_torch.examples.digits import load_digits_upscaled
+    from caffe_escoin_tpu_torch.examples.train_eval_sparse import (
+        evaluate, gradual_select, model_specs)
+    from caffe_escoin_tpu_torch.nn import Net
+    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
+    from caffe_escoin_tpu_torch.utils.pruning import gradual_masks
+
+    specs = model_specs("alexnet", "xavier", include_loss=True)
+    shapes = {"data": (64, 227, 227, 3), "label": (64,)}
+    params = Net(specs).init(torch.Generator().manual_seed(0), shapes)
+    masks = gradual_masks(params, 0.9, block_shape=(128, 128),
+                          select=gradual_select)
+    params = {n: {k: v * torch.as_tensor(masks[n][k]) for k, v in p.items()}
+              for n, p in params.items()}
+    net = Net(specs, phase="test", device=dev, policy=ExecutionPolicy(
+        conv_mode=ConvMode.SCONV_PAR, block_shape=(128, 128),
+        sparse_threshold=0.4, sconv_threshold=0.4, use_xla_sparse=False))
+    aligned = net.weight_align(params)
+    assert aligned["fc8"].bsc.block_shape[1] == 16
+    routes = net.routes(aligned, shapes)
+    expect = {k: sum(ROUTE_KERNELS.get(r) == k for r in routes.values())
+              for k in ("sconv_fused", "bsc_spmm", "sconv_gc")}
+    assert expect == {"sconv_fused": 4, "bsc_spmm": 3, "sconv_gc": 0}, routes
+    _, (ted, tel) = load_digits_upscaled(227, 3)
+    for m in (sconv_fused, bsc_spmm, sconv_gc):
+        m.reset_counts()
+    acc = evaluate(net, aligned, {}, ted[:64], tel[:64])
+    torch.cuda.synchronize()
+    assert 0.0 <= acc <= 1.0
+    assert {"sconv_fused": sconv_fused.launches, "bsc_spmm": bsc_spmm.launches,
+            "sconv_gc": sconv_gc.launches} == expect
