@@ -19,9 +19,11 @@ in a JSON file. The port differs from the JAX module in five ways:
   ``_key_traffic`` reads;
 * ``code_fingerprint`` hashes the port's own ``kernels/*.py`` and
   ``csrc/*`` and the toggles;
-* timing is ``utils/benchmark.device_time``: on the card, CUDA-graph
+* timing is ``utils/benchmark.device_time_arms``: on the card, CUDA-graph
   replays of each candidate (the device's time, as the JAX timer reads one
-  compiled program's device span), after eager warm-up calls;
+  compiled program's device span), after eager warm-up calls, the
+  candidates of a key replayed in turn round by round (the JAX module
+  times one after another);
 * ``calibrate_graph`` times each trial between two fresh readings of the
   assignment it would replace (its docstring says why);
 * an arm that raises while it is measured, or a whole-net forward that
@@ -194,7 +196,7 @@ def measure_arms(aligned, policy, x_shape, stride, padding, dilation,
     from caffe_escoin_tpu_torch.kernels import sconv_fused
     from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
     from caffe_escoin_tpu_torch.ops import conv as conv_ops
-    from caffe_escoin_tpu_torch.utils.benchmark import device_time
+    from caffe_escoin_tpu_torch.utils.benchmark import device_time_arms
 
     dtype = _dtype(policy)
     dev = aligned.bsc.blocks.device
@@ -226,9 +228,9 @@ def measure_arms(aligned, policy, x_shape, stride, padding, dilation,
             mxu_dtype=policy.mxu_dtype)
     # every candidate runs every shape it is offered here, so an arm that
     # raises is a fault and fails the measurement: it is never dropped in
-    # favour of another arm
-    return {arm: device_time(fn, x, iters=max(iters, 8), arg_sets=xsets)
-            for arm, fn in cands.items()}
+    # favour of another arm. The arms are timed in turn, round by round, so
+    # that a passing slowdown of the device cannot inflate one arm alone
+    return device_time_arms(cands, xsets, iters=max(iters, 8))
 
 
 def choose_arm(aligned, policy, x_shape, stride, padding, dilation,

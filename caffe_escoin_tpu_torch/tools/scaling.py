@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -38,23 +37,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from caffe_escoin_tpu_torch.utils.benchmark import device_label
+
 # the JAX package's TPU record, which no run of the port may extend
 JAX_RECORD = Path(__file__).resolve().parents[2] / "SCALING.jsonl"
 
 
 def log(m):
     print(m, file=sys.stderr, flush=True)
-
-
-def device_label(dev: torch.device) -> str:
-    """The card's name and power limit (nvidia-smi), or "cpu"."""
-    if dev.type != "cuda":
-        return "cpu"
-    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader", f"--id={dev.index}"],
-                          capture_output=True, text=True, timeout=60,
-                          check=True)
-    return proc.stdout.strip().splitlines()[0].strip()
 
 
 def _slowest(seconds: float, dev: torch.device) -> float:

@@ -1,10 +1,13 @@
 """Timing of one callable on the device, and the choice of device (port of
-``caffe_escoin_tpu/utils/benchmark.py``: ``device_time`` and
-``force_platform``)."""
+``caffe_escoin_tpu/utils/benchmark.py``: ``device_time``,
+``device_time_cycle`` and ``force_platform``), the arms of one layer
+timed in turn (``device_time_arms``, the autotuner's), and the name of the
+card that every number is written beside."""
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 from typing import Callable
 
@@ -52,6 +55,19 @@ def _device_of(args) -> torch.device:
     raise ValueError("device_time: no tensor among the arguments")
 
 
+def device_label(dev: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or
+    "cpu"."""
+    if dev.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", f"--id={index}"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True)
+    return proc.stdout.strip().splitlines()[0].strip()
+
+
 def device_time(f: Callable, *args, iters: int = 20,
                 arg_sets=None) -> float:
     """Median seconds per call of ``f(*args)``.
@@ -74,35 +90,84 @@ def device_time(f: Callable, *args, iters: int = 20,
     found in the arguments, nested lists and dicts included.
     """
     sets = list(arg_sets) if arg_sets else [args]
-    dev = _device_of(sets[0])
-    for s in sets:
-        f(*s)
+    return device_time_cycle([(f, s) for s in sets], iters=iters)
+
+
+def device_time_cycle(pairs, *, iters: int = 20) -> float:
+    """Median seconds per call over ``pairs``, a list of ``(callable,
+    args)`` run in turn: ``device_time(..., arg_sets=...)`` for callables
+    that each close over their own weight replica (the JAX function's
+    closures, whose sparse pattern must be concrete where they are built),
+    so that neither a weight nor an input stays in the L2 from one call to
+    the next.
+
+    On a CUDA device each pair is run once eagerly, captured once as its
+    own CUDA graph and replayed once untimed; then the graphs are replayed
+    in turn ``iters`` times, each between its own pair of CUDA events. A
+    pair that cannot be captured raises: no time is read eagerly in its
+    place. On CPU tensors each eager call is timed on the host clock. The
+    device is that of the first tensor in the first pair's arguments."""
+    return _rounds({None: list(pairs)}, iters)[None]
+
+
+def device_time_arms(arms, arg_sets, *, iters: int = 20) -> dict:
+    """Median seconds per call of each callable in ``arms`` (name ->
+    callable) over ``arg_sets``, as ``device_time`` times one, but with
+    the arms interleaved: round ``i`` runs every arm once on set ``i %
+    len(arg_sets)``. A passing slowdown of the device (a clock or power
+    step, another process) then falls on every arm it overlaps alike,
+    where timing the arms one after another lets it inflate the one arm
+    measured then and hand the pick to a slower one."""
+    sets = list(arg_sets)
+    return _rounds({name: [(f, s) for s in sets]
+                    for name, f in arms.items()}, iters)
+
+
+def _rounds(groups, iters):
+    """Median seconds per call of each group of ``(callable, args)`` pairs
+    (name -> pairs): every pair run once eagerly; then in round ``i`` each
+    group runs its pair ``i % len(pairs)``. On a CUDA device every pair is
+    captured once as its own CUDA graph and replayed once untimed, and each
+    timed replay sits between its own pair of CUDA events; on CPU tensors
+    each call is timed on the host clock."""
+    first = next(iter(groups.values()))
+    dev = _device_of(first[0][1])
+    for pairs in groups.values():
+        for f, a in pairs:
+            f(*a)
     if dev.type != "cuda":
-        times = []
+        times = {name: [] for name in groups}
         for i in range(iters):
-            t0 = time.perf_counter()
-            f(*sets[i % len(sets)])
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
-    graphs = []
+            for name, pairs in groups.items():
+                f, a = pairs[i % len(pairs)]
+                t0 = time.perf_counter()
+                f(*a)
+                times[name].append(time.perf_counter() - t0)
+        return {name: statistics.median(t) for name, t in times.items()}
+    graphs = {}
     try:
-        for s in sets:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                f(*s)
-            graphs.append(graph)
-        for graph in graphs:  # the first launch of a graph uploads it
-            graph.replay()
-        events = []
+        for name, pairs in groups.items():
+            graphs[name] = []
+            for f, a in pairs:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    f(*a)
+                graphs[name].append(graph)
+        for gs in graphs.values():  # the first launch of a graph uploads it
+            for graph in gs:
+                graph.replay()
+        events = {name: [] for name in groups}
         for i in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graphs[i % len(graphs)].replay()
-            end.record()
-            events.append((start, end))
+            for name, gs in graphs.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                gs[i % len(gs)].replay()
+                end.record()
+                events[name].append((start, end))
         torch.cuda.synchronize(dev)
-        return statistics.median(s.elapsed_time(e) * 1e-3
-                                 for s, e in events)
+        return {name: statistics.median(s.elapsed_time(e) * 1e-3
+                                        for s, e in ev)
+                for name, ev in events.items()}
     finally:
         del graphs

@@ -36,7 +36,8 @@ three sources (phase 8); then the parallel paths at world size 1 over
 NCCL, the channel permutation and the image tools (phase 9); then the
 example scripts on real digits: LeNet and AlexNet trained, pruned and
 scored on the sparse paths, the siamese pair and the net surgery (phase
-10).
+10); then the port's ``bench.py``, ``caffe_escoin_tpu_torch/bench.py``,
+in each of its modes as a user runs it (phase 11).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -100,9 +101,11 @@ Phases, one line each (any failure exits non-zero):
      picks: the routes served from the cache, launches (``sconv_fused``
      once per "fused" route), the logits against dense f32 (same limit),
      the forward eager, as a CUDA graph and through
-     ``inference_fn(cuda_graph=True)``, beside the kernel-route row's; the
-     run fails if the autotuned CUDA graph takes more than
-     ``AUTOTUNED_GRAPH_LIMIT`` times the kernel route's. Then the
+     ``inference_fn(cuda_graph=True)``, beside the kernel-route row's (the
+     two graph times read kernel, autotuned, autotuned, kernel, each the
+     mean of its two readings); the run fails if the autotuned CUDA graph
+     takes more than ``AUTOTUNED_GRAPH_LIMIT`` times the kernel route's,
+     and its message names the routes that are not ``fused``. Then the
      per-layer split by arm. No arm is measured during a CUDA-graph
      capture: autotune raises if it would. Then GoogLeNet b32 and AlexNet
      b32 (``CALIB_ONCE``): one calibration each from an emptied cache, its
@@ -303,12 +306,37 @@ Phases, one line each (any failure exits non-zero):
      within 1e-5 of the classifier's probabilities, a 451x451 input gives
      a map larger than 1x1. Every other part launches no kernel (counted).
      The phase's wall time beside its 90 s budget.
+  11. the port's bench (``caffe_escoin_tpu_torch/bench.py``): each run of
+     ``BENCH_RUNS`` called in process as ``bench.main(argv)``, with its
+     own autotune table (``BENCH_AUTOTUNE_CACHE``, emptied first) and the
+     launch counts set to 0 before it; each run's last stdout line must
+     parse as JSON with ``bench.py``'s keys for its mode (``BENCH_KEYS``)
+     plus ``device``, which must name the card, and a positive value.
+     Bare (ResNet-50 b32, e2e, buckets, calibrated with polish 8): it
+     must launch ``sconv_fused``; its nets prepared again from seed 0
+     (``bench.prepare_e2e``) must launch, over the 4 inputs, what
+     ``Net.routes`` names from the calibrated table (which must need no
+     new measurement), and give fc1000 within 5e-2 relative L2 of the
+     same pruned weights dense in f32. ``--xbsp-arm fused
+     --no-autotune`` b32: ``sconv_fused`` launches equal to 2 x 4
+     forwards (``device_time``'s eager call and capture per input) of
+     what ``Net.routes`` names. ``--per-layer`` b32, every eligible
+     config: each row's err within 1e-2 * max|ref| + 1e-2 of the dense
+     f32 conv on the same draws (``bench.per_layer_cases``). ``--fc``
+     VGG-16 b16. ``--halo`` b16: ``sconv_gc`` launched, the halo path
+     bit-equal to ``sconv_gc`` on the whole map, its rows appended to
+     ``build/SCALING.jsonl`` and the JAX package's ``SCALING.jsonl``
+     unchanged. ``--batch-curve``: a row per batch. ``--granularity
+     unstructured`` b32: no launch (every 128x128 block stays live, every
+     route is dense). Each run's stdout is in ``build/bench_<i>.log``.
+     The phase's wall time beside its 300 s budget.
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
 ``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e, 7c, 8b, 9
-and 10b's kernel routes; phase 6 and the rest of phases 7, 8 and 10 launch
-none). As the last line
+and 10b's kernel routes, and phase 11's bare and forced-fused forwards
+and halo run; phase 6 and the rest of phases 7, 8, 10 and 11 are not
+counted there). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (or
@@ -535,6 +563,41 @@ EX_DENSE_MIN = 0.95
 EX_DELTA, EX_SPARSITY_TOL = 2 / 256, 0.01
 EX_SURGERY_CLASSES = 100
 EX_BUDGET_S = 90
+
+# phase 11: the port's bench (caffe_escoin_tpu_torch/bench.py) called in
+# process as a user runs it, with its own autotune table: (label, argv, the
+# keys its line must have beyond bench.py's e2e / per-layer / fc / halo /
+# batch-curve keys, which BENCH_KEYS lists, plus "device")
+BENCH_AUTOTUNE_CACHE = "build/bench_autotune.json"
+BENCH_ROWS = "build/bench_per_layer.jsonl"
+BENCH_E2E_KEYS = {"metric", "value", "unit", "batch", "vs_baseline",
+                  "speedup_vs_dense_f32", "t_dense_f32_ms", "t_dense_bf16_ms",
+                  "t_sparse_ms", "fused", "autotune", "packed", "s2d",
+                  "weights_as_args"}
+BENCH_KEYS = {  # bench.py :585-613, :268-277, :381-389, :763-766, :840-845
+    "e2e": BENCH_E2E_KEYS,
+    "per_layer": {"metric", "value", "unit", "batch", "vs_baseline",
+                  "speedup_vs_dense_f32", "gnnz_per_s", "autotune"},
+    "fc": {"metric", "value", "unit", "batch", "vs_baseline",
+           "speedup_vs_dense_f32"},
+    "halo": {"metric", "value", "unit", "vs_baseline", "rows"},
+    "batch_curve": {"metric", "value", "unit", "vs_baseline", "rows"},
+}
+BENCH_RUNS = [
+    ("bare", [], "e2e", {"calibrated", "calibration", "buckets"}),
+    ("e2e xbsp-arm fused", ["--e2e", "--xbsp-arm", "fused", "--no-autotune",
+                            "--batch", "32"], "e2e", {"xbsp_arm"}),
+    ("per-layer b32", ["--per-layer", "--batch", "32", "--jsonl", BENCH_ROWS],
+     "per_layer", set()),
+    ("fc vgg16 b16", ["--fc", "--model", "vgg16"], "fc", set()),
+    ("halo b16", ["--halo"], "halo", set()),
+    ("batch-curve", ["--batch-curve"], "batch_curve", set()),
+    ("e2e unstructured", ["--e2e", "--granularity", "unstructured",
+                          "--batch", "32"], "e2e", set()),
+]
+BENCH_LOGITS = "fc1000"
+BENCH_BUDGET_S = 300
+
 
 def _card_line() -> str:
     proc = subprocess.run(
@@ -2448,6 +2511,213 @@ def _phase_examples(mods, tag, results, dev, full=False):
           f"{tag}")
 
 
+def _phase_bench(mods, tag, results, dev):
+    """Phase 11: the port's bench in process, each run of BENCH_RUNS as
+    ``bench.main(argv)`` with the launch counts set to 0 before it; see the
+    module docstring. Adds the bare and the forced-fused runs' checked
+    forwards and the halo run's launches to ``results``."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from caffe_escoin_tpu_torch import bench
+    from caffe_escoin_tpu_torch.engine import autotune
+    from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
+    from caffe_escoin_tpu_torch.nn import Net, params_to
+    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    extra = [] if cuda else ["--platform", "cpu"]
+    card = _card_line() if cuda else "cpu"
+    record = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "SCALING.jsonl")
+
+    def digest():
+        with open(record, "rb") as fh:
+            return hashlib.sha256(fh.read()).hexdigest()
+
+    def launched():
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return {k: m.launches for k, m in mods.items()}
+
+    def kernels_of(routes, n=1):
+        got = collections.Counter(ROUTE_KERNELS[r] for r in routes.values()
+                                  if r in ROUTE_KERNELS)
+        return {k: n * got.get(k, 0) for k in mods}
+
+    prev_cache = os.environ.get("CESCOIN_AUTOTUNE_CACHE")
+    os.environ["CESCOIN_AUTOTUNE_CACHE"] = BENCH_AUTOTUNE_CACHE
+    os.makedirs("build", exist_ok=True)
+    for path in (BENCH_AUTOTUNE_CACHE, BENCH_ROWS):
+        if os.path.exists(path):
+            os.remove(path)
+    autotune.clear()  # the table starts empty, as on a new machine
+    before = digest()
+    bare = None  # the bare run's nets, which the forced-fused run reuses
+    try:
+        for i, (label, argv, mode, more) in enumerate(BENCH_RUNS):
+            for m in mods.values():
+                m.reset_counts()
+            t0 = time.perf_counter()
+            rc, out = _run_entry(bench.main, argv + extra,
+                                 f"build/bench_{i}.log")
+            got = launched()
+            if rc:
+                raise SystemExit(f"bench {label} exited {rc}")
+            line = json.loads(out.strip().splitlines()[-1])
+            want = BENCH_KEYS[mode] | more | {"device"}
+            print(f"bench {label} (python -m caffe_escoin_tpu_torch.bench"
+                  f"{''.join(' ' + a for a in argv)}): {json.dumps(line)}; "
+                  f"launches over the "
+                  f"run {got}; {time.perf_counter() - t0:.1f} s wall {tag}")
+            if set(line) != want:
+                raise SystemExit(f"bench {label}: keys {sorted(line)}, "
+                                 f"expected {sorted(want)}")
+            if line["device"] != card:
+                raise SystemExit(f"bench {label}: device {line['device']!r}"
+                                 f", expected {card!r}")
+            if not line["value"] > 0:
+                raise SystemExit(f"bench {label}: value {line['value']}")
+            if label == "bare":
+                if not got["sconv_fused"]:
+                    raise SystemExit("the bare bench launched no sconv_fused")
+                # the bare run's nets again (seed 0): the calibrated routes,
+                # one forward per input, its logits against dense f32
+                args = bench.parse_args(argv + extra)
+                bare = bench.prepare_e2e(args, dev)
+                n_measured = len(autotune.report())
+                with autotune.net_scope(args.model):
+                    routes = bare.net_s.routes(bare.aligned, bare.shapes)
+                    fwd = bare.net_s.inference_fn(bare.aligned,
+                                                  return_blobs=True)
+                    for m in mods.values():
+                        m.reset_counts()
+                    outs = [fwd({"data": x})[BENCH_LOGITS].float()
+                            for x in bare.xs]
+                    fwd_got = launched()
+                if len(autotune.report()) != n_measured:
+                    raise SystemExit("bench bare: an arm was measured after "
+                                     "the run: its table was not complete")
+                expect = kernels_of(routes, len(bare.xs))
+                # the sparse net's own pruned weights, dense in f32 (the
+                # bench's dense arms hold the unpruned ones)
+                dense = Net(bare.net_s.specs, policy=ExecutionPolicy(
+                    )).inference_fn(params_to(bare.pruned_s, dev),
+                                    return_blobs=True)
+                num = den = 0.0
+                for x, o in zip(bare.xs, outs):
+                    ref = dense({"data": x})[BENCH_LOGITS]
+                    if not torch.isfinite(o).all():
+                        raise SystemExit("bench bare: logits not finite")
+                    num += (o - ref).pow(2).sum().item()
+                    den += ref.pow(2).sum().item()
+                rel_l2 = (num / den) ** 0.5
+                print(f"bench bare, its sparse net again: calibrated routes "
+                      f"{dict(collections.Counter(routes.values()))}; "
+                      f"launches over {len(bare.xs)} forwards {fwd_got} "
+                      f"(expected {expect}); {BENCH_LOGITS} logits vs its "
+                      f"weights dense in f32: rel L2 {rel_l2:.3e} (limit "
+                      f"{LOGITS_REL_L2:.0e}) "
+                      f"{tag}")
+                if fwd_got != expect or not fwd_got["sconv_fused"]:
+                    raise SystemExit("bench bare: its sparse forward did not "
+                                     "launch what its routes name")
+                if not rel_l2 <= LOGITS_REL_L2:
+                    raise SystemExit("bench bare: the sparse net disagrees "
+                                     "with dense f32")
+                for k, n in fwd_got.items():
+                    results[k]["launches"] += n
+                del outs, fwd, dense
+            elif label == "e2e xbsp-arm fused":
+                # the same weights as the bare run's; on the card
+                # device_time runs each of its 4 inputs once eagerly and
+                # once in a capture (a replay runs no wrapper), on the CPU
+                # once eagerly and then each timed call
+                net = Net(bare.net_s.specs, policy=dataclasses.replace(
+                    bare.net_s.policy, autotune=False, xbsp_arm="fused"))
+                args = bench.parse_args(argv + extra)
+                n_fwd = len(bare.xs) + (len(bare.xs) if cuda
+                                        else max(args.repeats, 8))
+                expect = kernels_of(net.routes(bare.aligned, bare.shapes),
+                                    n_fwd)
+                print(f"bench {label}: launches {got}, expected {expect} "
+                      f"({n_fwd} forwards of what Net.routes names) {tag}")
+                if got != expect or not got["sconv_fused"]:
+                    raise SystemExit(f"bench {label} launched {got}, "
+                                     f"expected {expect}")
+                for k, n in got.items():
+                    results[k]["launches"] += n
+            elif label == "per-layer b32":
+                args = bench.parse_args(argv + extra)
+                items, _ = bench.per_layer_items(args)
+                with open(BENCH_ROWS) as fh:
+                    rows = [json.loads(r) for r in fh][:-1]
+                # a config whose pruned weight is not sparse enough has no
+                # BSC and no row (dense in both arms)
+                cases = [c for c in bench.per_layer_cases(args, items)
+                         if c[4].bsc is not None]
+                if len(rows) != len(cases):
+                    raise SystemExit(f"bench {label}: {len(rows)} rows for "
+                                     f"{len(cases)} sparse configs")
+                for row, (key, _, xs, wp, _) in zip(rows, cases):
+                    h, w, cin, cout, k, s, p, g = key
+                    ref = F.conv2d(
+                        torch.from_numpy(xs[0]).to(dev).permute(0, 3, 1, 2),
+                        torch.from_numpy(wp).to(dev).permute(3, 2, 0, 1),
+                        stride=s, padding=p, groups=g)
+                    peak = ref.abs().max().item()
+                    limit = PARITY_REL * peak + PARITY_ABS
+                    ok = row["err"] <= limit and (
+                        row["h"], row["cin"], row["cout"], row["k"]) == (
+                            h, cin, cout, k)
+                    print(f"bench {label} {h}x{w} {cin}->{cout} k{k} "
+                          f"x{row['count']}: f32 {row['t_dense_f32_us']} us, "
+                          f"bf16 {row['t_dense_bf16_us']} us, sparse "
+                          f"{row['t_sparse_us']} us, bound {row['bound_us']} "
+                          f"us at {row['stream_rate_tb_s']} TB/s; err "
+                          f"{row['err']:.3e} (limit {limit:.3e}) "
+                          f"{'ok' if ok else 'FAIL'} {tag}")
+                    if not ok:
+                        raise SystemExit(f"bench {label}: {key} err "
+                                         f"{row['err']}")
+            elif label == "halo b16":
+                if not got["sconv_gc"]:
+                    raise SystemExit("bench --halo launched no sconv_gc")
+                with open(bench.HALO_RECORD) as fh:
+                    rows = [json.loads(r) for r in fh][-line["rows"] - 1:-1]
+                errs = [r["err"] for r in rows
+                        if r["metric"] == "halo_overhead_1dev"]
+                print(f"bench {label}: {len(rows)} rows in "
+                      f"{bench.HALO_RECORD}; halo vs sconv_gc on the whole "
+                      f"map max err {errs} (must be 0); tower errs "
+                      f"{[r['err'] for r in rows if 'layers' in r]} {tag}")
+                if any(errs):
+                    raise SystemExit("bench --halo differs from sconv_gc")
+                for k, n in got.items():
+                    results[k]["launches"] += n
+            elif label == "batch-curve":
+                if len(line["rows"]) != len(bench.CURVE_BATCHES):
+                    raise SystemExit(f"bench {label}: rows {line['rows']}")
+            elif label == "e2e unstructured" and any(got.values()):
+                raise SystemExit(f"bench {label} launched {got}: every "
+                                 f"block is live, every route dense")
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        if prev_cache is None:
+            os.environ.pop("CESCOIN_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["CESCOIN_AUTOTUNE_CACHE"] = prev_cache
+    if digest() != before:
+        raise SystemExit("bench appended to the JAX package's SCALING.jsonl")
+    wall = time.perf_counter() - t_phase
+    print(f"bench phase: {wall:.1f} s wall (budget {BENCH_BUDGET_S} s) {tag}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3158,10 +3428,17 @@ def main(argv=None) -> int:
                              f"the eager forward by {err:.3e}")
     del at_out
     at_ms = {}
-    for label, fn in (("kernel routes", row["fwd_s"]), ("autotuned", fwd_at)):
+    arms_of = (("kernel routes", row["fwd_s"]), ("autotuned", fwd_at))
+    for label, fn in arms_of:
         at_ms[f"{label} eager"] = _time_ms(fn, at_inputs)
-        at_ms[f"{label} as a CUDA graph"] = _graph_ms(fn, at_inputs,
-                                                      N_INPUTS)
+    # the graph times in the order kernel, autotuned, autotuned, kernel,
+    # each side the mean of its two readings: a drift of the card's speed
+    # across the readings falls on both sides alike
+    readings = collections.defaultdict(list)
+    for label, fn in arms_of + arms_of[::-1]:
+        readings[label].append(_graph_ms(fn, at_inputs, N_INPUTS))
+    for label, got in readings.items():
+        at_ms[f"{label} as a CUDA graph"] = statistics.fmean(got)
     at_ms["autotuned through inference_fn(cuda_graph=True)"] = _time_ms(
         fwd_at_graph, at_inputs)
     if len(autotune.report()) != n_measured:
@@ -3169,13 +3446,22 @@ def main(argv=None) -> int:
     ratio = (at_ms["autotuned as a CUDA graph"]
              / at_ms["kernel routes as a CUDA graph"])
     ok = ratio <= AUTOTUNED_GRAPH_LIMIT
-    print("time resnet50 b32: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in at_ms.items())
-        + f"; autotuned graph / kernel-route graph {ratio:.3f} (limit "
-        f"{AUTOTUNED_GRAPH_LIMIT}) {'ok' if ok else 'FAIL'} {tag}")
+    times = ", ".join(f"{k} {v:.3f} ms" for k, v in at_ms.items())
+    graph_readings = "; ".join(
+        f"{label} graph readings " + " ".join(f"{t:.3f}" for t in got)
+        for label, got in readings.items())
+    print(f"time resnet50 b32: {times} ({graph_readings} ms); autotuned "
+          f"graph / kernel-route graph {ratio:.3f} (limit "
+          f"{AUTOTUNED_GRAPH_LIMIT}) {'ok' if ok else 'FAIL'} {tag}")
     if not ok:
+        # stderr carries what a failed run needs to be read: the times and
+        # every route the calibration gave other than the fused kernel's
+        others = {n: r for n, r in at_routes.items() if r != "fused"}
         raise SystemExit(f"the autotuned forward as a CUDA graph takes "
-                         f"{ratio:.2f}x the kernel route's")
+                         f"{ratio:.3f}x the kernel route's: {times} "
+                         f"({graph_readings} ms); autotuned routes "
+                         f"{dict(collections.Counter(at_routes.values()))}, "
+                         f"the layers not on fused: {others} {tag}")
     with autotune.net_scope("resnet50"):
         per = _layer_split(at_net.layers, fwd_at, at_inputs[0])
     by_arm, n_arm = collections.Counter(), collections.Counter()
@@ -3613,6 +3899,10 @@ def main(argv=None) -> int:
     # ---- 10. the examples: real digits, trained, pruned, scored sparse -----
     torch.cuda.empty_cache()
     _phase_examples(mods, tag, results, dev)
+
+    # ---- 11. the port's bench, as a user runs it ---------------------------
+    torch.cuda.empty_cache()
+    _phase_bench(mods, tag, results, dev)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

@@ -26,6 +26,7 @@ from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy  # n
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs  # noqa: E402
 from caffe_escoin_tpu_torch.ops import conv as conv_ops  # noqa: E402
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align  # noqa: E402
+from caffe_escoin_tpu_torch.utils import benchmark  # noqa: E402
 from caffe_escoin_tpu_torch.utils.benchmark import device_time  # noqa: E402
 from caffe_escoin_tpu_torch.utils.pruning import prune_conv_weight  # noqa: E402
 
@@ -406,3 +407,50 @@ def test_device_time_cycles_its_argument_sets():
                                        for i in range(4)])
     assert t >= 0
     assert seen == [0, 1, 2, 3] + [0, 1, 2, 3] * 2
+
+
+def test_device_time_arms_times_the_arms_in_turn():
+    """Every arm runs each set once eagerly; then round i runs every arm
+    once on set i % 4."""
+    seen = []
+
+    def arm(name):
+        return lambda a: seen.append((name, int(a[0])))
+
+    times = benchmark.device_time_arms(
+        {"a": arm("a"), "b": arm("b")},
+        [(torch.full((1,), i),) for i in range(4)], iters=6)
+    assert set(times) == {"a", "b"} and all(t >= 0 for t in times.values())
+    eager = [("a", i) for i in range(4)] + [("b", i) for i in range(4)]
+    assert seen == eager + [(n, i % 4) for i in range(6) for n in "ab"]
+
+
+def test_arms_in_turn_outlast_a_slowdown_of_one_arms_length(monkeypatch):
+    """A slowdown of the device that lasts as long as one arm's timed
+    calls, timed one arm after another, makes the fast arm read slower
+    than the slow one; timed in turn it falls on both arms alike, and the
+    fast arm reads faster. The clock is a counter that each call advances
+    by its arm's cost, plus 5 during the first 10 timed calls."""
+    clock = {"t": 0.0, "calls": 0, "slow_from": 0}
+    cost = {"fast": 1.0, "slow": 1.5}
+
+    def arm(name):
+        def f(y):
+            clock["calls"] += 1
+            late = clock["calls"] - clock["slow_from"]
+            clock["t"] += cost[name] + (5.0 if 0 <= late < 10 else 0.0)
+        return f
+
+    arms = {"fast": arm("fast"), "slow": arm("slow")}
+    sets = [(torch.zeros(1),) for _ in range(4)]
+    monkeypatch.setattr(benchmark, "time", type("clock", (), {
+        "perf_counter": staticmethod(lambda: clock["t"])}))
+    # in turn: 8 eager calls, then the rounds
+    clock.update(t=0.0, calls=0, slow_from=9)
+    times = benchmark.device_time_arms(arms, sets, iters=10)
+    assert times["fast"] < times["slow"]
+    # one after another: the fast arm's 4 eager calls, then its 10 timed
+    clock.update(t=0.0, calls=0, slow_from=5)
+    one_by_one = {n: device_time(f, *sets[0], iters=10, arg_sets=sets)
+                  for n, f in arms.items()}
+    assert one_by_one["fast"] > one_by_one["slow"]

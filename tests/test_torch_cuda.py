@@ -43,7 +43,10 @@ card what they give on the CPU for the same f32 inputs and params, within
 1e-4 relative L2 (TF32 off); stochastic pooling's TRAIN draw on a CUDA
 generator picks window members.
 
-The timer and the graph forward: ``device_time`` replays CUDA graphs,
+The timer and the graph forward: ``device_time``, ``device_time_cycle``
+and ``device_time_arms`` replay CUDA graphs (each pair captured once; the
+arms in turn), the port's ``bench`` runs
+``--per-layer --smoke`` on the card within phase 3's limit,
 ``Net.inference_fn(cuda_graph=True)`` replays the eager forward's results,
 and a capture that would have to measure an autotune key raises.
 
@@ -70,7 +73,9 @@ from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, sconv_fused,
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
-from caffe_escoin_tpu_torch.utils.benchmark import device_time
+from caffe_escoin_tpu_torch.utils.benchmark import (device_time,
+                                                    device_time_arms,
+                                                    device_time_cycle)
 from caffe_escoin_tpu_torch.utils.pruning import prune_blocks, prune_conv_weight
 
 pytestmark = pytest.mark.cuda
@@ -467,6 +472,83 @@ def test_device_time_cycles_sets_and_returns_a_positive_median(dev):
     t = device_time(f, xs[0], iters=8, arg_sets=[(y,) for y in xs])
     assert t > 0
     assert seen == [0, 1, 2, 3] * 2
+
+
+def test_device_time_cycle_captures_each_pair_once(dev):
+    """Each (callable, args) pair, closing over its own weight, runs once
+    eagerly and once while its graph is captured; the timed calls are
+    replays of the pairs in turn."""
+    ws = [torch.full((256, 256), float(i + 1), device=dev) for i in range(4)]
+    xs = [torch.randn((256, 256), device=dev) for _ in range(4)]
+    seen = []
+
+    def pair(i):
+        def f(y):
+            seen.append(i)
+            return y @ ws[i]
+        return f, (xs[i],)
+
+    t = device_time_cycle([pair(i) for i in range(4)], iters=8)
+    assert t > 0
+    assert seen == [0, 1, 2, 3] * 2
+
+
+def test_device_time_arms_captures_each_arm_and_set_once(dev):
+    """Each arm runs each set once eagerly and once while its graph is
+    captured; the timed calls are replays, the arms in turn, and the arm
+    that does twice the work reads slower."""
+    xs = [torch.randn((1024, 1024), device=dev) for _ in range(4)]
+    seen = []
+
+    def arm(name, reps):
+        def f(y):
+            seen.append(name)
+            for _ in range(reps):
+                y = y @ y
+            return y
+        return f
+
+    times = device_time_arms({"one": arm("one", 4), "two": arm("two", 8)},
+                             [(x,) for x in xs], iters=8)
+    assert 0 < times["one"] < times["two"]
+    assert seen == (["one"] * 4 + ["two"] * 4) * 2
+
+
+def test_bench_per_layer_smoke_on_the_card(dev, tmp_path, monkeypatch,
+                                          capsys):
+    """``python -m caffe_escoin_tpu_torch.bench --per-layer --smoke`` (b16):
+    its line names the card, and each row's err is within 1e-2 * max|ref|
+    + 1e-2 of the dense f32 conv on the same draws."""
+    import json
+
+    import torch.nn.functional as F
+
+    from caffe_escoin_tpu_torch import bench
+    from caffe_escoin_tpu_torch.utils.benchmark import device_label
+
+    monkeypatch.setenv("CESCOIN_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    rows = tmp_path / "rows.jsonl"
+    argv = ["--per-layer", "--smoke", "--jsonl", str(rows)]
+    assert bench.main(argv) == 0
+    autotune.clear()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["device"] == device_label(dev) != "cpu"
+    assert line["value"] > 0
+    layer_rows = [json.loads(r) for r in rows.read_text().splitlines()][:-1]
+    args = bench.parse_args(argv)
+    items, _ = bench.per_layer_items(args)
+    assert len(layer_rows) == len(items) == 2
+    for row, (key, _, xs, wp, _) in zip(layer_rows,
+                                        bench.per_layer_cases(args, items)):
+        h, w, cin, cout, k, s, p, g = key
+        assert (row["h"], row["cin"], row["cout"], row["k"]) == (h, cin,
+                                                                 cout, k)
+        ref = F.conv2d(torch.from_numpy(xs[0]).to(dev).permute(0, 3, 1, 2),
+                       torch.from_numpy(wp).to(dev).permute(3, 2, 0, 1),
+                       stride=s, padding=p, groups=g)
+        peak = ref.abs().max().item()
+        assert row["err"] <= 1e-2 * peak + 1e-2, (row, peak)
+        assert row["stream_rate_tb_s"] > 0 and row["t_sparse_us"] > 0
 
 
 def test_device_time_reads_a_graph_replay(dev):

@@ -1,5 +1,6 @@
 """The port imports no jax and nothing of the JAX package (nor the
-repository's examples/ scripts, which drive it): the machine with the card
+repository's examples/ scripts, which drive it, nor its ``bench.py``, whose
+counterpart is the port's own ``bench`` module): the machine with the card
 has no jax. Importing every module needs neither PIL nor h5py either (the
 data layers import them when they read images or HDF5 files), since that
 machine may have neither, and no scikit-learn (the examples' digits are a
@@ -43,7 +44,8 @@ SCRIPT = textwrap.dedent("""
 
 # the modules that carry their own copies of JAX-package code (numpy-only
 # helpers, the model specs, the model I/O, the command line and the
-# training loop the port may not import, and the example scripts)
+# training loop the port may not import, the example scripts and the
+# measuring program)
 COPIES = ("ops.s2d", "ops.wpack", "ops.norm", "ops.structural",
           "ops.activations", "ops.losses", "utils.pruning",
           "models.alexnet", "models.caffenet", "models.cifar",
@@ -58,7 +60,7 @@ COPIES = ("ops.s2d", "ops.wpack", "ops.norm", "ops.structural",
           "parallel.mesh", "parallel.launch", "parallel.halo", "parallel.tp",
           "parallel.dp", "parallel.dryrun", "examples.digits",
           "examples.train_eval_sparse", "examples.net_surgery",
-          "examples.siamese_digits")
+          "examples.siamese_digits", "bench")
 
 
 def test_port_imports_no_jax():
