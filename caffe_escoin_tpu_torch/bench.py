@@ -66,7 +66,8 @@ Where this module differs from ``bench.py``:
   on the card they are torch ops. Its rows go to ``build/SCALING.jsonl``
   when ``--jsonl`` is empty, never to the JAX package's ``SCALING.jsonl``.
 * ``spmm_tile_m`` (a TPU tile size no gate of the port reads) is gone.
-* Each headline line gains one key, ``device``; the per-layer rows also
+* Each headline line and each row it appends gains one key, ``device``
+  (the card's name and power limit, or "cpu"); the per-layer rows also
   carry ``stream_rate_tb_s``. ``--platform auto|cpu|cuda`` picks the
   device (auto: the card; without one the run exits 2).
 """
@@ -323,7 +324,7 @@ def run_per_layer(args, device):
     if not rows or tot["sp"] <= 0:
         return _emit({"metric": metric, "value": 0.0, "unit": "x",
                       "vs_baseline": 0.0}, device)
-    _append(args.jsonl, rows)
+    _append(args.jsonl, rows, device)
     sp_bf16 = tot["bf16"] / tot["sp"]
     sp_f32 = tot["f32"] / tot["sp"]
     gnnz_s = total_nnz_work / tot["sp"] / 1e9
@@ -395,7 +396,7 @@ def run_fc(args, device):
         log(f"  {name} {k}x{m}: f32 {tf*1e6:7.1f}us bf16 {tb*1e6:7.1f}us "
             f"sparse {ts*1e6:7.1f}us vs_f32 {tf/ts:5.2f}x "
             f"vs_bf16 {tb/ts:5.2f}x err {err:.1e}")
-    _append(args.jsonl, rows)
+    _append(args.jsonl, rows, device)
     if not rows or tot["sp"] <= 0:
         return _emit({"metric": f"{args.model}_sparse_fc", "value": 0.0,
                       "unit": "x", "vs_baseline": 0.0}, device)
@@ -651,7 +652,7 @@ def run_halo(args, device):
     worst = max(best_by_shape.values())
     out = args.jsonl or HALO_RECORD
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-    _append(out, rows)
+    _append(out, rows, device)
     return _emit({"metric": "halo_overhead_1dev_worst",
                   "value": round(worst, 4), "unit": "fractional_overhead",
                   "vs_baseline": 1.0 if worst < 0.10 else 0.0,
@@ -822,7 +823,7 @@ def run_batch_curve(args, device):
                          images_per_s=round(ips, 1),
                          sparsity=args.sparsity))
         log(f"  batch {batch:3d}: {t*1e3:7.3f} ms  {ips:9.1f} img/s")
-    _append(args.jsonl, rows)
+    _append(args.jsonl, rows, device)
     sat = rows[-1]["images_per_s"] / best if best else 0.0
     return _emit({
         "metric": f"{args.model}_sparse_batch_curve_peak",
@@ -832,10 +833,14 @@ def run_batch_curve(args, device):
     }, device)
 
 
-def _append(path, rows):
+def _append(path, rows, device):
+    """Appends ``rows`` to ``path`` (when given), each with the run's
+    ``device`` label."""
     if path and rows:
+        label = device_label(device)
         with open(path, "a") as f:
             for r in rows:
+                r["device"] = label
                 f.write(json.dumps(r) + "\n")
 
 
@@ -843,7 +848,7 @@ def _emit(headline, device, jsonl=""):
     """The headline with its ``device``: appended to ``jsonl`` when given,
     printed as the JSON line on stdout, and returned."""
     headline["device"] = device_label(device)
-    _append(jsonl, [headline])
+    _append(jsonl, [headline], device)
     print(json.dumps(headline))
     return headline
 

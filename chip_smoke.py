@@ -37,7 +37,8 @@ NCCL, the channel permutation and the image tools (phase 9); then the
 example scripts on real digits: LeNet and AlexNet trained, pruned and
 scored on the sparse paths, the siamese pair and the net surgery (phase
 10); then the port's ``bench.py``, ``caffe_escoin_tpu_torch/bench.py``,
-in each of its modes as a user runs it (phase 11).
+in each of its modes as a user runs it (phase 11), and its rows rendered
+as the port's tables by ``tools/report.py`` (phase 12).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -328,8 +329,19 @@ Phases, one line each (any failure exits non-zero):
      ``build/SCALING.jsonl`` and the JAX package's ``SCALING.jsonl``
      unchanged. ``--batch-curve``: a row per batch. ``--granularity
      unstructured`` b32: no launch (every 128x128 block stays live, every
-     route is dense). Each run's stdout is in ``build/bench_<i>.log``.
-     The phase's wall time beside its 300 s budget.
+     route is dense). Each run's stdout is in ``build/bench_<i>.log``;
+     every run but ``--halo`` appends its rows and headline to
+     ``build/BENCH_SWEEP.jsonl`` (``--jsonl``), ``--halo`` to
+     ``build/SCALING.jsonl``, both emptied first. The phase's wall time
+     beside its 300 s budget.
+  12. the tables (``caffe_escoin_tpu_torch/tools/report.py``): phase 11's
+     two records loaded (a row without the card's label is refused, and
+     fails the phase) and rendered to ``build/BENCH_TABLES.md``; every
+     section must be headed by the card's name and power limit, and every
+     run of phase 11 must appear: each e2e, per-layer and fc headline as
+     its table's row, the batch curve's rows and peak, and the halo run's
+     single-conv rows (the reference's halo table renders those, not the
+     headline).
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
@@ -567,9 +579,10 @@ EX_BUDGET_S = 90
 # phase 11: the port's bench (caffe_escoin_tpu_torch/bench.py) called in
 # process as a user runs it, with its own autotune table: (label, argv, the
 # keys its line must have beyond bench.py's e2e / per-layer / fc / halo /
-# batch-curve keys, which BENCH_KEYS lists, plus "device")
+# batch-curve keys, which BENCH_KEYS lists, plus "device"); every run but
+# --halo appends to BENCH_ROWS, which phase 12 renders with the halo rows
 BENCH_AUTOTUNE_CACHE = "build/bench_autotune.json"
-BENCH_ROWS = "build/bench_per_layer.jsonl"
+BENCH_ROWS = "build/BENCH_SWEEP.jsonl"
 BENCH_E2E_KEYS = {"metric", "value", "unit", "batch", "vs_baseline",
                   "speedup_vs_dense_f32", "t_dense_f32_ms", "t_dense_bf16_ms",
                   "t_sparse_ms", "fused", "autotune", "packed", "s2d",
@@ -587,8 +600,7 @@ BENCH_RUNS = [
     ("bare", [], "e2e", {"calibrated", "calibration", "buckets"}),
     ("e2e xbsp-arm fused", ["--e2e", "--xbsp-arm", "fused", "--no-autotune",
                             "--batch", "32"], "e2e", {"xbsp_arm"}),
-    ("per-layer b32", ["--per-layer", "--batch", "32", "--jsonl", BENCH_ROWS],
-     "per_layer", set()),
+    ("per-layer b32", ["--per-layer", "--batch", "32"], "per_layer", set()),
     ("fc vgg16 b16", ["--fc", "--model", "vgg16"], "fc", set()),
     ("halo b16", ["--halo"], "halo", set()),
     ("batch-curve", ["--batch-curve"], "batch_curve", set()),
@@ -2515,7 +2527,8 @@ def _phase_bench(mods, tag, results, dev):
     """Phase 11: the port's bench in process, each run of BENCH_RUNS as
     ``bench.main(argv)`` with the launch counts set to 0 before it; see the
     module docstring. Adds the bare and the forced-fused runs' checked
-    forwards and the halo run's launches to ``results``."""
+    forwards and the halo run's launches to ``results``; returns each run's
+    (label, mode, JSON line)."""
     import dataclasses
     import hashlib
 
@@ -2552,16 +2565,20 @@ def _phase_bench(mods, tag, results, dev):
     prev_cache = os.environ.get("CESCOIN_AUTOTUNE_CACHE")
     os.environ["CESCOIN_AUTOTUNE_CACHE"] = BENCH_AUTOTUNE_CACHE
     os.makedirs("build", exist_ok=True)
-    for path in (BENCH_AUTOTUNE_CACHE, BENCH_ROWS):
+    for path in (BENCH_AUTOTUNE_CACHE, BENCH_ROWS, bench.HALO_RECORD):
         if os.path.exists(path):
             os.remove(path)
     autotune.clear()  # the table starts empty, as on a new machine
     before = digest()
     bare = None  # the bare run's nets, which the forced-fused run reuses
+    headlines = []
     try:
         for i, (label, argv, mode, more) in enumerate(BENCH_RUNS):
             for m in mods.values():
                 m.reset_counts()
+            if mode != "halo":
+                argv = argv + ["--jsonl", BENCH_ROWS]
+            n_before = _n_lines(BENCH_ROWS)
             t0 = time.perf_counter()
             rc, out = _run_entry(bench.main, argv + extra,
                                  f"build/bench_{i}.log")
@@ -2569,6 +2586,7 @@ def _phase_bench(mods, tag, results, dev):
             if rc:
                 raise SystemExit(f"bench {label} exited {rc}")
             line = json.loads(out.strip().splitlines()[-1])
+            headlines.append((label, mode, line))
             want = BENCH_KEYS[mode] | more | {"device"}
             print(f"bench {label} (python -m caffe_escoin_tpu_torch.bench"
                   f"{''.join(' ' + a for a in argv)}): {json.dumps(line)}; "
@@ -2654,8 +2672,8 @@ def _phase_bench(mods, tag, results, dev):
             elif label == "per-layer b32":
                 args = bench.parse_args(argv + extra)
                 items, _ = bench.per_layer_items(args)
-                with open(BENCH_ROWS) as fh:
-                    rows = [json.loads(r) for r in fh][:-1]
+                with open(BENCH_ROWS) as fh:  # this run's rows, its headline
+                    rows = [json.loads(r) for r in fh][n_before:-1]
                 # a config whose pruned weight is not sparse enough has no
                 # BSC and no row (dense in both arms)
                 cases = [c for c in bench.per_layer_cases(args, items)
@@ -2716,6 +2734,76 @@ def _phase_bench(mods, tag, results, dev):
         raise SystemExit("bench appended to the JAX package's SCALING.jsonl")
     wall = time.perf_counter() - t_phase
     print(f"bench phase: {wall:.1f} s wall (budget {BENCH_BUDGET_S} s) {tag}")
+    return headlines
+
+
+def _n_lines(path) -> int:
+    if not os.path.exists(path):
+        return 0
+    with open(path) as fh:
+        return sum(1 for _ in fh)
+
+
+def _phase_report(headlines, tag, card):
+    """Phase 12: phase 11's records rendered by ``tools/report``; see the
+    module docstring. ``headlines``: phase 11's (label, mode, line)."""
+    from caffe_escoin_tpu_torch import bench
+    from caffe_escoin_tpu_torch.tools import report
+
+    t0 = time.perf_counter()
+    try:
+        sweep = report.load(BENCH_ROWS)
+        scaling = report.load(bench.HALO_RECORD)
+    except report.RefusedRow as e:
+        raise SystemExit(f"report: {e}")
+    text = report.render(sweep, scaling, "build")
+    out = report.write(text, os.path.join("build", report.TABLES))
+    lines = text.splitlines()
+    titles = [t for t in lines if t.startswith("## ")]
+    unheaded = [t for t in titles if not t.endswith(report.HEADING_SEP + card)]
+    if not titles or unheaded:
+        raise SystemExit(f"report: sections not headed by {card!r}: "
+                         f"{unheaded or 'no section'}")
+
+    def row_of(cells):
+        return "| " + " | ".join(str(c) for c in cells) + " |"
+
+    missing = []
+    for label, mode, h in headlines:
+        if mode == "e2e":
+            want = [row_of([h["metric"], h["batch"], f"{h['value']}x",
+                            f"{h['speedup_vs_dense_f32']}x",
+                            h["t_sparse_ms"], h["t_dense_bf16_ms"]])[:-2]]
+        elif mode == "per_layer":
+            want = [row_of([h["metric"], h["batch"], f"{h['value']}x",
+                            f"{h['speedup_vs_dense_f32']}x",
+                            h["gnnz_per_s"]])]
+        elif mode == "fc":
+            want = [row_of([h["metric"], h["batch"], f"{h['value']}x",
+                            f"{h['speedup_vs_dense_f32']}x"])]
+        elif mode == "batch_curve":
+            model = h["metric"].split("_sparse_batch_curve_peak")[0]
+            want = [f"Peak {h['value']} img/s."] + [
+                row_of([model, b, r["t_ms"], ips]) for (b, ips), r in zip(
+                    h["rows"], [r for r in sweep
+                                if r.get("kind") == "batch_curve"])]
+        else:  # halo: its single-conv rows
+            want = [row_of([f"{r['h']}x{r['w']} {r['cin']}->{r['cout']}",
+                            r["backend"], r["t_plain_us"], r["t_halo_us"],
+                            f"{r['overhead'] * 100:+.1f}%"])
+                    for r in scaling
+                    if r.get("metric") == "halo_overhead_1dev"]
+        found = [w for w in want if any(ln.startswith(w) for ln in lines)]
+        print(f"report: bench {label}: {len(found)} of {len(want)} lines "
+              f"in the tables {tag}")
+        if not want or len(found) != len(want):
+            missing.append((label, [w for w in want if w not in found]))
+    print(f"report: {len(sweep)} + {len(scaling)} rows -> {out} "
+          f"({len(lines)} lines, {len(titles)} sections, each headed by "
+          f"{card!r}); {time.perf_counter() - t0:.1f} s {tag}")
+    if missing:
+        raise SystemExit(f"report: phase 11 runs missing from the tables: "
+                         f"{missing}")
 
 
 def main(argv=None) -> int:
@@ -3902,7 +3990,10 @@ def main(argv=None) -> int:
 
     # ---- 11. the port's bench, as a user runs it ---------------------------
     torch.cuda.empty_cache()
-    _phase_bench(mods, tag, results, dev)
+    headlines = _phase_bench(mods, tag, results, dev)
+
+    # ---- 12. its rows rendered as the port's tables -------------------------
+    _phase_report(headlines, tag, card)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

@@ -18,7 +18,9 @@ jax only inside its functions):
   BatchNorm statistics), against ``bench.py``'s steps written out here:
   the same layers pruned, the same zero blocks, and the sparse logits
   within 5e-2 relative L2;
-* each mode's line: ``bench.py``'s keys for that mode plus ``device``;
+* each mode's line: ``bench.py``'s keys for that mode plus ``device``,
+  which every row the mode appends carries too; ``--halo``'s value (a
+  fractional overhead, of either sign) recomputed from its rows;
 * ``--platform auto`` without a card exits 2, ``--weights-as-args``
   raises, ``--halo`` writes under build/, and ``device_time_cycle`` on the
   CPU.
@@ -27,6 +29,7 @@ jax only inside its functions):
 import hashlib
 import importlib.util
 import json
+import math
 from pathlib import Path
 
 import numpy as np
@@ -322,7 +325,26 @@ def test_each_mode_prints_the_jax_keys(mode, capsys, monkeypatch, tmp_path,
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(line) == MODE_KEYS[mode] | {"device"}
     assert line["device"] == "cpu"
-    assert line["value"] > 0
+    record_of_run = tmp_path / "build" / "SCALING.jsonl" if mode == "halo" \
+        else rows
+    written_rows = [json.loads(r)
+                    for r in record_of_run.read_text().splitlines()]
+    # every row the run appended carries its device, as the headline does
+    assert written_rows and all(r["device"] == "cpu" for r in written_rows)
+    if mode == "halo":
+        # a fractional overhead, which may be negative: the worst of each
+        # shape's best, recomputed from the rows as bench.py computes it
+        # (:642-651)
+        best_by_shape = {}
+        for r in written_rows[:-1]:
+            ov = r.get("overhead_perlayer", r["overhead"])
+            ov = min(ov, r["overhead"], r.get("overhead_chain", ov))
+            key = (r["h"], r["cin"])
+            best_by_shape[key] = min(best_by_shape.get(key, ov), ov)
+        assert math.isfinite(line["value"])
+        assert line["value"] == round(max(best_by_shape.values()), 4)
+    else:  # a speedup or a rate
+        assert line["value"] > 0
     if mode == "halo":
         written = (tmp_path / "build" / "SCALING.jsonl").read_text()
         assert json.loads(written.splitlines()[-1]) == line

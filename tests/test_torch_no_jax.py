@@ -1,7 +1,8 @@
 """The port imports no jax and nothing of the JAX package (nor the
 repository's examples/ scripts, which drive it, nor its ``bench.py``, whose
-counterpart is the port's own ``bench`` module): the machine with the card
-has no jax. Importing every module needs neither PIL nor h5py either (the
+counterpart is the port's own ``bench`` module, nor its ``scripts/``, whose
+suite and table renderers the port's ``tools`` carry): the machine with the
+card has no jax. Importing every module needs neither PIL nor h5py either (the
 data layers import them when they read images or HDF5 files), since that
 machine may have neither, and no scikit-learn (the examples' digits are a
 file of the port's own)."""
@@ -17,10 +18,10 @@ SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
 
     # forget any jax, PIL, h5py or scikit-learn a site hook may have
-    # imported, and refuse new imports of them, of the JAX package or of
-    # the repository's examples/ scripts
+    # imported, and refuse new imports of them, of the JAX package, of
+    # the repository's examples/ scripts or of its scripts/
     REFUSED = ("jax", "jaxlib", "caffe_escoin_tpu", "PIL", "h5py",
-               "sklearn", "examples")
+               "sklearn", "examples", "scripts")
     for name in [m for m in sys.modules if m.split(".")[0] in REFUSED]:
         del sys.modules[name]
 
@@ -44,8 +45,8 @@ SCRIPT = textwrap.dedent("""
 
 # the modules that carry their own copies of JAX-package code (numpy-only
 # helpers, the model specs, the model I/O, the command line and the
-# training loop the port may not import, the example scripts and the
-# measuring program)
+# training loop the port may not import, the example scripts, the
+# measuring program, its suite and the table renderers of scripts/)
 COPIES = ("ops.s2d", "ops.wpack", "ops.norm", "ops.structural",
           "ops.activations", "ops.losses", "utils.pruning",
           "models.alexnet", "models.caffenet", "models.cifar",
@@ -60,7 +61,8 @@ COPIES = ("ops.s2d", "ops.wpack", "ops.norm", "ops.structural",
           "parallel.mesh", "parallel.launch", "parallel.halo", "parallel.tp",
           "parallel.dp", "parallel.dryrun", "examples.digits",
           "examples.train_eval_sparse", "examples.net_surgery",
-          "examples.siamese_digits", "bench")
+          "examples.siamese_digits", "bench", "tools.report",
+          "tools.sweep_table", "tools.suite")
 
 
 def test_port_imports_no_jax():
