@@ -68,7 +68,9 @@ Where this module differs from ``bench.py``:
 * ``spmm_tile_m`` (a TPU tile size no gate of the port reads) is gone.
 * Each headline line and each row it appends gains one key, ``device``
   (the card's name and power limit, or "cpu"); the per-layer rows also
-  carry ``stream_rate_tb_s``. ``--platform auto|cpu|cuda`` picks the
+  carry ``stream_rate_tb_s``, and the ``halo_tower_overhead_1dev`` rows
+  ``err_chain``, the one-entry chain's error, which ``bench.py`` computed
+  but did not write, though ``overhead_chain`` can set the headline. ``--platform auto|cpu|cuda`` picks the
   device (auto: the card; without one the run exits 2).
 """
 
@@ -767,7 +769,7 @@ def _halo_rows(args, device, mesh):
                          "overhead_perlayer": round(tl / tp - 1.0, 4),
                          "overhead_chain": round(tc / tp - 1.0, 4),
                          "overhead": round(tt / tp - 1.0, 4), "err": err,
-                         "backend": device.type})
+                         "err_chain": err_c, "backend": device.type})
     return rows
 
 

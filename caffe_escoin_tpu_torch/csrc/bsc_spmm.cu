@@ -27,20 +27,25 @@
 // each column's live K-blocks over `split` blocks, about three blocks per SM;
 // the shares meet in a deterministic reduction in the same launch (the
 // split-K instance of sconv_pipe.cuh). The large-M callers run unsplit with
-// 128-row tiles. A reaches the kernel in bf16 with K and bk multiples of 8
-// (cp.async does not convert; bsc_spmm.kernel_operands).
+// 128-row tiles. A reaches the kernel in the multiply type, bf16 with K and
+// bk multiples of 8 or f32 with multiples of 4 (cp.async does not convert;
+// bsc_spmm.kernel_operands); in f32 (cet_bsc_spmm_f32) the split-K partial
+// sums are f32 as in bf16, so the three-pass TF32 products keep f32
+// accuracy through the reduction.
 
 #include "sconv_pipe.cuh"
 
 namespace {
 
+template <typename E>
 struct DenseRows {
-  const __nv_bfloat16* a;  // [m_total, K], K % 8 == 0
+  using Elem = E;
+  const E* a;  // [m_total, K], K % kVec<E> == 0
   int K, bk, m_total;
   int m0;  // first row of the tile
 
   struct Row {
-    const __nv_bfloat16* p;  // the row of A; null past M
+    const E* p;  // the row of A; null past M
   };
   struct Blk {
     int c0, limit;  // first column of the K-block, its columns inside K
@@ -58,10 +63,9 @@ struct DenseRows {
     return {c0, min(bk, K - c0)};
   }
 
-  // 8 values at column kk of the K-block for this row; null reads zeros
-  // (past M, past K)
-  __device__ const __nv_bfloat16* at(const Row& rw, const Blk& b,
-                                     int kk) const {
+  // the 16 bytes at column kk of the K-block for this row; null reads
+  // zeros (past M, past K)
+  __device__ const E* at(const Row& rw, const Blk& b, int kk) const {
     if (!rw.p || kk >= b.limit) return nullptr;
     return rw.p + b.c0 + kk;
   }
@@ -72,27 +76,18 @@ struct DenseRows {
   }
 };
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a plan the kernel does not match. a: bf16
-// [m, k]. blocks: bf16. out: bf16 if bf16_io, else f32. ws: f32 [split, m,
-// n_bcols * bn] and counters: int32 [n_counters], zero, when split > 1
-// (else unused). d: the integer arguments, m, k, n, bk, bn, n_bcols,
-// max_bw, relu, bf16_io, then the launch plan of kernels/sconv_pipe.py:
-// tile_m, stages, chunk, smem, split, share, and n_counters.
-extern "C" int cet_bsc_spmm(const void* a, const void* blocks,
-                            const void* block_row, const void* bcol_nnz,
-                            const void* bias, void* out, void* ws,
-                            void* counters, const int* d, void* stream) {
+template <typename E>
+int run(const void* a, const void* blocks, const void* block_row,
+        const void* bcol_nnz, const void* bias, void* out, void* ws,
+        void* counters, const int* d, void* stream) {
   const int m = d[0], k = d[1], n = d[2], bk = d[3], bn = d[4];
   const int n_bcols = d[5], max_bw = d[6], relu = d[7], bf16_io = d[8];
   const int tile_m = d[9], stages = d[10], chunk = d[11], smem = d[12];
   const int split = d[13], share = d[14], n_counters = d[15];
-  if (k % 8 != 0 || m <= 0 || tile_m <= 0 || split < 1)
+  if (k % cet::pipe::kVec<E> != 0 || m <= 0 || tile_m <= 0 || split < 1)
     return cudaErrorInvalidValue;
-  DenseRows rows{static_cast<const __nv_bfloat16*>(a), k, bk, m, 0};
-  const cet::pipe::Args args{static_cast<const __nv_bfloat16*>(blocks),
+  DenseRows<E> rows{static_cast<const E*>(a), k, bk, m, 0};
+  const cet::pipe::Args args{blocks,
                              static_cast<const int*>(block_row),
                              static_cast<const int*>(bcol_nnz),
                              static_cast<const float*>(bias),
@@ -115,6 +110,31 @@ extern "C" int cet_bsc_spmm(const void* a, const void* blocks,
                       rows, args, sp, m_tiles, tile_m, chunk, smem, stream);
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a plan the kernel does not match. a [m, k] and
+// blocks: bf16 (cet_bsc_spmm) or f32 (cet_bsc_spmm_f32), the multiply type.
+// out: bf16 if bf16_io, else f32. ws: f32 [split, m, n_bcols * bn] and
+// counters: int32 [n_counters], zero, when split > 1 (else unused). d: the
+// integer arguments, m, k, n, bk, bn, n_bcols, max_bw, relu, bf16_io, then
+// the launch plan of kernels/sconv_pipe.py: tile_m, stages, chunk, smem,
+// split, share, and n_counters.
+extern "C" int cet_bsc_spmm(const void* a, const void* blocks,
+                            const void* block_row, const void* bcol_nnz,
+                            const void* bias, void* out, void* ws,
+                            void* counters, const int* d, void* stream) {
+  return run<__nv_bfloat16>(a, blocks, block_row, bcol_nnz, bias, out, ws,
+                            counters, d, stream);
+}
+extern "C" int cet_bsc_spmm_f32(const void* a, const void* blocks,
+                                const void* block_row, const void* bcol_nnz,
+                                const void* bias, void* out, void* ws,
+                                void* counters, const int* d, void* stream) {
+  return run<float>(a, blocks, block_row, bcol_nnz, bias, out, ws, counters,
+                    d, stream);
 }
 
 // Text of a CUDA error code returned by the entry points of this library.

@@ -31,14 +31,20 @@
 // across K-blocks; the residual add and ReLU ride the coalesced 16-byte
 // epilogue there; block-columns of one M-tile launch side by side so the
 // A rows they share come from L2; the wrapper picks 64-row tiles for the
-// small late layers so they still fill the card.
+// small late layers so they still fill the card. With mxu_dtype "float32"
+// (cet_sconv_fused_f32) x and the weight blocks arrive in f32 and multiply
+// as three TF32 products (sconv_pipe.cuh): twice the bytes, so the layer
+// above moves 51 MB for its 0.82 GFLOP, ~16 FLOP/byte, still below the ~49
+// at which three TF32 passes become the limit.
 
 #include "sconv_pipe.cuh"
 
 namespace {
 
+template <typename E>
 struct ConvRows {
-  const __nv_bfloat16* x;  // [N, H, W, Cin], Cin % 8 == 0
+  using Elem = E;
+  const E* x;  // [N, H, W, Cin], Cin % kVec<E> == 0
   int H, W, Cin, Ho, Wo, kw, ph, pw, n_cin_b, bk, m_total;
   int m0;  // first output row of the tile
 
@@ -66,10 +72,9 @@ struct ConvRows {
     return {khi - ph, off - khi * kw - pw, cb * bk, min(bk, Cin - cb * bk)};
   }
 
-  // 8 channels at column kk of the K-block for this row; null reads zeros
-  // (padding, past M, past Cin)
-  __device__ const __nv_bfloat16* at(const Row& rw, const Blk& b,
-                                     int kk) const {
+  // the 16 bytes at column kk of the K-block for this row; null reads
+  // zeros (padding, past M, past Cin)
+  __device__ const E* at(const Row& rw, const Blk& b, int kk) const {
     if (rw.n < 0 || kk >= b.limit) return nullptr;
     const int hi = rw.ho + b.dh, wi = rw.wo + b.dw;
     if ((unsigned)hi >= (unsigned)H || (unsigned)wi >= (unsigned)W)
@@ -83,28 +88,21 @@ struct ConvRows {
   }
 };
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a plan the kernel does not match. x: bf16.
-// blocks: bf16. residual and out: bf16 if bf16_io, else f32. d: the
-// integer arguments, n, h, w, cin, ho, wo, cout, kw, ph, pw, n_cin_b, bk,
-// bn, n_bcols, max_bw, relu, bf16_io, then the launch plan of
-// kernels/sconv_pipe.py: tile_m, stages, chunk, smem.
-extern "C" int cet_sconv_fused(const void* x, const void* blocks,
-                               const void* block_row, const void* bcol_nnz,
-                               const void* bias, const void* residual,
-                               void* out, const int* d, void* stream) {
+template <typename E>
+int run(const void* x, const void* blocks, const void* block_row,
+        const void* bcol_nnz, const void* bias, const void* residual,
+        void* out, const int* d, void* stream) {
   const int n = d[0], h = d[1], w = d[2], cin = d[3], ho = d[4], wo = d[5];
   const int cout = d[6], kw = d[7], ph = d[8], pw = d[9], n_cin_b = d[10];
   const int bk = d[11], bn = d[12], n_bcols = d[13], max_bw = d[14];
   const int relu = d[15], bf16_io = d[16], tile_m = d[17], stages = d[18];
   const int chunk = d[19], smem = d[20];
-  if (cin % 8 != 0 || tile_m <= 0) return cudaErrorInvalidValue;
+  if (cin % cet::pipe::kVec<E> != 0 || tile_m <= 0)
+    return cudaErrorInvalidValue;
   const int m_total = n * ho * wo;
-  ConvRows rows{static_cast<const __nv_bfloat16*>(x),
-                h, w, cin, ho, wo, kw, ph, pw, n_cin_b, bk, m_total, 0};
-  const cet::pipe::Args a{static_cast<const __nv_bfloat16*>(blocks),
+  ConvRows<E> rows{static_cast<const E*>(x), h, w, cin, ho, wo, kw, ph, pw,
+                   n_cin_b, bk, m_total, 0};
+  const cet::pipe::Args a{blocks,
                           static_cast<const int*>(block_row),
                           static_cast<const int*>(bcol_nnz),
                           static_cast<const float*>(bias),
@@ -117,4 +115,29 @@ extern "C" int cet_sconv_fused(const void* x, const void* blocks,
               : cet::pipe::launch_sconv_pipe<float>(rows, a, m_tiles, tile_m,
                                                     chunk, smem, stream);
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a plan the kernel does not match. x and blocks:
+// bf16 (cet_sconv_fused) or f32 (cet_sconv_fused_f32), the multiply type.
+// residual and out: bf16 if bf16_io, else f32. d: the integer arguments, n,
+// h, w, cin, ho, wo, cout, kw, ph, pw, n_cin_b, bk, bn, n_bcols, max_bw,
+// relu, bf16_io, then the launch plan of kernels/sconv_pipe.py: tile_m,
+// stages, chunk, smem.
+extern "C" int cet_sconv_fused(const void* x, const void* blocks,
+                               const void* block_row, const void* bcol_nnz,
+                               const void* bias, const void* residual,
+                               void* out, const int* d, void* stream) {
+  return run<__nv_bfloat16>(x, blocks, block_row, bcol_nnz, bias, residual,
+                            out, d, stream);
+}
+extern "C" int cet_sconv_fused_f32(const void* x, const void* blocks,
+                                   const void* block_row,
+                                   const void* bcol_nnz, const void* bias,
+                                   const void* residual, void* out,
+                                   const int* d, void* stream) {
+  return run<float>(x, blocks, block_row, bcol_nnz, bias, residual, out, d,
+                    stream);
 }

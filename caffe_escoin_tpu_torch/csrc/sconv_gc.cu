@@ -2,8 +2,9 @@
 // kernel caffe_escoin_tpu/kernels/sconv_pallas.py (_make_kernel / _run, the
 // v2 Pallas kernel reached through sconv()).
 //
-// What it computes: stride-1, dilation-1 convolution over a bf16 slab that
-// the wrapper builds: x zero-padded to Hp x Wp and cin_pad channels, H x W
+// What it computes: stride-1, dilation-1 convolution over a slab that
+// the wrapper builds in the multiply type (bf16, or f32 in
+// cet_sconv_gc_f32): x zero-padded to Hp x Wp and cin_pad channels, H x W
 // flattened, slab [N, L, cin_pad] with L >= Hp*Wp + Kw - 1 rows per image.
 // Output rows are computed over Ho x Wp per image: row mi = (ho, w) of
 // image n reads, for a live K-block kblk (off = kblk / n_cin_b,
@@ -37,8 +38,10 @@
 
 namespace {
 
+template <typename E>
 struct SlabRows {
-  const __nv_bfloat16* slab;  // [N, L, cin_pad]
+  using Elem = E;
+  const E* slab;  // [N, L, cin_pad]
   int L, cin_pad, ho, wo, wp, kw, n_cin_b, bk, tiles_per_img;
   int img, m0;  // the tile's image and first garbage-column row in it
 
@@ -65,11 +68,10 @@ struct SlabRows {
     return {khi * wp + off - khi * kw, cb * bk};
   }
 
-  // 8 channels at column kk of the K-block for this row; null reads zeros
-  // (past the image's rows, past the block's depth). cin_pad % bk == 0: a
-  // K-block never leaves the row.
-  __device__ const __nv_bfloat16* at(const Row& rw, const Blk& b,
-                                     int kk) const {
+  // the 16 bytes at column kk of the K-block for this row; null reads
+  // zeros (past the image's rows, past the block's depth). cin_pad % bk ==
+  // 0: a K-block never leaves the row.
+  __device__ const E* at(const Row& rw, const Blk& b, int kk) const {
     if (rw.base < 0 || kk >= bk) return nullptr;
     return slab + (size_t)(rw.base + b.shift) * cin_pad + b.c0 + kk;
   }
@@ -83,29 +85,22 @@ struct SlabRows {
   }
 };
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a plan the kernel does not match. slab: bf16.
-// blocks: bf16. out: bf16 if bf16_io, else f32. d: the integer arguments,
-// n, L, cin_pad, ho, wo, wp, cout, kw, n_cin_b, bk, bn, n_bcols, max_bw,
-// relu, bf16_io, then the launch plan of kernels/sconv_pipe.py: tile_m,
-// stages, chunk, smem.
-extern "C" int cet_sconv_gc(const void* slab, const void* blocks,
-                            const void* block_row, const void* bcol_nnz,
-                            const void* bias, void* out, const int* d,
-                            void* stream) {
+template <typename E>
+int run(const void* slab, const void* blocks, const void* block_row,
+        const void* bcol_nnz, const void* bias, void* out, const int* d,
+        void* stream) {
   const int n = d[0], L = d[1], cin_pad = d[2], ho = d[3], wo = d[4];
   const int wp = d[5], cout = d[6], kw = d[7], n_cin_b = d[8], bk = d[9];
   const int bn = d[10], n_bcols = d[11], max_bw = d[12], relu = d[13];
   const int bf16_io = d[14], tile_m = d[15], stages = d[16], chunk = d[17];
   const int smem = d[18];
-  if (cin_pad % 8 != 0 || tile_m <= 0 || n <= 0 || ho <= 0 || wo > wp)
+  if (cin_pad % cet::pipe::kVec<E> != 0 || tile_m <= 0 || n <= 0 ||
+      ho <= 0 || wo > wp)
     return cudaErrorInvalidValue;
   const int tiles_per_img = (ho * wp + tile_m - 1) / tile_m;
-  SlabRows rows{static_cast<const __nv_bfloat16*>(slab), L, cin_pad, ho, wo,
-                wp, kw, n_cin_b, bk, tiles_per_img, 0, 0};
-  const cet::pipe::Args a{static_cast<const __nv_bfloat16*>(blocks),
+  SlabRows<E> rows{static_cast<const E*>(slab), L, cin_pad, ho, wo, wp, kw,
+                   n_cin_b, bk, tiles_per_img, 0, 0};
+  const cet::pipe::Args a{blocks,
                           static_cast<const int*>(block_row),
                           static_cast<const int*>(bcol_nnz),
                           static_cast<const float*>(bias),
@@ -117,4 +112,27 @@ extern "C" int cet_sconv_gc(const void* slab, const void* blocks,
               : cet::pipe::launch_sconv_pipe<float>(
                     rows, a, n * tiles_per_img, tile_m, chunk, smem, stream);
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a plan the kernel does not match. slab and
+// blocks: bf16 (cet_sconv_gc) or f32 (cet_sconv_gc_f32), the multiply type.
+// out: bf16 if bf16_io, else f32. d: the integer arguments, n, L, cin_pad,
+// ho, wo, wp, cout, kw, n_cin_b, bk, bn, n_bcols, max_bw, relu, bf16_io,
+// then the launch plan of kernels/sconv_pipe.py: tile_m, stages, chunk,
+// smem.
+extern "C" int cet_sconv_gc(const void* slab, const void* blocks,
+                            const void* block_row, const void* bcol_nnz,
+                            const void* bias, void* out, const int* d,
+                            void* stream) {
+  return run<__nv_bfloat16>(slab, blocks, block_row, bcol_nnz, bias, out, d,
+                            stream);
+}
+extern "C" int cet_sconv_gc_f32(const void* slab, const void* blocks,
+                                const void* block_row, const void* bcol_nnz,
+                                const void* bias, void* out, const int* d,
+                                void* stream) {
+  return run<float>(slab, blocks, block_row, bcol_nnz, bias, out, d, stream);
 }

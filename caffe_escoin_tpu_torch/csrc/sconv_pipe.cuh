@@ -25,7 +25,7 @@
 //   picks tile_m per launch: 128 when that makes a block for at least every
 //   other one of the card's 132 SMs, else 64, so the smallest layers (7x7
 //   at b32) make more blocks; the larger tile wins everywhere else.
-// * One flat list of K steps per block: (live K-block s, 64-deep chunk kc)
+// * One flat list of K steps per block: (live K-block s, chunk kc of it)
 //   for s < bcol_nnz[j], so the pipeline never drains between K-blocks;
 //   it is walked with running counters, a K-block decoded once, since at
 //   these depths the integer work per step rivals the multiply.
@@ -35,13 +35,31 @@
 //   src-size 0 and fills zeros: that is all the masking, and it costs no
 //   registers. cp.async.wait_group keeps stages-1 steps in flight while a
 //   step multiplies. The wrapper picks `stages` from the column's step count
-//   and keeps two blocks per SM. Activations arrive in bf16 (cp.async does
-//   not convert; the wrapper rounds f32 activations to bf16 as the staging
-//   of the earlier kernel did), with rows 16-byte aligned (Cin % 8 == 0).
-// * Tensor cores through ldmatrix + mma.sync.m16n8k16 (bf16 x bf16 -> f32)
-//   from shared rows padded by 16 bytes, which keeps ldmatrix free of bank
-//   conflicts. Warps are (tile_m / 32) x 2; a warp owns 32 x bn_tile/2
-//   outputs in registers. mma.sync suffices at these FLOP/byte ratios.
+//   and keeps two blocks per SM. cp.async does not convert, so the operands
+//   arrive in the type they are multiplied in (E, from the Rows policy):
+//   bf16, the wrapper rounding f32 activations as the staging of the
+//   earlier kernel did, or f32 for mxu_dtype "float32". A step is 128 bytes
+//   of a row deep (64 bf16 or 32 f32 values), so a stage holds the same
+//   bytes in both types; rows are 16-byte aligned (Cin % 8 == 0 in bf16,
+//   Cin % 4 == 0 in f32).
+// * bf16 operands: tensor cores through ldmatrix + mma.sync.m16n8k16 (bf16
+//   x bf16 -> f32) from shared rows padded by 16 bytes, which keeps
+//   ldmatrix free of bank conflicts. Warps are (tile_m / 32) x 2; a warp
+//   owns 32 x bn_tile/2 outputs in registers. mma.sync suffices at these
+//   FLOP/byte ratios.
+// * f32 operands: the same warp tiles through mma.sync.m16n8k8 in TF32, three
+//   products per fragment so that they keep f32 accuracy (one TF32 pass
+//   keeps ~3 decimal digits): each value v splits into big = tf32(v) and
+//   small = tf32(v - big), and the accumulator takes small*big + big*small
+//   + big*big, small terms first (the dropped small*small is ~2^-22 of the
+//   product). Three passes run at a third of the card's 495 TF32 TFLOP/s,
+//   ~165, or ~49 FLOP per byte at 3.35 TB/s; at 90% block sparsity these
+//   layers do 16-63 FLOP per f32 byte, so the larger convs turn MMA-bound,
+//   and FFMA on the CUDA cores (67 TFLOP/s) would bound them lower still.
+//   ldmatrix moves 16-bit elements only: each tf32 fragment value is one
+//   32-bit shared load (A: rows g, g+8 x columns t, t+4; B: k = t, t+4 x
+//   n = g), from A rows padded by 4 floats and B rows by 8, so that the 32
+//   lanes of each load hit 32 distinct banks.
 // * Epilogue through shared memory: the accumulator tile goes to shared
 //   memory (reusing the ring), the bias is staged once per block, and each
 //   thread then takes 8 consecutive channels of one row: one 16-byte read of
@@ -64,11 +82,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cet {
 namespace pipe {
 
-constexpr int kChunk = 64;           // K depth of one pipeline step
-constexpr int kALd = kChunk + 8;     // padded shared row of an A stage (bf16)
+// K depth of one pipeline step: 128 bytes of a row (64 bf16, 32 f32)
+template <typename E>
+constexpr int kChunk = 128 / (int)sizeof(E);
+// values of E in one 16-byte cp.async copy
+template <typename E>
+constexpr int kVec = 16 / (int)sizeof(E);
+// padded shared row of an A stage: 16 bytes of padding
+template <typename E>
+constexpr int kALd = kChunk<E> + kVec<E>;
 constexpr int kRowsPerThread = 4;    // A rows each thread copies per step
 constexpr int kMaxStages = 4;
 
@@ -76,18 +103,23 @@ constexpr int kMaxStages = 4;
 __host__ __device__ constexpr int bn_tile(int bn) {
   return bn <= 32 ? 32 : bn <= 64 ? 64 : 128;
 }
+// elements of one ring stage: the A tile, then the B tile (rows padded by 8)
+template <typename E>
 __host__ __device__ constexpr int stage_elems(int bm, int bn_t) {
-  return bm * kALd + kChunk * (bn_t + 8);
+  return bm * kALd<E> + kChunk<E> * (bn_t + 8);
 }
 // Dynamic shared memory of one block: the ring (or the f32 accumulator tile
 // that reuses it, whichever is larger), then the bias of the block-column.
+template <typename E>
 __host__ __device__ constexpr int ring_bytes(int bm, int bn_t, int stages) {
-  return stages * stage_elems(bm, bn_t) * 2 > bm * (bn_t + 8) * 4
-             ? stages * stage_elems(bm, bn_t) * 2
+  return stages * stage_elems<E>(bm, bn_t) * (int)sizeof(E) >
+                 bm * (bn_t + 8) * 4
+             ? stages * stage_elems<E>(bm, bn_t) * (int)sizeof(E)
              : bm * (bn_t + 8) * 4;
 }
+template <typename E>
 __host__ __device__ constexpr int smem_bytes(int bm, int bn_t, int stages) {
-  return ring_bytes(bm, bn_t, stages) + bn_t * 4;
+  return ring_bytes<E>(bm, bn_t, stages) + bn_t * 4;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -142,6 +174,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c[16x8] += a[16x8] @ b[8x8], tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// v = big + small + O(2^-22 |v|): big = tf32(v), small = tf32(v - big), both
+// as the tensor core reads them (the low 13 bits of big are cleared so that
+// v - big is exact)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  big = r & 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small)
+      : "f"(v - __uint_as_float(big)));
+}
+
 // 8 consecutive values of T as loaded (one 16-byte vector of bf16, two of
 // f32), to f32
 __device__ __forceinline__ void unpack8(const uint4 (&u)[1], float (&v)[8]) {
@@ -181,7 +234,7 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) {
 
 // What every launch passes besides its Rows policy.
 struct Args {
-  const __nv_bfloat16* blocks;  // [n_bcols, max_bw, bk, bn]
+  const void* blocks;           // E [n_bcols, max_bw, bk, bn]
   const int* block_row;         // [n_bcols, max_bw]
   const int* bcol_nnz;          // [n_bcols]
   const float* bias;            // [n_out] or null
@@ -200,27 +253,35 @@ struct Split {
 };
 
 // T: residual/output dtype. Rows: tile(mt, bm) / row(r) / block(kblk) /
-// at(row, block, kk) / out_row(r) (see sconv_fused.cu, sconv_gc.cu,
-// bsc_spmm.cu). kSplit: the split-K instance (Split above).
+// at(row, block, kk) / out_row(r), and Elem, the operand type E (see
+// sconv_fused.cu, sconv_gc.cu, bsc_spmm.cu). kSplit: the split-K instance
+// (Split above).
 template <typename T, int BM, int BN_T, class Rows, bool kSplit>
 __global__ void __launch_bounds__(2 * BM, 256 / BM)
 sconv_pipe_kernel(Rows rows, Args a, Split sp) {
+  using E = typename Rows::Elem;
+  constexpr bool kF32 = std::is_same<E, float>::value;
   constexpr int kThreads = 2 * BM;
   constexpr int kWN = BN_T / 2;       // warp tile width
   constexpr int kNF = kWN / 8;        // n8 fragments per warp (even)
+  constexpr int kC = kChunk<E>;       // K depth of a step
+  constexpr int kV = kVec<E>;         // values per 16-byte copy
+  constexpr int kAL = kALd<E>;
   constexpr int kBLd = BN_T + 8;      // padded shared row of a B stage
   constexpr int kCLd = BN_T + 8;      // padded shared row of the f32 tile
-  constexpr int kStageA = BM * kALd;
-  constexpr int kStage = stage_elems(BM, BN_T);
-  constexpr int kBPerThread = kChunk * BN_T / 8 / kThreads;
+  constexpr int kStageA = BM * kAL;
+  constexpr int kStage = stage_elems<E>(BM, BN_T);
+  constexpr int kBG = BN_T / kV;      // 16-byte copies in a B tile row
+  constexpr int kBPerThread = kC * kBG / kThreads;
   constexpr int kG = BN_T / 8;        // 8-channel groups in a tile row
+  static_assert(kC / kV == 8, "eight 16-byte copies per A row and step");
   static_assert(kRowsPerThread * (kThreads / 8) == BM, "A copy roles");
-  static_assert(kBPerThread * kThreads * 8 == kChunk * BN_T, "B copy roles");
+  static_assert(kBPerThread * kThreads == kC * kBG, "B copy roles");
 
   extern __shared__ __align__(128) unsigned char smem[];
-  auto* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  auto* ring = reinterpret_cast<E*>(smem);
   float* s_bias = reinterpret_cast<float*>(
-      smem + ring_bytes(BM, BN_T, a.stages));
+      smem + ring_bytes<E>(BM, BN_T, a.stages));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int warp_m = warp >> 1, warp_n = warp & 1;
@@ -267,11 +328,11 @@ sconv_pipe_kernel(Rows rows, Args a, Split sp) {
     nnz = min(sp.share, col_nnz - first);
   else
     nnz = a.bcol_nnz[j];
-  const int cpb = (a.bk + kChunk - 1) / kChunk;  // steps per K-block
+  const int cpb = (a.bk + kC - 1) / kC;  // steps per K-block
   const int nsteps = nnz * cpb;
   const int* brow = a.block_row + (size_t)j * a.max_bw + first;
-  const __nv_bfloat16* wcol =
-      a.blocks + ((size_t)j * a.max_bw + first) * a.bk * a.bn;
+  const E* wcol = static_cast<const E*>(a.blocks) +
+                  ((size_t)j * a.max_bw + first) * a.bk * a.bn;
 
   // the copy side walks the steps in order: K-block ld_s, chunk ld_kc, into
   // ring stage ld_st; a K-block is decoded once, not once per chunk
@@ -282,26 +343,30 @@ sconv_pipe_kernel(Rows rows, Args a, Split sp) {
   else if (nnz > 0)
     ld_blk = rows.block(__ldg(brow));
   auto load_next = [&]() {
-    __nv_bfloat16* sa = ring + ld_st * kStage;
-    __nv_bfloat16* sb = sa + kStageA;
+    E* sa = ring + ld_st * kStage;
+    E* sb = sa + kStageA;
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int r = tid / 8 + i * (kThreads / 8);
-      const __nv_bfloat16* src = rows.at(arow[i], ld_blk, ld_kc + q * 8);
-      cp_async16(smem_u32(sa + r * kALd + q * 8), src ? src : a.blocks,
+      const E* src = rows.at(arow[i], ld_blk, ld_kc + q * kV);
+      cp_async16(smem_u32(sa + r * kAL + q * kV),
+                 src ? static_cast<const void*>(src) : a.blocks,
                  src != nullptr);
     }
-    const __nv_bfloat16* w = wcol + (size_t)ld_s * a.bk * a.bn;
+    const E* w = wcol + (size_t)ld_s * a.bk * a.bn;
 #pragma unroll
     for (int i = 0; i < kBPerThread; ++i) {
       const int v = tid + i * kThreads;
-      const int k = v / kG, c = (v - k * kG) * 8;
+      const int k = v / kBG, c = (v - k * kBG) * kV;
       const bool ok = ld_kc + k < a.bk && c < a.bn;
       cp_async16(smem_u32(sb + k * kBLd + c),
-                 ok ? w + (size_t)(ld_kc + k) * a.bn + c : a.blocks, ok);
+                 ok ? static_cast<const void*>(w + (size_t)(ld_kc + k) * a.bn
+                                               + c)
+                    : a.blocks,
+                 ok);
     }
     if (++ld_st == a.stages) ld_st = 0;
-    ld_kc += kChunk;
+    ld_kc += kC;
     if (ld_kc >= a.bk) {
       ld_kc = 0;
       if (++ld_s < nnz) ld_blk = rows.block(__ldg(brow + ld_s));
@@ -328,31 +393,63 @@ sconv_pipe_kernel(Rows rows, Args a, Split sp) {
     if (t + pre < nsteps) load_next();
     cp_async_commit();
 
-    const int depth = min(kChunk, a.bk - kc);
-    const __nv_bfloat16* sa = ring + st * kStage;
-    const __nv_bfloat16* sb = sa + kStageA;
+    const int depth = min(kC, a.bk - kc);
+    const E* sa = ring + st * kStage;
+    const E* sb = sa + kStageA;
     if (++st == a.stages) st = 0;
-    kc += kChunk;
+    kc += kC;
     if (kc >= a.bk) kc = 0;
+    if constexpr (!kF32) {
 #pragma unroll
-    for (int ks = 0; ks < kChunk; ks += 16) {
-      if (ks >= depth) break;
-      uint32_t fa[2][4];
+      for (int ks = 0; ks < kC; ks += 16) {
+        if (ks >= depth) break;
+        uint32_t fa[2][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(smem_u32(sa + (warp_m * 32 + i * 16 + (lane & 15)) * kALd +
-                         ks + (lane >> 4) * 8),
-                fa[i]);
+        for (int i = 0; i < 2; ++i)
+          ldsm_x4(smem_u32(sa + (warp_m * 32 + i * 16 + (lane & 15)) * kAL +
+                           ks + (lane >> 4) * 8),
+                  fa[i]);
 #pragma unroll
-      for (int f = 0; f < kNF; f += 2) {
-        uint32_t fb[4];
-        ldsm_x4_trans(smem_u32(sb + (ks + (lane & 15)) * kBLd + warp_n * kWN +
-                               f * 8 + (lane >> 4) * 8),
-                      fb);
+        for (int f = 0; f < kNF; f += 2) {
+          uint32_t fb[4];
+          ldsm_x4_trans(smem_u32(sb + (ks + (lane & 15)) * kBLd +
+                                 warp_n * kWN + f * 8 + (lane >> 4) * 8),
+                        fb);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(acc[i][f], fa[i], fb[0], fb[1]);
+            mma_bf16(acc[i][f + 1], fa[i], fb[2], fb[3]);
+          }
+        }
+      }
+    } else {
+      // k8 steps; a step past the block's depth reads the zeros its copies
+      // filled in (bk % 4 == 0, so a k8 step is at least half live)
+      const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+      for (int ks = 0; ks < kC; ks += 8) {
+        if (ks >= depth) break;
+        uint32_t ab[2][4], as[2][4];  // A's big and small halves
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][f], fa[i], fb[0], fb[1]);
-          mma_bf16(acc[i][f + 1], fa[i], fb[2], fb[3]);
+          const float* p = sa + (warp_m * 32 + i * 16 + g) * kAL + ks + tq;
+          split_tf32(p[0], ab[i][0], as[i][0]);
+          split_tf32(p[8 * kAL], ab[i][1], as[i][1]);
+          split_tf32(p[4], ab[i][2], as[i][2]);
+          split_tf32(p[8 * kAL + 4], ab[i][3], as[i][3]);
+        }
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) {
+          const float* p = sb + (ks + tq) * kBLd + warp_n * kWN + f * 8 + g;
+          uint32_t bb0, bs0, bb1, bs1;
+          split_tf32(p[0], bb0, bs0);
+          split_tf32(p[4 * kBLd], bb1, bs1);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_tf32(acc[i][f], as[i], bb0, bb1);
+            mma_tf32(acc[i][f], ab[i], bs0, bs1);
+            mma_tf32(acc[i][f], ab[i], bb0, bb1);
+          }
         }
       }
     }
@@ -514,21 +611,23 @@ cudaError_t launch_one(const Rows& rows, const Args& a, const Split& sp,
 
 // The launch plan (tile_m, stages, chunk, smem) comes from the wrapper
 // (kernels/sconv_pipe.py); it is checked here against what the compiled
-// kernel needs, and a plan it does not match is refused.
-inline bool plan_ok(const Args& a, int m_tiles, int tile_m, int chunk,
-                    int smem) {
+// kernel needs, and a plan it does not match is refused. E: the operand
+// type, whose 16-byte copies need K-blocks of a multiple of kVec<E>.
+template <typename E>
+bool plan_ok(const Args& a, int m_tiles, int tile_m, int chunk, int smem) {
   return a.bn > 0 && a.bn <= 128 && a.bn % 8 == 0 && a.bk > 0 &&
-         a.bk % 8 == 0 && m_tiles > 0 && a.n_bcols > 0 && a.max_bw > 0 &&
-         (tile_m == 64 || tile_m == 128) && a.stages >= 2 &&
-         a.stages <= kMaxStages && chunk == kChunk &&
+         a.bk % kVec<E> == 0 && m_tiles > 0 && a.n_bcols > 0 &&
+         a.max_bw > 0 && (tile_m == 64 || tile_m == 128) && a.stages >= 2 &&
+         a.stages <= kMaxStages && chunk == kChunk<E> &&
          (long long)m_tiles * a.n_bcols <= 0x7fffffffLL &&
-         smem == smem_bytes(tile_m, bn_tile(a.bn), a.stages);
+         smem == smem_bytes<E>(tile_m, bn_tile(a.bn), a.stages);
 }
 
 template <typename T, class Rows>
 cudaError_t launch_sconv_pipe(const Rows& rows, const Args& a, int m_tiles,
                               int tile_m, int chunk, int smem, void* stream) {
-  if (!plan_ok(a, m_tiles, tile_m, chunk, smem)) return cudaErrorInvalidValue;
+  if (!plan_ok<typename Rows::Elem>(a, m_tiles, tile_m, chunk, smem))
+    return cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const Split sp{};
   const int bn_t = bn_tile(a.bn);
@@ -553,7 +652,8 @@ template <typename T, class Rows>
 cudaError_t launch_sconv_pipe_split(const Rows& rows, const Args& a,
                                     const Split& sp, int m_tiles, int tile_m,
                                     int chunk, int smem, void* stream) {
-  if (!plan_ok(a, m_tiles, tile_m, chunk, smem) || tile_m != 64 ||
+  if (!plan_ok<typename Rows::Elem>(a, m_tiles, tile_m, chunk, smem) ||
+      tile_m != 64 ||
       sp.split < 2 || sp.share < 1 ||
       (long long)sp.split * sp.share < a.max_bw ||
       (long long)(sp.split - 1) * sp.share >= a.max_bw || !sp.ws ||

@@ -56,6 +56,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from caffe_escoin_tpu_torch.engine.context import resolve_mxu_dtype
+
 _CACHE: Dict[str, str] = {}
 _TIMES: Dict[str, Dict[str, float]] = {}  # key -> arm -> seconds (reporting)
 _LOCK = threading.RLock()
@@ -114,15 +116,22 @@ def _device_label(device: torch.device) -> str:
     return device.type
 
 
-def cache_key(aligned, x_shape, stride, padding, dilation, dtype) -> str:
+def cache_key(aligned, x_shape, stride, padding, dilation, dtype,
+              mxu_dtype: str = "auto") -> str:
     """repr of (device, x_shape, dtype, kernel, stride, padding, dilation,
-    cin_pad, cout, groups, block_shape, pattern signature); the device is
-    the weight's: "cuda:<name>" or "cpu"."""
-    parts = (_device_label(aligned.bsc.blocks.device), tuple(x_shape),
+    cin_pad, cout, groups, block_shape, pattern signature), and "float32"
+    last where ``mxu_dtype`` resolves to it on that device; the device is
+    the weight's: "cuda:<name>" or "cpu". A bf16-multiply key keeps the
+    JAX key's layout; an f32 one differs, so that the fused arm's pick,
+    timed at bf16 speed, is never served to an f32-multiply run."""
+    dev = aligned.bsc.blocks.device
+    parts = (_device_label(dev), tuple(x_shape),
              str(dtype), tuple(aligned.kernel_shape), tuple(stride),
              tuple(padding), tuple(dilation), aligned.cin_pad, aligned.cout,
              aligned.groups, tuple(aligned.bsc.block_shape),
              _pattern_sig(aligned))
+    if resolve_mxu_dtype(mxu_dtype, dev) == "float32":
+        parts += ("float32",)
     return repr(parts)
 
 
@@ -245,7 +254,7 @@ def choose_arm(aligned, policy, x_shape, stride, padding, dilation,
             or os.environ.get("CESCOIN_AUTOTUNE_CACHE", ""))
     _load_file(path)
     key = cache_key(aligned, x_shape, stride, padding, dilation,
-                    _dtype(policy))
+                    _dtype(policy), getattr(policy, "mxu_dtype", "auto"))
     rec = getattr(_RECORDING, "keys", None)
     with _LOCK:
         if key in _OVERRIDES:

@@ -61,8 +61,10 @@ class ExecutionPolicy:
 
     ``mxu_dtype``: multiply dtype inside the sparse kernels (accumulation is
     always f32). "auto" is bf16 on a CUDA tensor and f32 on a CPU tensor.
-    On CUDA only "bfloat16" is implemented: "float32" raises
-    NotImplementedError there (the plain versions honour both on the CPU).
+    On CUDA, "bfloat16" multiplies on bf16 tensor cores and "float32" as
+    three TF32 products per multiply, which keep f32 accuracy (the JAX
+    package's HIGHEST precision); the plain versions honour both on the
+    CPU.
 
     ``sparse_format``: ELL makes ``weight_align`` build the row-sparse
     W^T (``AlignedConvWeight.ell_t``) and LOWERED_SPARSE run it through

@@ -34,12 +34,15 @@ _P = ctypes.c_void_p
 _IP = ctypes.POINTER(ctypes.c_int)
 # argtypes of each C entry point: pointers and the stream as c_void_p; the
 # integer arguments come as one int array (``c_ints``), built once per layer
-# shape, since ctypes converts each argument anew on every call
+# shape, since ctypes converts each argument anew on every call. Each kernel
+# has a bf16 entry and an f32 one (``_f32``, mxu_dtype "float32") with the
+# same arguments.
 SIGNATURES = {
     "cet_sconv_fused": [_P] * 7 + [_IP, _P],
     "cet_bsc_spmm": [_P] * 8 + [_IP, _P],
     "cet_sconv_gc": [_P] * 6 + [_IP, _P],
 }
+SIGNATURES.update({f"{k}_f32": v for k, v in list(SIGNATURES.items())})
 
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any

@@ -13,14 +13,19 @@ the conv output is cast to bf16, and casts the folded bias to bf16 with the
 other params (its ``ops/conv.py:283-286,321-323``, ``nn/layers.py:152-161``);
 the port keeps the bias in f32. The plain version follows the kernel.
 
-The kernel copies its operands with ``cp.async``, which does not convert:
-``sconv`` hands it x in bf16 with 16-byte aligned rows and K-blocks
-(``sconv_pipe.kernel_operands``). ``launch_plan`` is the kernel's tile size,
-ring depth and shared memory for a shape (``kernels/sconv_pipe.py``).
+The kernel multiplies in the resolved ``mxu_dtype``, as the JAX kernel
+does: "bfloat16" (``auto`` on the card) through bf16 tensor-core products,
+or "float32" through three TF32 products per multiply, which keep f32
+accuracy (``csrc/sconv_pipe.cuh``; the C entry ``cet_sconv_fused_f32``).
+It copies its operands with ``cp.async``, which does not convert:
+``sconv`` hands it x and the weight blocks in that type with 16-byte
+aligned rows and K-blocks (``sconv_pipe.kernel_operands``).
+``launch_plan`` is the kernel's tile size, ring depth and shared memory
+for a shape and multiply type (``kernels/sconv_pipe.py``).
 
 ``sconv`` runs the kernel for a CUDA tensor and ``sconv_plain`` for a CPU
 tensor. ``calls`` counts entry calls on any device; ``launches`` counts
-kernel launches only.
+kernel launches only, ``launches_f32`` those that multiplied in f32.
 """
 
 from __future__ import annotations
@@ -37,14 +42,16 @@ from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
 
 calls = 0
 launches = 0
+launches_f32 = 0
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_counts() -> None:
-    global calls, launches
+    global calls, launches, launches_f32
     calls = 0
     launches = 0
+    launches_f32 = 0
 
 
 def supported(x: torch.Tensor, aligned: AlignedConvWeight, *,
@@ -135,45 +142,47 @@ def _out_hw(x_shape, kernel_shape, padding) -> Tuple[int, int]:
             x_shape[2] + 2 * padding[1] - kw + 1)
 
 
-def _plan(x_shape, kernel_shape, padding, block_shape, n_bcols,
-          max_bw) -> sconv_pipe.LaunchPlan:
+def _plan(x_shape, kernel_shape, padding, block_shape, n_bcols, max_bw,
+          mul) -> sconv_pipe.LaunchPlan:
     ho, wo = _out_hw(x_shape, kernel_shape, padding)
     return sconv_pipe.plan(1, x_shape[0] * ho * wo, block_shape, n_bcols,
-                           max_bw)
+                           max_bw, mul)
 
 
-def launch_plan(x_shape, aligned: AlignedConvWeight,
-                padding) -> sconv_pipe.LaunchPlan:
-    """The kernel's launch plan for an input of ``x_shape``: its tiles run
-    over the N * Ho * Wo output rows of the whole batch. ``_c_dims`` passes
-    the kernel this plan."""
+def launch_plan(x_shape, aligned: AlignedConvWeight, padding,
+                mul: str = "bfloat16") -> sconv_pipe.LaunchPlan:
+    """The kernel's launch plan for an input of ``x_shape`` multiplied in
+    ``mul`` (the resolved ``mxu_dtype``): its tiles run over the
+    N * Ho * Wo output rows of the whole batch. ``_c_dims`` passes the
+    kernel this plan."""
     bsc = aligned.bsc
     return _plan(tuple(x_shape), aligned.kernel_shape, tuple(padding),
-                 bsc.block_shape, bsc.n_bcols, bsc.max_bw)
+                 bsc.block_shape, bsc.n_bcols, bsc.max_bw, mul)
 
 
 def _dims(x_shape, cin_k, bk, aligned: AlignedConvWeight, padding,
-          relu: bool, bf16_io: bool):
+          relu: bool, bf16_io: bool, mul: str = "bfloat16"):
     """The kernel's integer arguments, as ``sconv`` passes them: x of
     ``x_shape`` handed over with ``cin_k`` channels in K-blocks ``bk``
-    deep (``sconv_pipe.kernel_operands``)."""
+    deep, in ``mul`` (``sconv_pipe.kernel_operands``)."""
     bsc = aligned.bsc
     return _c_dims(tuple(x_shape), cin_k, tuple(padding),
                    aligned.kernel_shape, aligned.cout,
                    aligned.cin_pad // bsc.block_shape[0], bk,
                    bsc.block_shape, bsc.n_bcols, bsc.max_bw, int(relu),
-                   int(bf16_io))
+                   int(bf16_io), mul)
 
 
 @functools.lru_cache(maxsize=4096)
 def _c_dims(x_shape, cin_k, padding, kernel_shape, cout, n_cin_b, bk,
-            block_shape, n_bcols, max_bw, relu, bf16_io):
+            block_shape, n_bcols, max_bw, relu, bf16_io, mul):
     """The kernel's integer arguments for one layer shape, ``launch_plan``'s
-    plan included, in the order ``cet_sconv_fused`` reads them; built once,
-    since eager dispatch asks again on every forward."""
+    plan included, in the order ``cet_sconv_fused`` (and ``_f32``) reads
+    them; built once, since eager dispatch asks again on every forward."""
     n, h, w, _ = x_shape
     ho, wo = _out_hw(x_shape, kernel_shape, padding)
-    p = _plan(x_shape, kernel_shape, padding, block_shape, n_bcols, max_bw)
+    p = _plan(x_shape, kernel_shape, padding, block_shape, n_bcols, max_bw,
+              mul)
     return _build.c_ints(
         n, h, w, cin_k, ho, wo, cout, kernel_shape[1], padding[0],
         padding[1], n_cin_b, bk, block_shape[1], n_bcols, max_bw, relu,
@@ -184,21 +193,22 @@ def sconv_plain(x: torch.Tensor, aligned: AlignedConvWeight, *, padding,
                 relu: bool, residual: Optional[torch.Tensor] = None,
                 mxu_dtype: str = "float32") -> torch.Tensor:
     """Plain PyTorch version: rebuild the dense HWIO weight from the BSC,
-    run ``F.conv2d`` in f32, then the kernel's f32 epilogue. With
-    ``mxu_dtype="bfloat16"`` input and weight are rounded to bf16 first,
-    as the kernel multiplies them."""
+    run ``F.conv2d`` in f32 (in f64 for an f64 ``x``), then the kernel's
+    epilogue in that type. With ``mxu_dtype="bfloat16"`` input and weight
+    are rounded to bf16 first, as the kernel multiplies them."""
     kh, kw = aligned.kernel_shape
-    w = aligned.bsc.to_dense().float().reshape(
+    ct = torch.promote_types(x.dtype, torch.float32)
+    w = aligned.bsc.to_dense().to(ct).reshape(
         kh, kw, aligned.cin_pad, aligned.cout)[:, :, :aligned.cin, :]
-    xf = x.float()
+    xf = x.to(ct)
     if mxu_dtype == "bfloat16":
-        xf, w = xf.bfloat16().float(), w.bfloat16().float()
+        xf, w = xf.bfloat16().to(ct), w.bfloat16().to(ct)
     out = F.conv2d(xf.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                    padding=tuple(padding)).permute(0, 2, 3, 1)
     if aligned.bias is not None:
-        out = out + aligned.bias.float()
+        out = out + aligned.bias.to(ct)
     if residual is not None:
-        out = out + residual.float()
+        out = out + residual.to(ct)
     if relu:
         out = torch.relu(out)
     return out.to(x.dtype).contiguous()
@@ -209,8 +219,10 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
           mxu_dtype: str = "auto") -> torch.Tensor:
     """x [N,H,W,Cin] (f32 or bf16) -> [N,Ho,Wo,Cout] in x's dtype; stride 1,
     dilation 1 (callers gate with ``supported``). ``residual``: optional
-    [N,Ho,Wo,Cout] added before the ReLU."""
-    global calls, launches
+    [N,Ho,Wo,Cout] added before the ReLU. Multiplied in ``mxu_dtype``
+    ("auto": bf16 on the card, f32 on the CPU); a shape or type the kernel
+    does not take raises, in either."""
+    global calls, launches, launches_f32
     calls += 1
     padding = tuple(padding)
     mxu = resolve_mxu_dtype(mxu_dtype, x.device)
@@ -219,9 +231,6 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
                            residual=residual, mxu_dtype=mxu)
     if x.device.type != "cuda":
         raise ValueError(f"sconv: unsupported device {x.device}")
-    if mxu != "bfloat16":
-        raise NotImplementedError(
-            "sconv on CUDA multiplies in bf16 only (mxu_dtype='bfloat16')")
     if not supported(x, aligned):
         raise ValueError("sconv kernel does not take this shape "
                          "(see sconv_fused.supported)")
@@ -231,9 +240,11 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
     n, h, w, _ = x.shape
     ho, wo = _out_hw(x.shape, aligned.kernel_shape, padding)
     dev = x.device
-    xk, blocks, bk = sconv_pipe.kernel_operands(x, aligned)
-    _build.check_operand(xk, "x", dev, (torch.bfloat16,))
-    _build.check_operand(blocks, "bsc.blocks", dev, (torch.bfloat16,))
+    f32 = mxu == "float32"
+    op = (torch.float32 if f32 else torch.bfloat16,)
+    xk, blocks, bk = sconv_pipe.kernel_operands(x, aligned, mxu)
+    _build.check_operand(xk, "x", dev, op)
+    _build.check_operand(blocks, "bsc.blocks", dev, op)
     _build.check_operand(bsc.block_row, "bsc.block_row", dev, (torch.int32,))
     _build.check_operand(bsc.bcol_nnz, "bsc.bcol_nnz", dev, (torch.int32,))
     bias = aligned.bias
@@ -248,12 +259,15 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
                              f"{(n, ho, wo, aligned.cout)}")
     out = x.new_empty((n, ho, wo, aligned.cout))
     dims = _dims(x.shape, xk.shape[-1], bk, aligned, padding, relu,
-                 x.dtype == torch.bfloat16)
-    rc = _build.load().cet_sconv_fused(
+                 x.dtype == torch.bfloat16, mxu)
+    lib = _build.load()
+    entry = lib.cet_sconv_fused_f32 if f32 else lib.cet_sconv_fused
+    rc = entry(
         xk.data_ptr(), blocks.data_ptr(), bsc.block_row.data_ptr(),
         bsc.bcol_nnz.data_ptr(), None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         dims, _build.stream_of(x))
-    _build.check(rc, "cet_sconv_fused")
+    _build.check(rc, "cet_sconv_fused_f32" if f32 else "cet_sconv_fused")
     launches += 1
+    launches_f32 += int(f32)
     return out

@@ -12,19 +12,23 @@ caller (``ops/conv.py``), as in the JAX route.
 
 The plain version builds the slab ``[N, L, cin_pad]`` (L = Hp * Wp + Kw - 1
 rows per image) and slices the garbage columns off its output with torch
-ops (``_slab``, ``_crop``). The kernel route builds its bf16 slab in one
-write (``_kernel_slab``: one ``F.pad`` with one extra zero image row, which
-covers the Kw - 1 rows the last output row reads past Hp * Wp), and the
-kernel's epilogue writes the exact output itself, skipping the garbage
-columns: no crop copy. The TPU kernel's channel-block-major slab transpose
+ops (``_slab``, ``_crop``). The kernel route builds its slab, in the
+multiply type, in one write (``_kernel_slab``: one ``F.pad`` with one extra
+zero image row, which covers the Kw - 1 rows the last output row reads
+past Hp * Wp), and the kernel's epilogue writes the exact output itself,
+skipping the garbage columns: no crop copy. The TPU kernel's channel-block-major slab transpose
 is dropped: it exists only for Mosaic's lane-slicing rule. Here a K-block
 is a column offset ``cb * bk`` into rows of stride ``cin_pad``.
+The kernel multiplies in the resolved ``mxu_dtype`` as the JAX kernel does:
+bf16 ("auto" on the card), or f32 as three TF32 products per multiply,
+which keep f32 accuracy (``cet_sconv_gc_f32``; ``csrc/sconv_pipe.cuh``).
 ``launch_plan`` is the kernel's tile size, ring depth and shared memory
-for a shape (``kernels/sconv_pipe.py``); its tiles never cross an image.
+for a shape and multiply type (``kernels/sconv_pipe.py``); its tiles never
+cross an image.
 
 ``sconv`` runs the kernel for a CUDA tensor and the plain version for a
 CPU tensor. ``calls`` counts entry calls on any device; ``launches``
-counts kernel launches only.
+counts kernel launches only, ``launches_f32`` those that multiplied in f32.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
 
 calls = 0
 launches = 0
+launches_f32 = 0
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -51,9 +56,10 @@ SLAB_BUDGET = 6 * 1024 * 1024
 
 
 def reset_counts() -> None:
-    global calls, launches
+    global calls, launches, launches_f32
     calls = 0
     launches = 0
+    launches_f32 = 0
 
 
 def supported(x: torch.Tensor, aligned: AlignedConvWeight) -> bool:
@@ -110,7 +116,7 @@ def _crop(flat, aligned, g):
 
 
 def _kernel_slab(xk, padding, cin_pad):
-    """The kernel's slab in one write: ``xk`` (bf16, from
+    """The kernel's slab in one write: ``xk`` (in the multiply type, from
     ``sconv_pipe.kernel_operands``) zero-padded to Hp + 1 rows, Wp columns
     and ``cin_pad`` channels, H x W flattened: [N, (Hp + 1) * Wp, cin_pad].
     Its first Hp * Wp + Kw - 1 rows are ``_slab``'s; the extra image row
@@ -120,44 +126,47 @@ def _kernel_slab(xk, padding, cin_pad):
     return slab.flatten(1, 2)
 
 
-def _plan(x_shape, kernel_shape, padding, block_shape, n_bcols,
-          max_bw) -> sconv_pipe.LaunchPlan:
+def _plan(x_shape, kernel_shape, padding, block_shape, n_bcols, max_bw,
+          mul) -> sconv_pipe.LaunchPlan:
     _, wp, ho, _, _ = _geometry(x_shape, kernel_shape, padding)
-    return sconv_pipe.plan(x_shape[0], ho * wp, block_shape, n_bcols, max_bw)
+    return sconv_pipe.plan(x_shape[0], ho * wp, block_shape, n_bcols, max_bw,
+                           mul)
 
 
-def launch_plan(x_shape, aligned: AlignedConvWeight,
-                padding) -> sconv_pipe.LaunchPlan:
-    """The kernel's launch plan for an input of ``x_shape``: its tiles run
-    over the Ho * Wp garbage-column rows of one image each. ``_c_dims``
-    passes the kernel this plan."""
+def launch_plan(x_shape, aligned: AlignedConvWeight, padding,
+                mul: str = "bfloat16") -> sconv_pipe.LaunchPlan:
+    """The kernel's launch plan for an input of ``x_shape`` multiplied in
+    ``mul`` (the resolved ``mxu_dtype``): its tiles run over the Ho * Wp
+    garbage-column rows of one image each. ``_c_dims`` passes the kernel
+    this plan."""
     bsc = aligned.bsc
     return _plan(tuple(x_shape), aligned.kernel_shape, tuple(padding),
-                 bsc.block_shape, bsc.n_bcols, bsc.max_bw)
+                 bsc.block_shape, bsc.n_bcols, bsc.max_bw, mul)
 
 
 def _dims(x_shape, slab_shape, bk, aligned: AlignedConvWeight, padding,
-          relu: bool, bf16_io: bool):
+          relu: bool, bf16_io: bool, mul: str = "bfloat16"):
     """The kernel's integer arguments, as ``sconv`` passes them: x of
     ``x_shape`` handed over as a slab of ``slab_shape`` in K-blocks ``bk``
-    deep (``_kernel_slab``)."""
+    deep, in ``mul`` (``_kernel_slab``)."""
     bsc = aligned.bsc
     return _c_dims(tuple(x_shape), tuple(slab_shape), tuple(padding),
                    aligned.kernel_shape, aligned.cout,
                    aligned.cin_pad // bsc.block_shape[0], bk,
                    bsc.block_shape, bsc.n_bcols, bsc.max_bw, int(relu),
-                   int(bf16_io))
+                   int(bf16_io), mul)
 
 
 @functools.lru_cache(maxsize=4096)
 def _c_dims(x_shape, slab_shape, padding, kernel_shape, cout, n_cin_b, bk,
-            block_shape, n_bcols, max_bw, relu, bf16_io):
+            block_shape, n_bcols, max_bw, relu, bf16_io, mul):
     """The kernel's integer arguments for one layer shape, ``launch_plan``'s
-    plan included, in the order ``cet_sconv_gc`` reads them; built once,
-    since eager dispatch asks again on every forward."""
+    plan included, in the order ``cet_sconv_gc`` (and ``_f32``) reads them;
+    built once, since eager dispatch asks again on every forward."""
     n, length, cin_pad = slab_shape
     _, wp, ho, wo, _ = _geometry(x_shape, kernel_shape, padding)
-    p = _plan(x_shape, kernel_shape, padding, block_shape, n_bcols, max_bw)
+    p = _plan(x_shape, kernel_shape, padding, block_shape, n_bcols, max_bw,
+              mul)
     return _build.c_ints(n, length, cin_pad, ho, wo, wp, cout,
                          kernel_shape[1], n_cin_b, bk, block_shape[1],
                          n_bcols, max_bw, relu, bf16_io, p.tile_m, p.stages,
@@ -167,23 +176,25 @@ def _c_dims(x_shape, slab_shape, padding, kernel_shape, cout, n_cin_b, bk,
 def _flat_plain(slab, aligned, g, relu, mxu_dtype, out_dtype):
     """What the kernel computes, in plain PyTorch: for each kernel offset the
     shifted slab rows times that offset's rows of the dense GEMM-view weight
-    rebuilt from the BSC, f32 sums, then bias and ReLU in f32."""
+    rebuilt from the BSC, f32 sums (f64 for an f64 slab), then bias and
+    ReLU in that type."""
     kh, kw = aligned.kernel_shape
     _, wp, ho, _, _ = g
-    w = aligned.bsc.to_dense().float().reshape(kh, kw, aligned.cin_pad,
-                                               aligned.cout)
-    a = slab.float()
+    ct = torch.promote_types(slab.dtype, torch.float32)
+    w = aligned.bsc.to_dense().to(ct).reshape(kh, kw, aligned.cin_pad,
+                                              aligned.cout)
+    a = slab.to(ct)
     if mxu_dtype == "bfloat16":
-        a, w = a.bfloat16().float(), w.bfloat16().float()
+        a, w = a.bfloat16().to(ct), w.bfloat16().to(ct)
     m = ho * wp
-    out = torch.zeros((slab.shape[0], m, aligned.cout), dtype=torch.float32,
+    out = torch.zeros((slab.shape[0], m, aligned.cout), dtype=ct,
                       device=slab.device)
     for khi in range(kh):
         for kwi in range(kw):
             shift = khi * wp + kwi
             out += a[:, shift:shift + m, :] @ w[khi, kwi]
     if aligned.bias is not None:
-        out = out + aligned.bias.float()
+        out = out + aligned.bias.to(ct)
     if relu:
         out = torch.relu(out)
     return out.to(out_dtype)
@@ -192,8 +203,9 @@ def _flat_plain(slab, aligned, g, relu, mxu_dtype, out_dtype):
 def sconv_plain(x: torch.Tensor, aligned: AlignedConvWeight, *, padding,
                 relu: bool, mxu_dtype: str = "float32") -> torch.Tensor:
     """Plain PyTorch version over the same slab and output slice as the
-    kernel. With ``mxu_dtype="bfloat16"`` the slab and the weight are
-    rounded to bf16 first, as the kernel multiplies them."""
+    kernel, in f32 (f64 for an f64 ``x``). With ``mxu_dtype="bfloat16"``
+    the slab and the weight are rounded to bf16 first, as the kernel
+    multiplies them."""
     padding = tuple(padding)
     g = _geometry(x.shape, aligned.kernel_shape, padding)
     flat = _flat_plain(_slab(x, aligned, padding, g), aligned, g, relu,
@@ -204,8 +216,10 @@ def sconv_plain(x: torch.Tensor, aligned: AlignedConvWeight, *, padding,
 def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
           mxu_dtype: str = "auto") -> torch.Tensor:
     """x [N,H,W,Cin] (f32 or bf16) -> [N,Ho,Wo,Cout] in x's dtype; stride 1,
-    dilation 1 (callers route with ``supported`` and ``fits_budget``)."""
-    global calls, launches
+    dilation 1 (callers route with ``supported`` and ``fits_budget``).
+    Multiplied in ``mxu_dtype`` ("auto": bf16 on the card, f32 on the
+    CPU); a shape or type the kernel does not take raises, in either."""
+    global calls, launches, launches_f32
     calls += 1
     padding = tuple(padding)
     mxu = resolve_mxu_dtype(mxu_dtype, x.device)
@@ -214,9 +228,6 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
                            mxu_dtype=mxu)
     if x.device.type != "cuda":
         raise ValueError(f"sconv_gc: unsupported device {x.device}")
-    if mxu != "bfloat16":
-        raise NotImplementedError(
-            "sconv_gc on CUDA multiplies in bf16 only (mxu_dtype='bfloat16')")
     if not supported(x, aligned):
         raise ValueError("sconv_gc kernel does not take this shape "
                          "(see sconv_gc.supported)")
@@ -226,11 +237,13 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
     n = x.shape[0]
     _, _, ho, wo, _ = _geometry(x.shape, aligned.kernel_shape, padding)
     dev = x.device
-    xk, blocks, bk = sconv_pipe.kernel_operands(x, aligned)
+    f32 = mxu == "float32"
+    op = (torch.float32 if f32 else torch.bfloat16,)
+    xk, blocks, bk = sconv_pipe.kernel_operands(x, aligned, mxu)
     n_cin_b = aligned.cin_pad // bsc.block_shape[0]
     slab = _kernel_slab(xk, padding, n_cin_b * bk)
-    _build.check_operand(slab, "slab", dev, (torch.bfloat16,))
-    _build.check_operand(blocks, "bsc.blocks", dev, (torch.bfloat16,))
+    _build.check_operand(slab, "slab", dev, op)
+    _build.check_operand(blocks, "bsc.blocks", dev, op)
     _build.check_operand(bsc.block_row, "bsc.block_row", dev, (torch.int32,))
     _build.check_operand(bsc.bcol_nnz, "bsc.bcol_nnz", dev, (torch.int32,))
     bias = aligned.bias
@@ -240,11 +253,14 @@ def sconv(x: torch.Tensor, aligned: AlignedConvWeight, *, padding, relu: bool,
         _build.check_operand(bias, "bias", dev, (torch.float32,))
     out = x.new_empty((n, ho, wo, aligned.cout))
     dims = _dims(x.shape, slab.shape, bk, aligned, padding, relu,
-                 x.dtype == torch.bfloat16)
-    rc = _build.load().cet_sconv_gc(
+                 x.dtype == torch.bfloat16, mxu)
+    lib = _build.load()
+    entry = lib.cet_sconv_gc_f32 if f32 else lib.cet_sconv_gc
+    rc = entry(
         slab.data_ptr(), blocks.data_ptr(), bsc.block_row.data_ptr(),
         bsc.bcol_nnz.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), dims, _build.stream_of(x))
-    _build.check(rc, "cet_sconv_gc")
+    _build.check(rc, "cet_sconv_gc_f32" if f32 else "cet_sconv_gc")
     launches += 1
+    launches_f32 += int(f32)
     return out

@@ -20,9 +20,14 @@ covers.
 * ``stages``: the depth of the cp.async ring, 2-4: as many steps as the
   longest share of a block-column has, while two blocks still fit on one
   SM.
-* ``chunk``: the K depth of one step (``kChunk`` of the kernel).
+* ``chunk``: the K depth of one step (``kChunk`` of the kernel): 128
+  bytes of a row, 64 values in bf16 and 32 in f32.
 * ``smem``: the dynamic shared bytes of one block: the ring or the f32
   accumulator tile that reuses it, whichever is larger, plus the bias.
+
+Each plan is for one multiply type (``mul``, the resolved ``mxu_dtype``):
+"bfloat16" or "float32". A stage holds the same bytes in both, but an f32
+K-block takes twice the steps, so the ring may be deeper.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-CHUNK = 64
+CHUNK = 64               # the K depth of a bf16 step (chunk_of)
 MAX_STAGES = 4
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 SMEM_PER_BLOCK = 232448   # the most dynamic shared memory a block may use
@@ -48,9 +53,29 @@ def bn_tile(bn: int) -> int:
     return 32 if bn <= 32 else 64 if bn <= 64 else 128
 
 
-def smem_bytes(tile_m: int, bn_t: int, stages: int) -> int:
-    """Dynamic shared bytes of one block (``smem_bytes`` of the kernel)."""
-    ring = stages * (tile_m * (CHUNK + 8) + CHUNK * (bn_t + 8)) * 2
+_ITEMSIZE = {"bfloat16": 2, "float32": 4}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def chunk_of(mul: str) -> int:
+    """K depth of one step for multiply type ``mul`` (``kChunk``)."""
+    return 128 // _ITEMSIZE[mul]
+
+
+def vec_of(mul: str) -> int:
+    """Values of ``mul`` in one 16-byte copy (``kVec``): channels and
+    K-blocks are handed over in multiples of it."""
+    return 16 // _ITEMSIZE[mul]
+
+
+def smem_bytes(tile_m: int, bn_t: int, stages: int,
+               mul: str = "bfloat16") -> int:
+    """Dynamic shared bytes of one block (``smem_bytes`` of the kernel):
+    ``stages`` stages of an A tile (rows padded by 16 bytes) and a B tile
+    (rows padded by 8 values), or the f32 accumulator tile."""
+    size, chunk = _ITEMSIZE[mul], chunk_of(mul)
+    ring = stages * (tile_m * (chunk + vec_of(mul))
+                     + chunk * (bn_t + 8)) * size
     return max(ring, tile_m * (bn_t + 8) * 4) + bn_t * 4
 
 
@@ -114,11 +139,11 @@ class LaunchPlan:
                 f"{self.grid} x {self.threads} threads")
 
 
-def _stages(tile_m: int, bn_t: int, steps: int) -> int:
+def _stages(tile_m: int, bn_t: int, steps: int, mul: str) -> int:
     """Ring depth: ``steps`` (those of a block's longest walk) within 2-4,
     while two blocks still fit on one SM."""
     stages = max(2, min(MAX_STAGES, steps))
-    while stages > 2 and 2 * (smem_bytes(tile_m, bn_t, stages)
+    while stages > 2 and 2 * (smem_bytes(tile_m, bn_t, stages, mul)
                               + SMEM_RESERVED) > SMEM_PER_SM:
         stages -= 1
     return stages
@@ -126,28 +151,31 @@ def _stages(tile_m: int, bn_t: int, steps: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def plan(images: int, rows_per_image: int, block_shape: Tuple[int, int],
-         n_bcols: int, max_bw: int) -> LaunchPlan:
+         n_bcols: int, max_bw: int, mul: str = "bfloat16") -> LaunchPlan:
     """The launch plan for ``images`` runs of ``rows_per_image`` output rows
     against a BSC weight of ``block_shape`` (bk, bn) blocks, ``n_bcols``
-    block-columns and at most ``max_bw`` live K-blocks in one of them.
-    Cached: eager dispatch asks it again for every layer of every
-    forward."""
+    block-columns and at most ``max_bw`` live K-blocks in one of them,
+    multiplied in ``mul``. Cached: eager dispatch asks it again for every
+    layer of every forward."""
     bk, bn = block_shape
     tiles_128 = images * -(-rows_per_image // 128) * n_bcols
     tile_m = 128 if tiles_128 >= SMS // 2 else 64
     bn_t = bn_tile(bn)
-    stages = _stages(tile_m, bn_t, max_bw * -(-bk // CHUNK))
-    return LaunchPlan(tile_m=tile_m, stages=stages, chunk=CHUNK,
-                      smem=smem_bytes(tile_m, bn_t, stages), images=images,
-                      rows_per_image=rows_per_image, n_bcols=n_bcols)
+    chunk = chunk_of(mul)
+    stages = _stages(tile_m, bn_t, max_bw * -(-bk // chunk), mul)
+    return LaunchPlan(tile_m=tile_m, stages=stages, chunk=chunk,
+                      smem=smem_bytes(tile_m, bn_t, stages, mul),
+                      images=images, rows_per_image=rows_per_image,
+                      n_bcols=n_bcols)
 
 
 @functools.lru_cache(maxsize=4096)
 def spmm_plan(m: int, block_shape: Tuple[int, int], n_bcols: int,
-              max_bw: int) -> LaunchPlan:
+              max_bw: int, mul: str = "bfloat16") -> LaunchPlan:
     """The launch plan of ``bsc_spmm`` for an A of ``m`` rows against a BSC
     weight of ``block_shape`` (bk, bn; bk as the kernel reads it),
-    ``n_bcols`` block-columns and at most ``max_bw`` live K-blocks in one.
+    ``n_bcols`` block-columns and at most ``max_bw`` live K-blocks in one,
+    multiplied in ``mul``.
 
     Tile rows as ``plan``'s, but 64 whenever m <= 64. A launch of 64-row
     tiles with fewer blocks than about three per SM is split: each
@@ -163,7 +191,8 @@ def spmm_plan(m: int, block_shape: Tuple[int, int], n_bcols: int,
     bk, bn = block_shape
     tiles_128 = -(-m // 128) * n_bcols
     tile_m = 128 if m > 64 and tiles_128 >= SMS // 2 else 64
-    cpb = -(-bk // CHUNK)  # steps per K-block
+    chunk = chunk_of(mul)
+    cpb = -(-bk // chunk)  # steps per K-block
     tiles = -(-m // tile_m) * n_bcols
     split, share, steps = 1, 0, max_bw * cpb
     want = 3 * SMS // tiles
@@ -174,37 +203,42 @@ def spmm_plan(m: int, block_shape: Tuple[int, int], n_bcols: int,
     if split == 1:
         share, steps = 0, max_bw * cpb
     bn_t = bn_tile(bn)
-    stages = _stages(tile_m, bn_t, steps)
-    return LaunchPlan(tile_m=tile_m, stages=stages, chunk=CHUNK,
-                      smem=smem_bytes(tile_m, bn_t, stages), images=1,
+    stages = _stages(tile_m, bn_t, steps, mul)
+    return LaunchPlan(tile_m=tile_m, stages=stages, chunk=chunk,
+                      smem=smem_bytes(tile_m, bn_t, stages, mul), images=1,
                       rows_per_image=m, n_bcols=n_bcols, split=split,
                       share=share)
 
 
-def kernel_operands(x: torch.Tensor, aligned) -> Tuple[torch.Tensor,
-                                                      torch.Tensor, int]:
+def kernel_operands(x: torch.Tensor, aligned,
+                    mul: str = "bfloat16") -> Tuple[torch.Tensor,
+                                                    torch.Tensor, int]:
     """(x, weight blocks, bk) as the kernels copy them: 16 bytes at a time
-    with ``cp.async``, which does not convert. So x is bf16 (an f32
-    activation is rounded to nearest-even here, as the MMA rounds it), its
-    rows carry a multiple of 8 channels (zero channels appended; they meet
-    zero weight rows), and a K-block is a multiple of 8 deep: where bk is
-    not, each cin-block of x and each weight block is zero-padded to the
-    next multiple of 8. On the main path (bf16 x, Cin and bk multiples of
-    8) nothing is copied."""
+    with ``cp.async``, which does not convert. So x and the blocks are in
+    the multiply type ``mul``: bf16 (an f32 activation is rounded to
+    nearest-even here, as the MMA rounds it) or f32 (never rounded; a bf16
+    activation or weight is widened, which is exact, as the JAX kernels'
+    ``astype(mxu)``). Its rows carry a multiple of ``vec_of(mul)`` channels
+    (8 in bf16, 4 in f32; zero channels appended, which meet zero weight
+    rows), and a K-block is a multiple of it deep: where bk is not, each
+    cin-block of x and each weight block is zero-padded to the next
+    multiple. On the main path (x and blocks already in ``mul``, Cin and bk
+    multiples of the vector) nothing is copied."""
     bsc = aligned.bsc
     bk = bsc.block_shape[0]
     blocks = bsc.blocks
+    dtype, vec = DTYPES[mul], vec_of(mul)
     # the dtype tests spare the main path the cost of a no-op .to()
-    if x.dtype != torch.bfloat16:
-        x = x.to(torch.bfloat16)
-    if blocks.dtype != torch.bfloat16:
-        blocks = blocks.to(torch.bfloat16)
-    if bk % 8 == 0:
-        if x.shape[-1] % 8:
-            x = F.pad(x, (0, -x.shape[-1] % 8))
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    if blocks.dtype != dtype:
+        blocks = blocks.to(dtype)
+    if bk % vec == 0:
+        if x.shape[-1] % vec:
+            x = F.pad(x, (0, -x.shape[-1] % vec))
         return (x if x.is_contiguous() else x.contiguous()), blocks, bk
-    bk8 = bk + -bk % 8
+    bkv = bk + -bk % vec
     x = F.pad(x, (0, aligned.cin_pad - x.shape[-1]))
-    x = F.pad(x.unflatten(-1, (aligned.cin_pad // bk, bk)), (0, bk8 - bk))
+    x = F.pad(x.unflatten(-1, (aligned.cin_pad // bk, bk)), (0, bkv - bk))
     return (x.flatten(-2).contiguous(),
-            F.pad(blocks, (0, 0, 0, bk8 - bk)).contiguous(), bk8)
+            F.pad(blocks, (0, 0, 0, bkv - bk)).contiguous(), bkv)

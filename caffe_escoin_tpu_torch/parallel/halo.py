@@ -152,10 +152,13 @@ def spatial_sconv2d(x_local, aligned: AlignedConvWeight, *, mesh, padding,
 
 
 def _odd_kernel_pads(aligneds: Sequence[AlignedConvWeight]):
+    """The 'same' pad of each conv of a chain. Both kernel sides must be
+    odd: an even kw with pad (kw - 1) // 2 would narrow each layer by a
+    column (the JAX ``_odd_kernel_pads`` checks kh only)."""
     pads = []
     for a in aligneds:
         kh, kw = a.kernel_shape
-        if kh % 2 == 0:
+        if kh % 2 == 0 or kw % 2 == 0:
             raise ValueError(f"a spatial chain needs odd kernels ('same' "
                              f"pad), got {a.kernel_shape}")
         pads.append(((kh - 1) // 2, (kw - 1) // 2))

@@ -38,13 +38,18 @@ example scripts on real digits: LeNet and AlexNet trained, pruned and
 scored on the sparse paths, the siamese pair and the net surgery (phase
 10); then the port's ``bench.py``, ``caffe_escoin_tpu_torch/bench.py``,
 in each of its modes as a user runs it (phase 11), and its rows rendered
-as the port's tables by ``tools/report.py`` (phase 12).
+as the port's tables by ``tools/report.py`` (phase 12). Between them,
+the three kernels multiplying in f32 (``mxu_dtype="float32"``, three TF32
+products per multiply) at phase 3's shapes (phase 3f) and VGG-16 b16 and
+ResNet-50 b32 run in f32 on them (phase 4f).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
-  2. build: the three CUDA kernels from the sources in this checkout, and
-     nvcc's register and spill report per kernel template and Rows policy
-     (the direct convs' instances apart from the SpMM's).
+  2. build: the three CUDA kernels, each with a bf16 and an f32 entry,
+     from the sources in this checkout, and nvcc's register and spill
+     report per kernel template, Rows policy and operand type (the direct
+     convs' instances apart from the SpMM's; ``f32`` names the f32-operand
+     families).
   3. parity: each kernel against its plain PyTorch version at main-path
      shapes, bf16, max|err| <= 1e-2 * max|plain| + 1e-2, after the launch
      plan (tile rows, ring stages, shared bytes) of each direct conv at
@@ -76,6 +81,18 @@ Phases, one line each (any failure exits non-zero):
      beside ``torch.sparse.mm`` on a CSR of the same weight (cuSPARSE, the
      library the reference's csrmm2 path calls; never on the port's path)
      and its bound.
+  3f. f32 multiplies: each kernel with ``mxu_dtype="float32"`` on f32
+     weights and activations at phase 3's ResNet-50 and VGG-16 shapes
+     (sconv_fused at the six, bsc_spmm at fc1000, fc6-8 and conv1_2's
+     lowered GEMM, sconv_gc at the three gc layers), from generators of
+     their own: max abs err within 2e-5 * max|ref| of its plain version
+     computed in f64 on the card (one TF32 pass misses this by more than
+     10x); each timed eager and as a CUDA graph beside its plain version in
+     f32, one library call in f32 with TF32 off (``F.conv2d``
+     channels_last, or ``torch.addmm``) and the f32 bound, max(f32 bytes /
+     3.35 TB/s, FLOPs / 165 TFLOP/s: three passes at a third of the 495
+     TF32 TFLOP/s). Every launch of the phase must multiply in f32; they
+     are printed, not counted in the kernels line.
   4. nets, each on 4 distinct inputs with every launch counter set to 0
      just before and read just after: every kernel must have launched as
      many times as the layers' routes (``Net.routes``, the function the
@@ -146,6 +163,21 @@ Phases, one line each (any failure exits non-zero):
      and the stem layers, each alone as a CUDA graph, side by side with the
      s2d transform alone; the three CUDA-graph times in the order A B C C
      B A, each against the fused form's. Never fails on speed.
+  4f. f32 nets: VGG-16 b16 and ResNet-50 b32 on their phase-4 rows'
+     pruned, fused weights and inputs with ``compute_dtype=None,
+     mxu_dtype="float32"``, on the kernel routes (``use_xla_sparse=False``;
+     the reference's size gates read 4-byte items, so the routes differ
+     from the bf16 rows': printed), then ResNet-50 autotuned with the same
+     policy (one ``calibrate_graph`` from an emptied cache under
+     ``net_scope("resnet50_f32")``; the XBSP arms and dense run f32 with
+     TF32 off). Each: launches as ``Net.routes`` names them, every one
+     multiplying in f32 (VGG-16 launches all three kernels); the last
+     classifier's logits within 1e-4 relative L2 of the same net run dense
+     in f32 with TF32 off; the f32 forward eager, as a CUDA graph and
+     through ``inference_fn(cuda_graph=True)`` (which must give the eager
+     forward's outputs) beside dense f32 and the bf16 kernel-route row;
+     each layer alone as a CUDA graph, by route; the autotuned / f32
+     kernel-route graph ratio (reported, not a limit).
   5. times (CUDA events, after warm-up, cycling the 4 inputs): each net
      sparse, dense-bf16 and dense-f32, eager, and the sparse and dense-bf16
      forwards replayed as CUDA graphs (their device time, without the
@@ -325,7 +357,8 @@ Phases, one line each (any failure exits non-zero):
      config: each row's err within 1e-2 * max|ref| + 1e-2 of the dense
      f32 conv on the same draws (``bench.per_layer_cases``). ``--fc``
      VGG-16 b16. ``--halo`` b16: ``sconv_gc`` launched, the halo path
-     bit-equal to ``sconv_gc`` on the whole map, its rows appended to
+     bit-equal to ``sconv_gc`` on the whole map, the one-entry chain
+     bit-equal to its convs in sequence (``err_chain``), its rows appended to
      ``build/SCALING.jsonl`` and the JAX package's ``SCALING.jsonl``
      unchanged. ``--batch-curve``: a row per batch. ``--granularity
      unstructured`` b32: no launch (every 128x128 block stays live, every
@@ -348,7 +381,9 @@ Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e, 7c, 8b, 9
 and 10b's kernel routes, and phase 11's bare and forced-fused forwards
 and halo run; phase 6 and the rest of phases 7, 8, 10 and 11 are not
-counted there). As the last line
+counted there). Each kernel is followed by its f32-multiply variant
+(``<name>_f32``: the same source and TPU kernel, phase 3f's errors and
+times with the f32 bound, phase 4f's launches). As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (or
@@ -384,11 +419,25 @@ LOGITS_REL_L2 = 5e-2
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16
 # tensor-core FLOP/s, at the full 700 W power limit
 BOUND_RATES = {"bytes": 3.35e12, "operations": 989e12}
+# the same for f32 multiplies: three TF32 passes per product, a third of the
+# 495 TF32 TFLOP/s
+BOUND_RATES_F32 = {"bytes": 3.35e12, "operations": 495e12 / 3}
 KERNELS = {  # name -> the TPU kernel it replaces
     "sconv_fused": "caffe_escoin_tpu/kernels/sconv_fused.py:263",
     "bsc_spmm": "caffe_escoin_tpu/kernels/bsc_pallas.py:125",
     "sconv_gc": "caffe_escoin_tpu/kernels/sconv_pallas.py:157",
 }
+# the f32-multiply variant of each (mxu_dtype="float32"; phases 3f and 4f),
+# listed beside it in the kernels line
+KERNELS_F32 = {f"{k}_f32": k for k in KERNELS}
+# phase 3f: each kernel multiplying in f32 against its plain version in f64
+# on the card, max abs err within this share of max|ref| (one TF32 pass
+# misses it by more than 10x)
+F32_PARITY_REL = 2e-5
+# phase 4f: the nets in f32 on the kernel routes (and ResNet-50 autotuned)
+# against the same pruned, fused net run dense in f32, TF32 off
+F32_NETS = ("vgg16", "resnet50")
+F32_LOGITS_REL_L2 = 1e-4
 # logits: the last classifier's blob; input_scale: the std of the random
 # inputs; keep_norm: see _prune
 NETS = [
@@ -619,6 +668,35 @@ def _card_line() -> str:
     return proc.stdout.strip().splitlines()[0].strip()
 
 
+def _ptxas_summary(log) -> str:
+    """One summary per kernel template, Rows policy, operand type and
+    split-K instance: the entries of nvcc's -Xptxas -v report, grouped by
+    the names in their mangled symbol. A Rows policy over f32 operands
+    mangles as ``...RowsIfE`` (the bf16 one as ``__nv_bfloat16`` or a
+    back-reference); its family is named ``f32``."""
+    fams = collections.defaultdict(lambda: dict(n=0, regs=[], smem=[],
+                                                spill=0))
+    for entry in re.split(r"Compiling entry function", log)[1:]:
+        symbol = entry.split("\n", 1)[0]
+        kern = re.search(r"\d([a-z][a-z_]*_kernel)I", symbol)
+        rows = re.search(r"\d([A-Za-z]+Rows)", symbol)
+        fam = fams[(kern.group(1) if kern else "other")
+                   + (f"<{rows.group(1)}" if rows else "<")
+                   + (", f32" if "RowsIfE" in symbol else "")
+                   + (", split>" if "Lb1E" in symbol else ">")]
+        fam["n"] += 1
+        fam["regs"] += [int(r) for r in
+                        re.findall(r"Used (\d+) registers", entry)]
+        fam["smem"] += [int(b) for b in
+                        re.findall(r"(\d+) bytes smem", entry)] or [0]
+        fam["spill"] += sum(int(b) for b in
+                            re.findall(r"(\d+) bytes spill", entry))
+    return "; ".join(
+        f"{k} {f['n']} instances, {min(f['regs'])}-{max(f['regs'])} "
+        f"registers, {min(f['smem'])}-{max(f['smem'])} B static shared, "
+        f"{f['spill']} B spilled" for k, f in fams.items())
+
+
 def _time_ms(fn, args, iters=TIMED_ITERS):
     """Mean ms per call over ``iters`` calls cycling ``args``, CUDA events,
     after one warm-up pass over every argument."""
@@ -691,10 +769,11 @@ def _layer_split(layers, fwd, x):
                 for mod, args in calls}
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, rates=BOUND_RATES):
     """(ms, what sets it): the least time the card could take for work
-    that moves ``nbytes`` and does ``flops`` bf16 tensor-core operations."""
-    ms = {k: v / BOUND_RATES[k] * 1e3
+    that moves ``nbytes`` and does ``flops`` operations at ``rates`` (bf16
+    tensor-core FLOP/s; ``BOUND_RATES_F32`` for f32 multiplies)."""
+    ms = {k: v / rates[k] * 1e3
           for k, v in (("bytes", nbytes), ("operations", flops))}
     by = max(ms, key=ms.get)
     return ms[by], by
@@ -739,7 +818,8 @@ def _check_arms(net, params, shapes, measured):
         if stride != (1, 1) and al.kernel_shape == (1, 1):
             x = conv_ops._subsampled(x, stride, pad)
             stride, pad = (1, 1), (0, 0)
-        key = autotune.cache_key(al, x.shape, stride, pad, dil, dtype)
+        key = autotune.cache_key(al, x.shape, stride, pad, dil, dtype,
+                                 net.policy.mxu_dtype)
         if key not in measured or key in seen:
             continue
         seen.add(key)
@@ -2709,12 +2789,19 @@ def _phase_bench(mods, tag, results, dev):
                     rows = [json.loads(r) for r in fh][-line["rows"] - 1:-1]
                 errs = [r["err"] for r in rows
                         if r["metric"] == "halo_overhead_1dev"]
+                chain_errs = [r["err_chain"] for r in rows if "layers" in r]
                 print(f"bench {label}: {len(rows)} rows in "
                       f"{bench.HALO_RECORD}; halo vs sconv_gc on the whole "
-                      f"map max err {errs} (must be 0); tower errs "
+                      f"map max err {errs} (must be 0); one-entry chain vs "
+                      f"the convs in sequence {chain_errs} (must be 0); "
+                      f"tower errs "
                       f"{[r['err'] for r in rows if 'layers' in r]} {tag}")
                 if any(errs):
                     raise SystemExit("bench --halo differs from sconv_gc")
+                if not chain_errs or any(chain_errs):
+                    raise SystemExit(f"bench --halo: the one-entry chain "
+                                     f"differs from the convs in sequence: "
+                                     f"{chain_errs}")
                 for k, n in got.items():
                     results[k]["launches"] += n
             elif label == "batch-curve":
@@ -2871,30 +2958,7 @@ def main(argv=None) -> int:
           f"({'nvcc ' + format(built, '.1f') + ' s' if built else 'cached'}, "
           f"{_build.library_path().name}) {tag}")
     if _build.ptxas_log:
-        # one summary per kernel template and Rows policy (and split-K
-        # instance): the entries of nvcc's -Xptxas -v report, grouped by
-        # the names in their mangled symbol
-        fams = collections.defaultdict(lambda: dict(n=0, regs=[], smem=[],
-                                                    spill=0))
-        for entry in re.split(r"Compiling entry function", _build.ptxas_log
-                              )[1:]:
-            symbol = entry.split("\n", 1)[0]
-            kern = re.search(r"\d([a-z][a-z_]*_kernel)I", symbol)
-            rows = re.search(r"\d([A-Za-z]+Rows)", symbol)
-            fam = fams[(kern.group(1) if kern else "other")
-                       + (f"<{rows.group(1)}" if rows else "<")
-                       + (", split>" if "Lb1E" in symbol else ">")]
-            fam["n"] += 1
-            fam["regs"] += [int(r) for r in
-                            re.findall(r"Used (\d+) registers", entry)]
-            fam["smem"] += [int(b) for b in
-                            re.findall(r"(\d+) bytes smem", entry)] or [0]
-            fam["spill"] += sum(int(b) for b in
-                                re.findall(r"(\d+) bytes spill", entry))
-        print("ptxas: " + "; ".join(
-            f"{k} {f['n']} instances, {min(f['regs'])}-{max(f['regs'])} "
-            f"registers, {min(f['smem'])}-{max(f['smem'])} B static shared, "
-            f"{f['spill']} B spilled" for k, f in fams.items()) + f" {tag}")
+        print("ptxas: " + _ptxas_summary(_build.ptxas_log) + f" {tag}")
 
     if args.examples_full:
         _phase_examples(mods, tag, collections.defaultdict(
@@ -2912,7 +2976,7 @@ def main(argv=None) -> int:
                        graph_ms=0.0, graph_plain_ms=0.0,
                        graph_library_ms=0.0, bound_ms=0.0, launches=0,
                        bound={"bytes": 0.0, "operations": 0.0})
-               for k in KERNELS}
+               for k in (*KERNELS, *KERNELS_F32)}
     timed = []  # (kernel, label, {arm: fn}, args, bytes, flops)
 
     def check(kernel, label, out, ref):
@@ -2929,24 +2993,25 @@ def main(argv=None) -> int:
         if kernel in results:
             results[kernel]["err"] = max(results[kernel]["err"], err)
 
-    def conv_weight(cin, cout, k):
+    def conv_weight(cin, cout, k, rng=rng_np, dtype=torch.bfloat16):
         w = prune_conv_weight(
-            rng_np.standard_normal((k, k, cin, cout)).astype("float32")
+            rng.standard_normal((k, k, cin, cout)).astype("float32")
             * (2.0 / (k * k * cin)) ** 0.5, SPARSITY, (min(128, cin), 128))
-        b = rng_np.standard_normal(cout).astype("float32") * 0.1
-        return weight_align(w, b, policy=pol_block).to(dev, torch.bfloat16)
+        b = rng.standard_normal(cout).astype("float32") * 0.1
+        return weight_align(w, b, policy=pol_block).to(dev, dtype)
 
-    def conv_case(batch, h, cin, cout, k, with_res):
-        al = conv_weight(cin, cout, k)
-        xs = [torch.randn((batch, h, h, cin), generator=gen, device=dev
-                          ).bfloat16() for _ in range(N_INPUTS)]
-        res = (torch.randn((batch, h, h, cout), generator=gen, device=dev
-                           ).bfloat16() if with_res else None)
+    def conv_case(batch, h, cin, cout, k, with_res, g=gen, rng=rng_np,
+                  dtype=torch.bfloat16):
+        al = conv_weight(cin, cout, k, rng, dtype)
+        xs = [torch.randn((batch, h, h, cin), generator=g, device=dev
+                          ).to(dtype) for _ in range(N_INPUTS)]
+        res = (torch.randn((batch, h, h, cout), generator=g, device=dev
+                           ).to(dtype) if with_res else None)
         return al, xs, res
 
-    def live_bytes(bsc):
+    def live_bytes(bsc, size=2):
         bk, bn = bsc.block_shape
-        return bsc.nnz_blocks * bk * bn * 2
+        return bsc.nnz_blocks * bk * bn * size
 
     def live_cols(bsc, n_kb, width):
         """Columns of the activation (x's channels, or A's K columns) that
@@ -2963,23 +3028,24 @@ def main(argv=None) -> int:
     def conv_work(al, x, with_res):
         """(bytes, FLOPs) of a stride-1 same-size conv (every timed conv
         keeps its spatial size): the channels of x that a live block reads,
-        the live blocks, out and the residual once each; two FLOPs per
-        multiply-add of the live blocks."""
+        the live blocks, out and the residual once each, at x's item size;
+        two FLOPs per multiply-add of the live blocks."""
         bk, bn = al.bsc.block_shape
+        size = x.element_size()
         m = x.shape[0] * x.shape[1] * x.shape[2]
         x_cols = live_cols(al.bsc, al.cin_pad // bk, al.cin)
-        out = m * al.cout * 2
-        return (m * x_cols * 2 + live_bytes(al.bsc)
+        out = m * al.cout * size
+        return (m * x_cols * size + live_bytes(al.bsc, size)
                 + out * (2 if with_res else 1),
                 2 * m * al.bsc.nnz_blocks * bk * bn)
 
-    def conv_library(al, pad):
-        """cuDNN on the dense bf16 weight, channels_last, with bias and the
-        weight's groups: one library call for the conv (no residual or
-        ReLU); ``pad`` is an int or an (H, W) pair."""
-        w = al.dense.to(dev, torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+    def conv_library(al, pad, dtype=torch.bfloat16):
+        """cuDNN on the dense weight in ``dtype``, channels_last, with bias
+        and the weight's groups: one library call for the conv (no residual
+        or ReLU); ``pad`` is an int or an (H, W) pair. TF32 is off."""
+        w = al.dense.to(dev, dtype).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        b = al.bias.to(dev, torch.bfloat16)
+        b = al.bias.to(dev, dtype)
         pad = tuple(pad) if isinstance(pad, tuple) else (pad, pad)
         return lambda x: F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=pad,
                                   groups=al.groups)
@@ -3264,6 +3330,166 @@ def main(argv=None) -> int:
     gen.set_state(gen_state)
     rng_np.bit_generator.state = np_state
 
+    # ---- 3f. the kernels multiplying in f32 ---------------------------------
+    # phase 3's ResNet-50 and VGG-16 shapes with mxu_dtype="float32": f32
+    # weights and activations, each kernel against its plain version computed
+    # in f64 on the card; timed eager and as a CUDA graph beside its plain
+    # version in f32 and one library call in f32 (TF32 off), and the f32
+    # bound. From generators of their own, so that the nets keep their inputs
+    gen_f = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rng_f = np.random.default_rng(SEED + 3)
+    f32_before = {k: (m.launches, m.launches_f32) for k, m in mods.items()}
+
+    def time_kernel(kernel, label, arms, args, nbytes, flops, f32=False):
+        """Each arm eager and as a CUDA graph beside the bound (f32
+        multiplies: ``BOUND_RATES_F32``), summed into the kernel's results
+        (its ``_f32`` variant's with ``f32``)."""
+        rates = BOUND_RATES_F32 if f32 else BOUND_RATES
+        with torch.inference_mode():
+            graph = {arm: _graph_ms(fn, args) for arm, fn in arms.items()}
+            eager = {arm: _time_ms(fn, args) for arm, fn in arms.items()}
+        bound_ms, bound_by = _bound(nbytes, flops, rates)
+        r = results[f"{kernel}_f32" if f32 else kernel]
+        for arm in ("kernel", "plain", "library"):
+            key = "ms" if arm == "kernel" else f"{arm}_ms"
+            r[key] += eager[arm]
+            r["graph_" + key] += graph[arm]
+        r["bound_ms"] += bound_ms
+        # which limit sets the kernel's summed bound
+        for k, v in (("bytes", nbytes), ("operations", flops)):
+            r["bound"][k] += v / rates[k] * 1e3
+        print(f"time {kernel}{' f32' if f32 else ''} {label}, as a CUDA graph "
+              f"(eager): " + ", ".join(
+                  f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms"
+                  for arm in arms)
+              + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB at {rates['bytes'] / 1e12:.2f} TB/s, "
+              f"{flops / 1e9:.2f} GFLOP at {rates['operations'] / 1e12:.0f} "
+              f"TFLOP/s), kernel graph at {bound_ms / graph['kernel']:.1%} of "
+              f"it, {graph['kernel'] / graph['library']:.2f}x the library "
+              f"{tag}")
+
+    def check_f64(kernel, label, out, ref):
+        err = (out.double() - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        bound = F32_PARITY_REL * scale
+        ok = bool(torch.isfinite(out).all()) and err <= bound
+        print(f"parity {kernel} f32 {label}: max_abs_err {err:.3e} = "
+              f"{err / scale:.2e} max|ref| (bound {bound:.3e} = "
+              f"{F32_PARITY_REL:.0e} max|ref|, max|ref| {scale:.3e}; ref: the "
+              f"plain version in f64) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"{kernel} {label}: multiplying in f32, "
+                             f"disagrees with its f64 reference")
+        r = results[f"{kernel}_f32"]
+        r["err"] = max(r["err"], err)
+
+    t_3f = time.perf_counter()
+    for label, batch, h, cin, cout, k, pad, relu, with_res in sconv_shapes:
+        al, xs, res = conv_case(batch, h, cin, cout, k, with_res, gen_f,
+                                rng_f, torch.float32)
+        geo = dict(padding=(pad, pad), relu=relu, residual=res)
+
+        def kern(x, al=al, geo=geo):
+            return sconv_fused.sconv(x, al, mxu_dtype="float32", **geo)
+
+        def plain(x, al=al, geo=geo):
+            return sconv_fused.sconv_plain(x, al, mxu_dtype="float32", **geo)
+
+        plan = sconv_fused.launch_plan(xs[0].shape, al, (pad, pad),
+                                       "float32")
+        print(f"plan sconv_fused f32 {label}: {plan} {tag}")
+        out = kern(xs[0])
+        torch.cuda.synchronize()
+        check_f64("sconv_fused", label, out, sconv_fused.sconv_plain(
+            xs[0].double(), al, padding=(pad, pad), relu=relu,
+            residual=None if res is None else res.double(),
+            mxu_dtype="float32"))
+        time_kernel("sconv_fused", label,
+                    {"kernel": kern, "plain": plain,
+                     "library": conv_library(al, pad, torch.float32)}, xs,
+                    *conv_work(al, xs[0], with_res), f32=True)
+        del al, xs, res, out
+    for label, m, k, n, relu in [  # the fc layers, 128x128 blocks
+            ("fc1000 32x2048->1000", 32, 2048, 1000, False),
+            ("fc6 16x25088->4096 +relu", 16, 25088, 4096, True),
+            ("fc7 16x4096->4096 +relu", 16, 4096, 4096, True),
+            ("fc8 16x4096->1000", 16, 4096, 1000, False),
+            ("conv1_2 lowered b16 802816x576->64 +relu", 16 * 224 * 224, None,
+             None, True)]:
+        if k is None:  # conv1_2's im2col against its 64x64-block weight
+            bsc = conv_weight(64, 64, 3, rng_f, torch.float32).bsc
+        else:
+            bsc = dense_to_bsc(prune_blocks(
+                rng_f.standard_normal((k, n)).astype("float32")
+                * (3.0 / k) ** 0.5, SPARSITY, BLOCK), BLOCK).to(dev)
+        bias = torch.randn(bsc.shape[1], generator=gen_f, device=dev) * 0.1
+        a_list = [torch.randn((m, bsc.shape[0]), generator=gen_f, device=dev)
+                  for _ in range(N_INPUTS)]
+        w_dense = bsc.to_dense()
+
+        def kern(a, bsc=bsc, bias=bias, relu=relu):
+            return bsc_spmm.bsc_spmm(a, bsc, bias=bias, relu=relu,
+                                     mxu_dtype="float32")
+
+        def plain(a, bsc=bsc, bias=bias, relu=relu):
+            return bsc_spmm.bsc_spmm_plain(a, bsc, bias=bias, relu=relu,
+                                           mxu_dtype="float32")
+
+        print(f"plan bsc_spmm f32 {label}: "
+              f"{bsc_spmm.launch_plan(m, bsc, 'float32')} {tag}")
+        out = kern(a_list[0])
+        torch.cuda.synchronize()
+        check_f64("bsc_spmm", label, out, bsc_spmm.bsc_spmm_plain(
+            a_list[0].double(), bsc, bias=bias, relu=relu,
+            mxu_dtype="float32"))
+        bk, bn = bsc.block_shape
+        time_kernel("bsc_spmm", label,
+                    {"kernel": kern, "plain": plain,
+                     "library": lambda a, w=w_dense, b=bias:
+                         torch.addmm(b, a, w)}, a_list,
+                    (m * live_cols(bsc, bsc.n_brows, bsc.shape[0])
+                     + m * bsc.shape[1]) * 4 + live_bytes(bsc, 4),
+                    2 * m * bsc.nnz_blocks * bk * bn, f32=True)
+        del bsc, a_list, w_dense, out
+    for label, batch, h, cin, cout in gc_shapes:
+        al, xs, _ = conv_case(batch, h, cin, cout, 3, False, gen_f, rng_f,
+                              torch.float32)
+
+        def kern(x, al=al):
+            return sconv_gc.sconv(x, al, padding=(1, 1), relu=True,
+                                  mxu_dtype="float32")
+
+        def plain(x, al=al):
+            return sconv_gc.sconv_plain(x, al, padding=(1, 1), relu=True,
+                                        mxu_dtype="float32")
+
+        print(f"plan sconv_gc f32 {label}: "
+              f"{sconv_gc.launch_plan(xs[0].shape, al, (1, 1), 'float32')} "
+              f"{tag}")
+        out = kern(xs[0])
+        torch.cuda.synchronize()
+        check_f64("sconv_gc", label, out, sconv_gc.sconv_plain(
+            xs[0].double(), al, padding=(1, 1), relu=True,
+            mxu_dtype="float32"))
+        time_kernel("sconv_gc", label,
+                    {"kernel": kern, "plain": plain,
+                     "library": conv_library(al, 1, torch.float32)}, xs,
+                    *conv_work(al, xs[0], False), f32=True)
+        del al, xs, out
+    f32_launched = {k: (m.launches - f32_before[k][0],
+                        m.launches_f32 - f32_before[k][1])
+                    for k, m in mods.items()}
+    launched_f32 = {k: v[1] for k, v in f32_launched.items()}
+    print(f"phase 3f: launches of the f32 kernels (parity and timing, not "
+          f"counted in the kernels line) {launched_f32}, "
+          f"{time.perf_counter() - t_3f:.1f} s wall {tag}")
+    if any(total != f32 for total, f32 in f32_launched.values()) or \
+            not all(f32 for _, f32 in f32_launched.values()):
+        raise SystemExit(f"phase 3f launched other than the f32 kernels: "
+                         f"{f32_launched}")
+    torch.cuda.empty_cache()
+
     # ---- 4. the nets ------------------------------------------------------
     pol_s = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
                             compute_dtype=torch.bfloat16, cast_back=False,
@@ -3348,7 +3574,7 @@ def main(argv=None) -> int:
         kept[model] = dict(net=net, init=params, specs=fnet.specs,
                            params=sparse_params, xs=xs, fnet=fnet,
                            fparams=fparams, shapes=shapes, fwd_s=fwd_s,
-                           fwd_d=fwd_d, logits=logits_blob)
+                           fwd_d=fwd_d, logits=logits_blob, routes=routes)
         e2e.append((model, batch, fnet.layers, routes,
                     {"sparse": fwd_s, "dense-bf16": fwd_db,
                      "dense-f32": fwd_d},
@@ -3371,20 +3597,27 @@ def main(argv=None) -> int:
             den += ref.pow(2).sum().item()
         return (num / den) ** 0.5
 
-    def launches_of(fwd, inputs, expect, what):
+    def launches_of(fwd, inputs, expect, what, f32=False):
+        """Each kernel launched N_INPUTS x what ``expect`` names, every
+        launch multiplying in f32 with ``f32`` and none without; counted
+        into the kernel's results (its ``_f32`` variant's with ``f32``)."""
         for m in mods.values():
             m.reset_counts()
         for i in inputs:
             fwd(i)
         torch.cuda.synchronize()
         got = {k: m.launches for k, m in mods.items()}
-        print(f"net {what} launches over {N_INPUTS} forwards: {got} "
-              f"(expected {N_INPUTS} x {dict(expect)}) {tag}")
+        got_f32 = {k: m.launches_f32 for k, m in mods.items()}
+        print(f"net {what} launches over {N_INPUTS} forwards: {got}"
+              + (f", of them multiplying in f32 {got_f32}" if f32 else "")
+              + f" (expected {N_INPUTS} x {dict(expect)}) {tag}")
         for name, n in got.items():
-            if n != N_INPUTS * expect.get(name, 0):
-                raise SystemExit(f"{what} launched {name} {n} times, "
-                                 f"expected {N_INPUTS * expect.get(name, 0)}")
-            results[name]["launches"] += n
+            if (n != N_INPUTS * expect.get(name, 0)
+                    or got_f32[name] != (n if f32 else 0)):
+                raise SystemExit(f"{what} launched {name} {n} times ("
+                                 f"{got_f32[name]} in f32), expected "
+                                 f"{N_INPUTS * expect.get(name, 0)}")
+            results[f"{name}_f32" if f32 else name]["launches"] += n
 
     # ---- 4b. ResNet-50 b32 autotuned ---------------------------------------
     row = kept["resnet50"]
@@ -3890,6 +4123,147 @@ def main(argv=None) -> int:
           f"{snet.layers[0]._in_shape(x_bf16.shape)}) {s2d_ms:.4f} {tag}")
     del fwds
 
+    # ---- 4f. the nets multiplying in f32 ------------------------------------
+    # VGG-16 b16 and ResNet-50 b32 on their phase-4 rows' pruned, fused
+    # weights and inputs, in f32 throughout (compute_dtype None) with
+    # mxu_dtype="float32": on the kernel routes, then ResNet-50 autotuned with
+    # the same multiply type (the f32 fused arm against the XBSP arms and
+    # dense, all f32 with TF32 off). Launches against Net.routes, every one
+    # multiplying in f32; logits against the row's dense f32 net
+    os.environ["CESCOIN_AUTOTUNE_FUSED"] = "1"
+    t_4f = time.perf_counter()
+
+    def f32_logits(fwd, row, what):
+        rel_l2 = logits_rel_l2(fwd, row, what)
+        ok = rel_l2 <= F32_LOGITS_REL_L2
+        print(f"net {what} {row['logits']} logits vs dense f32 (TF32 off): "
+              f"rel L2 {rel_l2:.3e} (limit {F32_LOGITS_REL_L2:.0e}) "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"{what} disagrees with dense f32")
+
+    pol_f32 = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+                              compute_dtype=None, use_xla_sparse=False,
+                              mxu_dtype="float32")
+    for model in F32_NETS:
+        row = kept[model]
+        inputs = [{"data": x} for x in row["xs"]]
+        f_net = Net(row["specs"], policy=pol_f32)
+        f_params = params_to(f_net.weight_align(row["fparams"]), dev)
+        f_routes = f_net.routes(f_params, row["shapes"])
+        expect = collections.Counter(ROUTE_KERNELS[r] for r in
+                                     f_routes.values() if r in ROUTE_KERNELS)
+        print(f"net {model} b{row['xs'][0].shape[0]} f32 (mxu_dtype float32,"
+              f" f32 activations), kernel routes: "
+              f"{dict(collections.Counter(f_routes.values()))}; the layers "
+              f"whose route differs from the bf16 row's: " + ", ".join(
+                  f"{n} {r}" for n, r in f_routes.items()
+                  if r != row["routes"].get(n)) + f" {tag}")
+        f_fwd = f_net.inference_fn(f_params, return_blobs=True)
+        launches_of(f_fwd, inputs, expect, f"{model} f32", f32=True)
+        f32_logits(f_fwd, row, f"{model} f32")
+        f_graph_fwd = f_net.inference_fn(f_params, cuda_graph=True)
+        for inputs_i in inputs[:2] * 2:
+            got = f_graph_fwd(inputs_i)["prob"]
+            want = f_fwd(inputs_i)["prob"]
+            err = (got - want).abs().max().item()
+            if err > F32_PARITY_REL * want.abs().max().item():
+                raise SystemExit(f"{model} f32: inference_fn(cuda_graph="
+                                 f"True) differs from the eager forward by "
+                                 f"{err:.3e}")
+        arms = (("f32 kernel routes", f_fwd),
+                ("bf16 kernel routes", row["fwd_s"]),
+                ("dense f32", row["fwd_d"]))
+        ms = {}
+        for label, fn in arms:
+            ms[f"{label} as a CUDA graph"] = _graph_ms(fn, inputs, N_INPUTS)
+        for label, fn in arms:
+            ms[f"{label} eager"] = _time_ms(fn, inputs)
+        ms["f32 kernel routes through inference_fn(cuda_graph=True)"] = \
+            _time_ms(f_graph_fwd, inputs)
+        graph = {label: ms[f"{label} as a CUDA graph"] for label, _ in arms}
+        print(f"time {model} f32: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f"; f32 kernel routes / dense f32 graph "
+            f"{graph['f32 kernel routes'] / graph['dense f32']:.3f}, / bf16 "
+            f"kernel routes graph "
+            f"{graph['f32 kernel routes'] / graph['bf16 kernel routes']:.3f}"
+            f" {tag}")
+        per = _layer_split(f_net.layers, f_fwd, inputs[0])
+        kind = {l.spec.name: f_routes.get(l.spec.name) or l.spec.type
+                for l in f_net.layers}
+        by_route = collections.Counter()
+        for name, t in per.items():
+            by_route[kind[name]] += t
+        print(f"layers {model} f32 kernel routes, device ms per forward, each "
+              f"layer alone as a CUDA graph: sum {sum(per.values()):.3f}; by "
+              f"route or layer type " + ", ".join(
+                  f"{r} {t:.3f}" for r, t in by_route.most_common())
+              + f" {tag}")
+        del f_graph_fwd
+        if model != "resnet50":
+            del f_fwd, f_params
+            continue
+        # ResNet-50 b32 autotuned in f32, calibrated once from an empty cache
+        pol_at32 = ExecutionPolicy(
+            conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
+            use_xla_sparse=True, autotune=True, autotune_cache=AUTOTUNE_CACHE,
+            mxu_dtype="float32")
+        at_net32 = Net(row["specs"], policy=pol_at32)
+        at_fwd32 = at_net32.inference_fn(f_params, return_blobs=True)
+
+        def fwd_at32(inputs_i, at_fwd32=at_fwd32):
+            with autotune.net_scope("resnet50_f32"):
+                return at_fwd32(inputs_i)
+
+        def time_at32(fwd_at32=fwd_at32, row=row):
+            return device_time(lambda y: fwd_at32({"data": y})["prob"],
+                               row["xs"][0], iters=CALIB_REPS,
+                               arg_sets=[(x,) for x in row["xs"]])
+
+        calibrate_from_empty(time_at32, at_net32, f_params, row["shapes"],
+                             "resnet50_f32", "resnet50 b32 autotuned f32")
+        n_measured = len(autotune.report())
+        with autotune.net_scope("resnet50_f32"):
+            at32_routes = at_net32.routes(f_params, row["shapes"])
+        if len(autotune.report()) != n_measured:
+            raise SystemExit("resnet50 f32: Net.routes measured an arm after "
+                             "calibration")
+        at32_expect = collections.Counter(
+            ROUTE_KERNELS[r] for r in at32_routes.values()
+            if r in ROUTE_KERNELS)
+        print(f"net resnet50 autotuned f32 routes (served from the cache): "
+              f"{dict(collections.Counter(at32_routes.values()))} {tag}")
+        launches_of(fwd_at32, inputs, at32_expect, "resnet50 autotuned f32",
+                    f32=True)
+        f32_logits(fwd_at32, row, "resnet50 autotuned f32")
+        at32_ms = {}
+        for label, fn in (("f32 kernel routes", f_fwd),
+                          ("autotuned f32", fwd_at32),
+                          ("autotuned f32", fwd_at32),
+                          ("f32 kernel routes", f_fwd)):
+            at32_ms.setdefault(label, []).append(_graph_ms(fn, inputs,
+                                                           N_INPUTS))
+        if len(autotune.report()) != n_measured:
+            raise SystemExit("resnet50 f32: an arm was measured after "
+                             "calibration")
+        g = {k: statistics.fmean(v) for k, v in at32_ms.items()}
+        print(f"time resnet50 b32 autotuned f32 as a CUDA graph "
+              f"{g['autotuned f32']:.3f} ms against the f32 kernel routes "
+              f"{g['f32 kernel routes']:.3f} (readings kernel, autotuned, "
+              f"autotuned, kernel: " + "; ".join(
+                  f"{k} " + " ".join(f"{t:.3f}" for t in v)
+                  for k, v in at32_ms.items())
+              + f"); autotuned / kernel-route graph "
+              f"{g['autotuned f32'] / g['f32 kernel routes']:.3f} (reported, "
+              f"not a limit) {tag}")
+        del at_fwd32, f_fwd, f_params
+    print(f"phase 4f: {time.perf_counter() - t_4f:.1f} s wall; launches of "
+          f"the f32 kernels over its nets "
+          + ", ".join(f"{k} {results[k]['launches']}" for k in KERNELS_F32)
+          + f" {tag}")
+    torch.cuda.empty_cache()
+
     # ---- 5. times ---------------------------------------------------------
     sparse_graph_ms = {}  # model -> the sparse forward as a CUDA graph
     for model, batch, layers, routes, arms, inputs, inputs_bf16 in e2e:
@@ -3945,28 +4319,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"host {name} entry: {host_us:.2f} us per call ({what}, "
               f"mean of {ROUTE_REPS}, host clock) {tag}")
-    with torch.inference_mode():
-        for kernel, label, arms, args, nbytes, flops in timed:
-            graph = {arm: _graph_ms(fn, args) for arm, fn in arms.items()}
-            eager = {arm: _time_ms(fn, args) for arm, fn in arms.items()}
-            bound_ms, bound_by = _bound(nbytes, flops)
-            r = results[kernel]
-            for arm in ("kernel", "plain", "library"):
-                key = "ms" if arm == "kernel" else f"{arm}_ms"
-                r[key] += eager[arm]
-                r["graph_" + key] += graph[arm]
-            r["bound_ms"] += bound_ms
-            # which limit sets the kernel's summed bound
-            for k, v in (("bytes", nbytes), ("operations", flops)):
-                r["bound"][k] += v / BOUND_RATES[k] * 1e3
-            print(f"time {kernel} {label}, as a CUDA graph (eager): "
-                  + ", ".join(f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms"
-                              for arm in arms)
-                  + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}: "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), kernel "
-                  f"graph at {bound_ms / graph['kernel']:.1%} of it, "
-                  f"{graph['kernel'] / graph['library']:.2f}x the library "
-                  f"{tag}")
+    for kernel, label, arms, args, nbytes, flops in timed:
+        time_kernel(kernel, label, arms, args, nbytes, flops)
 
     # ---- 6. the command line ---------------------------------------------
     torch.cuda.empty_cache()
@@ -3995,16 +4349,20 @@ def main(argv=None) -> int:
     # ---- 12. its rows rendered as the port's tables -------------------------
     _phase_report(headlines, tag, card)
 
+    # each kernel, then its f32-multiply variant (same source and TPU
+    # kernel; its launches are phase 4f's, its times phase 3f's)
+    names = [(k, base) for base in KERNELS
+             for k in (base, f"{base}_f32")]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
-         "source": f"caffe_escoin_tpu_torch/csrc/{k}.cu",
-         "replaces": replaces, "launches": results[k]["launches"],
+         "source": f"caffe_escoin_tpu_torch/csrc/{base}.cu",
+         "replaces": KERNELS[base], "launches": results[k]["launches"],
          "max_abs_err": results[k]["err"],
          **{key: results[k][key] for key in (
              "ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
              "graph_plain_ms", "graph_library_ms")},
          "bound_by": max(results[k]["bound"], key=results[k]["bound"].get)}
-        for k, replaces in KERNELS.items()]}))
+        for k, base in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

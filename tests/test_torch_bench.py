@@ -363,6 +363,45 @@ def test_each_mode_prints_the_jax_keys(mode, capsys, monkeypatch, tmp_path,
         assert line["calibrated"] and line["calibration"]["polish_trials"] == 2
 
 
+# the keys of bench.py's halo_tower_overhead_1dev row (:736-746)
+JAX_TOWER_ROW_KEYS = {"metric", "h", "w", "cin", "layers", "batch",
+                      "sparsity", "t_plain_us", "t_perlayer_us", "t_tower_us",
+                      "t_chain_us", "overhead_perlayer", "overhead_chain",
+                      "overhead", "err", "backend"}
+
+
+@pytest.mark.parametrize("broken", ["none", "chain"])
+def test_halo_tower_rows_carry_the_chain_error(broken, capsys, monkeypatch,
+                                               tmp_path, autotune_scratch):
+    """Each tower row carries ``err_chain``, the one-entry chain's own
+    error against the convs in sequence, beside the tower's ``err``: the
+    chain's time can set the headline, so its error is written too. A
+    chain that goes wrong shows in ``err_chain`` alone."""
+    from caffe_escoin_tpu_torch.parallel import halo
+
+    if broken == "chain":
+        chain = halo.spatial_sconv_chain
+        monkeypatch.setattr(halo, "spatial_sconv_chain",
+                            lambda *a, **k: chain(*a, **k) + 1.0)
+    record = tmp_path / "build" / "SCALING.jsonl"
+    monkeypatch.setattr(bench, "HALO_RECORD", str(record))
+    assert bench.main(MODE_ARGV["halo"] + ["--repeats", "1", "--platform",
+                                           "cpu"]) == 0
+    capsys.readouterr()
+    rows = [json.loads(r) for r in record.read_text().splitlines()[:-1]]
+    tower = [r for r in rows if r["metric"] == "halo_tower_overhead_1dev"]
+    assert tower
+    for r in tower:
+        assert set(r) == JAX_TOWER_ROW_KEYS | {"device", "err_chain"}
+        assert r["err"] <= PARITY_REL * 1e-2
+        if broken == "chain":
+            # 1.0 added to bf16 outputs: rounding moves it by at most 2**-8
+            # of each value's magnitude
+            assert r["err_chain"] >= 0.5
+        else:
+            assert r["err_chain"] <= PARITY_REL * 1e-2
+
+
 def test_halo_record_is_under_build():
     assert Path(bench.HALO_RECORD) == ROOT / "build" / "SCALING.jsonl"
 

@@ -8,7 +8,11 @@ first launch builds the kernels with nvcc (kernels/_build.py).
 Tolerance: max |kernel - plain| <= 1e-2 * max|plain| + 1e-2 in bf16 (the
 output's bf16 rounding and another order of the f32 sums; the plain version
 rounds the operands to bf16 as the kernel does), 2e-3 relative for f32
-activations (operands are still multiplied in bf16 on both sides).
+activations (operands are still multiplied in bf16 on both sides). With
+``mxu_dtype="float32"`` (three TF32 products per multiply) each kernel is
+held to its plain version computed in f64: 2e-5 * max|plain| for f32
+outputs, which one TF32 pass would miss by more than 10x, and 2**-8 *
+max|plain| for bf16 outputs (their one rounding).
 
 The direct-conv cases cover the edges of the pipelined tile loop
 (csrc/sconv_pipe.cuh): an empty block-column (bias, residual and ReLU
@@ -90,9 +94,11 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _weight(rng, k, cin, cout, sp, block, empty_bcol, dev):
-    """A pruned conv weight aligned to BSC on ``dev``; ``empty_bcol`` zeroes
-    its last block-column, so the BSC has a column with no live block."""
+def _weight(rng, k, cin, cout, sp, block, empty_bcol, dev,
+            dtype=torch.bfloat16):
+    """A pruned conv weight aligned to BSC on ``dev`` in ``dtype``;
+    ``empty_bcol`` zeroes its last block-column, so the BSC has a column
+    with no live block."""
     wt = prune_conv_weight(
         rng.standard_normal((k, k, cin, cout)).astype(np.float32) * 0.05, sp,
         (min(block[0], cin), block[1]))
@@ -102,7 +108,7 @@ def _weight(rng, k, cin, cout, sp, block, empty_bcol, dev):
     al = weight_align(wt, b, policy=ExecutionPolicy(block_shape=block))
     if empty_bcol:
         assert int(al.bsc.bcol_nnz[-1]) == 0
-    return al.to(dev, torch.bfloat16)
+    return al.to(dev, dtype)
 
 
 def _close(out, ref, dtype):
@@ -215,7 +221,7 @@ def test_sconv_gc_raises_on_what_the_kernel_does_not_take(dev):
     x = torch.ones((1, 6, 6, 16), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         sconv_gc.sconv(x, al, padding=(1, 1), relu=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # in f32 too: nothing falls back
         sconv_gc.sconv(x, al, padding=(1, 1), relu=False, mxu_dtype="float32")
 
 
@@ -239,13 +245,13 @@ SPMM_SHAPES = {
 }
 
 
-def _spmm_case(name, dev, dtype, seed=1):
+def _spmm_case(name, dev, dtype, seed=1, wdtype=torch.bfloat16):
     m, k, n, block, sp, relu, empty = SPMM_SHAPES[name]
     rng = np.random.default_rng(seed)
     w = prune_blocks(rng.standard_normal((k, n)).astype(np.float32), sp, block)
     if empty:
         w[:, (n - 1) // block[1] * block[1]:] = 0
-    bsc = dense_to_bsc(w, block).to(dev, torch.bfloat16)
+    bsc = dense_to_bsc(w, block).to(dev, wdtype)
     if empty:
         assert int(bsc.bcol_nnz[-1]) == 0
     a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
@@ -350,11 +356,90 @@ def test_bsc_spmm_refuses_a_plan_the_kernel_does_not_match(dev):
     assert not counters.any()
 
 
-def test_f32_multiplies_are_not_implemented_on_cuda(dev):
-    bsc = dense_to_bsc(np.eye(16, dtype=np.float32), (16, 16)).to(dev)
-    with pytest.raises(NotImplementedError):
-        bsc_spmm.bsc_spmm(torch.ones((4, 16), device=dev), bsc,
-                          mxu_dtype="float32")
+F32_REL = 2e-5
+
+
+def _close_f64(out, ref, dtype):
+    """``out`` of a kernel that multiplied in f32 against its plain version
+    in f64: 2e-5 * max|ref| for an f32 output, 2**-8 * max|ref| for a bf16
+    one (rounded once, after the f32 epilogue)."""
+    out, ref = out.double(), ref.double()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    bound = (F32_REL if dtype == torch.float32 else 2.0 ** -8) * scale
+    assert torch.isfinite(out).all()
+    assert err <= bound, (err, bound, scale)
+
+
+def _f32_launch(mod, fn):
+    """fn() with the kernel module's counts read around it: one launch,
+    and it multiplied in f32."""
+    before = (mod.launches, mod.launches_f32)
+    out = fn()
+    torch.cuda.synchronize()
+    assert (mod.launches, mod.launches_f32) == (before[0] + 1, before[1] + 1)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(SCONV_SHAPES))
+def test_sconv_kernel_f32_multiplies_match_f64(dev, name, dtype):
+    n, h, w, cin, cout, k, pad, sp, relu, with_res, block, empty = \
+        SCONV_SHAPES[name]
+    rng = np.random.default_rng(0)
+    al = _weight(rng, k, cin, cout, sp, block, empty, dev, torch.float32)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin)).astype(
+        np.float32)).to(dev, dtype)
+    res = torch.randn((n, h, w, cout), device=dev).to(dtype) \
+        if with_res else None
+    out = _f32_launch(sconv_fused, lambda: sconv_fused.sconv(
+        x, al, padding=(pad, pad), relu=relu, residual=res,
+        mxu_dtype="float32"))
+    assert out.dtype == dtype and out.shape == (n, h, w, cout)
+    ref = sconv_fused.sconv_plain(
+        x.double(), al, padding=(pad, pad), relu=relu,
+        residual=None if res is None else res.double(), mxu_dtype="float32")
+    _close_f64(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(GC_SHAPES))
+def test_sconv_gc_kernel_f32_multiplies_match_f64(dev, name, dtype):
+    n, h, w, cin, cout, k, pad, sp, relu, block, empty = GC_SHAPES[name]
+    rng = np.random.default_rng(2)
+    al = _weight(rng, k, cin, cout, sp, block, empty, dev, torch.float32)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin)).astype(
+        np.float32)).to(dev, dtype)
+    out = _f32_launch(sconv_gc, lambda: sconv_gc.sconv(
+        x, al, padding=(pad, pad), relu=relu, mxu_dtype="float32"))
+    assert out.dtype == dtype
+    ref = sconv_gc.sconv_plain(x.double(), al, padding=(pad, pad), relu=relu,
+                               mxu_dtype="float32")
+    _close_f64(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(SPMM_SHAPES))
+def test_bsc_spmm_kernel_f32_multiplies_match_f64(dev, name, dtype):
+    """Split and unsplit: the split-K partial sums stay f32."""
+    a, bsc, bias, relu = _spmm_case(name, dev, dtype, wdtype=torch.float32)
+    out = _f32_launch(bsc_spmm, lambda: bsc_spmm.bsc_spmm(
+        a, bsc, bias=bias, relu=relu, mxu_dtype="float32"))
+    assert out.dtype == dtype and out.shape == (a.shape[0], bsc.shape[1])
+    ref = bsc_spmm.bsc_spmm_plain(a.double(), bsc, bias=bias, relu=relu,
+                                  mxu_dtype="float32")
+    _close_f64(out, ref, dtype)
+
+
+def test_f32_multiplies_widen_bf16_weights(dev):
+    """bf16 weight blocks under mxu_dtype="float32" are widened, not
+    rejected: the same bits as the weights stored in f32."""
+    a, bsc16, bias, relu = _spmm_case("fc1000", dev, torch.float32)
+    bsc32 = bsc16.to(dev, torch.float32)
+    got = [bsc_spmm.bsc_spmm(a, b, bias=bias, relu=relu, mxu_dtype="float32")
+           for b in (bsc16, bsc32)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
 
 
 # (n, h, w, cin, cout, k, stride, pad, sparsity, block, residual)

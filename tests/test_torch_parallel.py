@@ -632,6 +632,21 @@ def test_halo_deep_tower_rejects_oversized_halo(ranks):
         assert r[0] == "ValueError" and "deep halo" in r[1]
 
 
+@pytest.mark.parametrize("kernel", [(3, 2), (2, 3)])
+@pytest.mark.parametrize("kind", ["tower", "chain"])
+@_worlds(8)
+def test_halo_stack_refuses_an_even_kernel_side(ranks, kind, kernel):
+    """A chain of 'same' convs needs both kernel sides odd: with an even
+    kw the pad (kw - 1) // 2 would narrow each layer by a column, so the
+    port raises on either side (the JAX module asserts on kh only)."""
+    rng = np.random.default_rng(0)
+    w = prune_conv_weight(rng.standard_normal(kernel + (16, 16)).astype(
+        np.float32), 0.5, (16, 16))
+    x = rng.standard_normal((1, 8, 8, 16)).astype(np.float32)
+    for r in ranks.run(_job_halo_stack, x, [w], (16, 16), (2, 4), kind):
+        assert r[0] == "ValueError" and "odd kernels" in r[1], r
+
+
 # ---------------------------------------------------------------------
 # tensor parallelism
 # ---------------------------------------------------------------------
