@@ -47,9 +47,6 @@ Where this module differs from ``bench.py``:
   ``s2d``).
 * ``--per-layer`` times one layout, NHWC, once: torch has no counterpart
   of XLA's entry-layout choice that ``bench.py`` takes the better of.
-* ``--weights-as-args`` raises NotImplementedError: a CUDA graph captures
-  the weight tensors as they are, so there is no ``split_payloads``; the
-  line keeps ``"weights_as_args": false``.
 * The autotune table defaults to ``.autotune_cuda.json`` at the repository
   root (``CESCOIN_AUTOTUNE_CACHE``), not the TPU's ``.autotune_tpu.json``;
   ``CESCOIN_AUTOTUNE_LOG_HITS`` defaults to 1 as there, and
@@ -77,7 +74,6 @@ Where this module differs from ``bench.py``:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -90,6 +86,7 @@ import torch
 from caffe_escoin_tpu_torch.utils.benchmark import (PLATFORMS, device_label,
                                                     device_time,
                                                     device_time_cycle,
+                                                    env_defaults,
                                                     force_platform)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -555,8 +552,9 @@ def run_e2e(args, device):
         # the routes)
         def _time_sparse():
             with autotune.net_scope(args.model):
-                return _forward_time(e.net_s.inference_fn(e.aligned), e.xs,
-                                     reps)
+                return _forward_time(e.net_s.inference_fn(
+                    e.aligned, weights_as_args=args.weights_as_args), e.xs,
+                    reps)
 
         calib_report = autotune.calibrate_graph(
             _time_sparse, polish=args.calibrate_polish, net_tag=args.model,
@@ -566,7 +564,8 @@ def run_e2e(args, device):
     # the sparse forward consults the autotune cache: serve this net's
     # calibrated (net-scoped) assignment when one was persisted
     with autotune.net_scope(args.model):
-        ts = _forward_time(e.net_s.inference_fn(e.aligned), e.xs, reps)
+        ts = _forward_time(e.net_s.inference_fn(
+            e.aligned, weights_as_args=args.weights_as_args), e.xs, reps)
     log(f"e2e {args.model} batch {args.batch}: dense-f32 {td*1e3:.2f}ms "
         f"dense-bf16 {tdb*1e3:.2f}ms sparse {ts*1e3:.2f}ms "
         f"-> vs_f32 {td/ts:.2f}x vs_bf16 {tdb/ts:.2f}x "
@@ -611,7 +610,7 @@ def run_e2e(args, device):
         "autotune": bool(args.autotune),
         "packed": bool(args.pack and args.fuse),
         "s2d": bool(args.fuse and args.s2d),
-        "weights_as_args": False,
+        "weights_as_args": bool(args.weights_as_args),
     }
     if args.xbsp_arm != "auto":
         # a forced arm's row must be told apart from headline rows
@@ -891,8 +890,9 @@ def parse_args(argv=None):
                          "ReLU/residual epilogues) on all arms")
     ap.add_argument("--weights-as-args", action=argparse.BooleanOptionalAction,
                     default=False,
-                    help="not implemented: a CUDA graph captures the weight "
-                         "tensors as they are")
+                    help="with --e2e: the sparse forward takes its weight "
+                         "payloads as arguments (split_payloads), the "
+                         "sparsity pattern closed over")
     ap.add_argument("--pack", action=argparse.BooleanOptionalAction,
                     default=False,
                     help="W-pair packed layout for narrow-channel towers "
@@ -944,26 +944,8 @@ def parse_args(argv=None):
     return args
 
 
-@contextlib.contextmanager
-def _env_defaults():
-    """``ENV_DEFAULTS`` where the environment sets nothing, for the run;
-    restored after."""
-    added = [k for k in ENV_DEFAULTS if k not in os.environ]
-    os.environ.update({k: ENV_DEFAULTS[k] for k in added})
-    try:
-        yield
-    finally:
-        for k in added:
-            os.environ.pop(k, None)
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.weights_as_args:
-        raise NotImplementedError(
-            "--weights-as-args: the port captures each forward as a CUDA "
-            "graph over the weight tensors as they are; there is no "
-            "split_payloads")
     try:
         device = force_platform(args.platform)
     except RuntimeError as e:
@@ -971,7 +953,7 @@ def main(argv=None) -> int:
         return 2
     log(f"backend: {device.type}, device: {device_label(device)}, torch "
         f"{torch.__version__}")
-    with _env_defaults():
+    with env_defaults(ENV_DEFAULTS):
         if args.e2e:
             run_e2e(args, device)
         elif args.fc:

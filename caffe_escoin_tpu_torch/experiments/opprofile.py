@@ -1,0 +1,275 @@
+"""Op-level profile of a whole sparse forward (port of
+``scripts/exp_opprofile_r5.py`` and ``exp_gln_profile_r5.py``, with
+``exp_gln_hlo_r5.py``'s question, which graph site a hot op is, answered by
+layer spans).
+
+ResNet-50 b32 packed or GoogLeNet b16 unpacked (``--net``), built as the
+scripts build them (``common.sparse_net``: 90% in 128x128 blocks, fused,
+aligned, autotuned), run under ``autotune.net_scope``. After a warm-up on
+the 4 inputs, ``torch.profiler`` (CPU and CUDA activities) records
+``--iters`` forwards in two forms:
+
+* ``graph``: ``Net.inference_fn(cuda_graph=True)`` replays, the
+  counterpart of the one jitted module;
+* ``eager``: the layers stepped one by one as ``utils/timing._run_layer``
+  steps them, each inside ``torch.profiler.record_function("layer:<name>")``,
+  whose output must equal ``Net.forward``'s bit for bit. Every kernel is
+  attributed to the layer whose span ran it; a replay has no spans, so
+  the graph form's kernels take the layers the eager form found for
+  their names.
+
+Output: one ``opprofile`` row per form, ``module_total_ms_per_iter`` (the
+device time of its kernels and copies per forward) beside ``graph_ms``
+(``device_time`` of the whole forward as CUDA-graph replays), the
+kernels' and the copies' time per forward, the graph form's
+``non_kernel_share`` (1 - kernel time / ``graph_ms``: copies and the gaps
+between kernels), and each hand kernel's calls per forward
+beside the launch counter's; then the top ``--top`` kernels (40 for
+ResNet-50, 60 for GoogLeNet) by total time as ``opprofile_kernel`` rows:
+us per forward, share, name, the hand kernel it is (by its Rows policy:
+``sconv_fused``, ``sconv_gc``, ``bsc_spmm``) and its layers. Where the
+profiler sees no kernel inside the graph replays (CUPTI and the driver
+decide), the graph row says so (``kernels_seen: false``) and has no kernel
+rows: no per-kernel number is made up for it. On the CPU the table holds
+the CPU ops' self times instead of device kernels.
+
+    python -m caffe_escoin_tpu_torch.experiments.opprofile --net resnet50
+    python -m caffe_escoin_tpu_torch.experiments.opprofile --net googlenet
+"""
+
+from __future__ import annotations
+
+import bisect
+import collections
+import sys
+
+import torch
+
+from caffe_escoin_tpu_torch.engine import autotune
+from caffe_escoin_tpu_torch.experiments import common
+from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
+from caffe_escoin_tpu_torch.utils.benchmark import device_time
+from caffe_escoin_tpu_torch.utils.timing import _run_layer
+
+NETS = {  # net -> (batch, packed, top kernels printed), as the scripts ran
+    "resnet50": (32, True, 40),
+    "googlenet": (16, False, 60),
+}
+ITERS = 12
+LAYER_PREFIX = "layer:"
+KERNEL_MODULES = {"sconv_fused": sconv_fused, "sconv_gc": sconv_gc,
+                  "bsc_spmm": bsc_spmm}
+_COPY = ("Memcpy", "Memset")
+# the three hand kernels, by the Rows policy their sconv_pipe_kernel
+# instance is named after in a trace
+KERNEL_OF_ROWS = {"ConvRows": "sconv_fused", "SlabRows": "sconv_gc",
+                  "DenseRows": "bsc_spmm"}
+
+
+def kernel_of(name: str) -> str:
+    """The hand kernel a trace's kernel name is an instance of (by its Rows
+    policy), or the name itself."""
+    for rows, kernel in KERNEL_OF_ROWS.items():
+        if rows in name:
+            return kernel
+    return name
+
+
+def layerwise(net, params, inputs, *, spans: bool = True):
+    """Every blob of one forward, the layers stepped one by one as
+    ``utils/timing._run_layer`` steps them, each inside a
+    ``record_function`` span named after it (``spans=False``: none)."""
+    blobs = dict(inputs)
+    for layer in net.layers:
+        spec = layer.spec
+        ins = [blobs[b] for b in spec.bottoms]
+        p = params.get(spec.share_params or spec.name, {})
+        if spans:
+            with torch.profiler.record_function(LAYER_PREFIX + spec.name):
+                outs = _run_layer(layer, p, ins, net.state0)
+        else:
+            outs = _run_layer(layer, p, ins, net.state0)
+        for t, o in zip(spec.tops, outs):
+            blobs[t] = o
+    return blobs
+
+
+def _layer_of(evt):
+    while evt is not None:
+        if evt.name.startswith(LAYER_PREFIX):
+            return evt.name[len(LAYER_PREFIX):]
+        evt = evt.cpu_parent
+    return None
+
+
+def aggregate(events, cuda: bool):
+    """(records, copy_us): ``records`` maps a kernel name (an op name on
+    the CPU) to its total us, its calls and its us by layer; ``copy_us``
+    is the device's memcpy and memset time. On the card a kernel's layer is
+    the layer span whose device-side range (the profiler's projection of a
+    ``record_function`` onto the GPU timeline) holds the kernel's start;
+    the hand kernels, launched through ctypes, have no CPU op to be
+    correlated with. On the CPU an op's layer is its enclosing span."""
+    totals = collections.defaultdict(lambda: {"us": 0.0, "calls": 0})
+    layers = collections.defaultdict(collections.Counter)
+    copy_us = 0.0
+    if cuda:
+        device = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end,
+                        e.name[len(LAYER_PREFIX):]) for e in device
+                       if e.name.startswith(LAYER_PREFIX))
+        starts = [sp[0] for sp in spans]
+        for e in device:
+            if e.name.startswith(LAYER_PREFIX):
+                continue
+            us = e.time_range.elapsed_us()
+            if e.name.startswith(_COPY):
+                copy_us += us
+                continue
+            totals[e.name]["us"] += us
+            totals[e.name]["calls"] += 1
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= spans[i][1]:
+                layers[e.name][spans[i][2]] += us
+    else:
+        for e in events:
+            if (e.device_type == torch.autograd.DeviceType.CPU
+                    and not e.name.startswith(LAYER_PREFIX)
+                    and e.self_cpu_time_total > 0):
+                totals[e.name]["us"] += e.self_cpu_time_total
+                totals[e.name]["calls"] += 1
+                layers[e.name][_layer_of(e)] += e.self_cpu_time_total
+    return {name: {**t, "layers": layers.get(name, {})}
+            for name, t in totals.items()}, copy_us
+
+
+def kernel_rows(records, iters: int, top: int):
+    """The ``top`` records by total time: us per forward, share of all
+    records' time, calls per forward, the hand kernel, the layers (most
+    time first)."""
+    total = sum(r["us"] for r in records.values()) or 1.0
+    ranked = sorted(records.items(), key=lambda kv: -kv[1]["us"])[:top]
+    rows = []
+    for rank, (name, r) in enumerate(ranked, 1):
+        by_layer = sorted(((l, us) for l, us in r["layers"].items()),
+                          key=lambda lu: -lu[1])
+        rows.append({
+            "rank": rank, "us_per_iter": round(r["us"] / iters, 3),
+            "share": round(r["us"] / total, 5),
+            "calls_per_iter": r["calls"] / iters,
+            "kernel": kernel_of(name), "name": name[:200],
+            "layer": by_layer[0][0] if by_layer else None,
+            "n_layers": len(by_layer)})
+    return rows
+
+
+def hand_calls(records, iters: int):
+    """Calls per forward of each hand kernel in ``records``."""
+    calls = collections.Counter()
+    for name, r in records.items():
+        kernel = kernel_of(name)
+        if kernel in KERNEL_MODULES:
+            calls[kernel] += r["calls"]
+    return {k: calls[k] / iters for k in KERNEL_MODULES}
+
+
+def _profile(fn, iters, cuda):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        for i in range(iters):
+            fn(i)
+        if cuda:
+            torch.cuda.synchronize()
+    return prof.events()
+
+
+def run(device, emit, *, net_name="resnet50", batch=None, iters=ITERS,
+        top=None):
+    """The two forms' rows and their kernel tables; returns
+    ``{form: (row, kernel rows)}``. Raises AssertionError where the
+    layer-by-layer forward is not ``Net.forward``'s bit for bit."""
+    d_batch, pack, d_top = NETS.get(net_name, (1, False, 40))
+    batch = d_batch if batch is None else batch
+    top = d_top if top is None else top
+    cuda = device.type == "cuda"
+    s = common.sparse_net(net_name, batch, device, pack=pack)
+    net, aligned, xs = s.net, s.aligned, s.xs
+    out = {}
+    with autotune.net_scope(net_name):
+        graph_fn = net.inference_fn(aligned, cuda_graph=True)
+        for x in xs:  # measures each key, then captures
+            graph_fn({"data": x})
+        eager_fn = net.inference_fn(aligned)
+        graph_ms = device_time(
+            lambda y: common.first(eager_fn({"data": y})), xs[0],
+            iters=20, arg_sets=[(x,) for x in xs]) * 1e3
+        with torch.inference_mode():
+            want = net.forward(aligned, {"data": xs[0]}, return_blobs=True)
+            got = layerwise(net, aligned, {"data": xs[0]}, spans=False)
+        unequal = [b for b in got if not torch.equal(got[b], want[b])]
+        if unequal:
+            raise AssertionError(f"opprofile {net_name}: the layer-by-layer "
+                                 f"forward differs from Net.forward on "
+                                 f"{unequal[:5]}")
+        forms = {  # eager first: the graph form's layers are its
+            "eager": lambda i: layerwise(net, aligned,
+                                         {"data": xs[i % len(xs)]}),
+            "graph": lambda i: graph_fn({"data": xs[i % len(xs)]}),
+        }
+        by_name = {}
+        for form, fn in forms.items():
+            before = {k: m.launches for k, m in KERNEL_MODULES.items()}
+            with torch.inference_mode():
+                events = _profile(fn, iters, cuda)
+            launched = {k: (m.launches - before[k]) / iters
+                        for k, m in KERNEL_MODULES.items()}
+            records, copy_us = aggregate(events, cuda)
+            for name, r in records.items():
+                # a replay has no spans: a kernel's layers are the ones
+                # the eager form found for its name
+                if not r["layers"] and name in by_name:
+                    r["layers"] = by_name[name]
+            by_name = {name: r["layers"] for name, r in records.items()}
+            kernel_us = sum(r["us"] for r in records.values())
+            seen = bool(records)
+            module_ms = (kernel_us + copy_us) / iters / 1e3
+            row = emit(kind="opprofile", net=net_name, batch=batch,
+                       packed=bool(getattr(net, "packed_blobs", None)),
+                       form=form, iters=iters, kernels_seen=seen,
+                       module_total_ms_per_iter=round(module_ms, 4),
+                       graph_ms=round(graph_ms, 4),
+                       kernel_ms_per_iter=round(kernel_us / iters / 1e3, 4),
+                       copy_ms_per_iter=round(copy_us / iters / 1e3, 4),
+                       non_kernel_share=(round(1 - kernel_us / iters / 1e3
+                                               / graph_ms, 4)
+                                         if cuda and seen and form == "graph"
+                                         else None),
+                       hand_calls_per_iter=hand_calls(records, iters),
+                       launches_per_iter=launched,
+                       distinct_kernels=len(records))
+            krows = [emit(kind="opprofile_kernel", net=net_name, form=form,
+                          **k) for k in kernel_rows(records, iters, top)]
+            out[form] = (row, krows)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = common.parser("opprofile", __doc__)
+    ap.add_argument("--net", default="resnet50", choices=sorted(NETS),
+                    help="resnet50: b32 packed, 40 kernels listed; "
+                         "googlenet: b16 unpacked, 60")
+    args = ap.parse_args(argv)
+    device = common.device_of(args.platform)
+    if device is None:
+        return 2
+    with common.env_defaults():
+        run(device, common.Rows(args.out, device), net_name=args.net)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,7 +25,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
-from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
+from caffe_escoin_tpu_torch.sparse.weight_align import (AlignedConvWeight,
+                                                        split_payloads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,8 +329,20 @@ class Net(torch.nn.Module):
 
     def inference_fn(self, aligned_params, *,
                      state: Optional[Dict[str, Any]] = None,
-                     return_blobs: bool = False, cuda_graph: bool = False):
+                     return_blobs: bool = False, cuda_graph: bool = False,
+                     weights_as_args: bool = False):
         """Forward over fixed (aligned) params, under inference mode.
+
+        ``weights_as_args=True`` runs the forward on ``graft(payloads)``
+        (``sparse.weight_align.split_payloads``): the weight payloads put
+        back on the sparsity pattern, as the JAX function's jitted forward
+        takes them as arguments. They are grafted once, when the function
+        is made, as the JAX function traces ``graft`` once: the grafted
+        BSCs start with empty memos, so what the XBSP arms derive from the
+        blocks is derived from the payloads by the first (eager) call, and
+        a CUDA-graph capture after it finds it built (built inside a
+        capture, it would copy from the host). The payloads are the same
+        tensors, so the numbers are the closed-over forward's.
 
         ``cuda_graph=True`` gives the counterpart of the JAX package's
         jitted forward: on CUDA inputs, the first call for a set of input
@@ -350,6 +363,10 @@ class Net(torch.nn.Module):
                     f"inference_fn(cuda_graph=True): {', '.join(unsafe)} "
                     f"cannot be captured (host I/O at forward time or a "
                     f"data-dependent shape); run this net eagerly")
+
+        if weights_as_args:
+            graft, payloads = split_payloads(aligned_params)
+            aligned_params = graft(payloads)
 
         def run(inputs):
             with torch.inference_mode():

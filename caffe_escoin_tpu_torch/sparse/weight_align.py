@@ -14,9 +14,9 @@ From a conv weight W[KH,KW,Cin/g,Cout] it builds:
   and per output channel.
 
 The rules are the JAX package's, unchanged, so both packages build
-identical arrays. ``split_payloads`` is not ported: it passes payloads as
-jit arguments, and eager torch (or a CUDA graph of it) holds the tensors as
-they are.
+identical arrays. ``split_payloads`` splits an aligned map into its weight
+payloads and a ``graft`` that puts them back on the pattern, as the JAX
+function does for ``Net.inference_fn(weights_as_args=True)``.
 """
 
 from __future__ import annotations
@@ -114,6 +114,61 @@ class AlignedConvWeight:
             bsc=None if self.bsc is None else self.bsc.to(device, dtype),
             ell_t=None if self.ell_t is None else self.ell_t.to(device,
                                                                 dtype))
+
+
+def split_payloads(aligned_params):
+    """Split an aligned-params map into ``(graft, payloads)``: the weight
+    PAYLOADS as a plain dict of tensors, and ``graft(payloads)``, which
+    rebuilds the aligned map around the payloads it is handed while the
+    sparsity PATTERN (block rows, column counts, shapes) stays on the base
+    objects. ``Net.inference_fn(weights_as_args=True)`` runs its forward
+    on ``graft(payloads)``, as the JAX function's jitted forward takes the
+    payloads as arguments.
+
+    For each ``AlignedConvWeight`` the payload dict holds ``dense``,
+    ``bias`` (where there is one), ``bsc_blocks`` and ``ell_values``
+    (where there is a BSC or an ELL); a plain param dict rides whole.
+
+    ``graft`` rebuilds with ``dataclasses.replace``, so a grafted ``BSC``
+    starts with an empty ``memo``: the XBSP arms' casts and packings of
+    the blocks are derived again from the blocks it was handed, never
+    taken over from the base object's."""
+    payloads = {}
+    recipes = {}
+    for name, obj in aligned_params.items():
+        if isinstance(obj, AlignedConvWeight):
+            pl = {"dense": obj.dense}
+            if obj.bias is not None:
+                pl["bias"] = obj.bias
+            if obj.bsc is not None:
+                pl["bsc_blocks"] = obj.bsc.blocks
+            if obj.ell_t is not None:
+                pl["ell_values"] = obj.ell_t.values
+            payloads[name] = pl
+            recipes[name] = obj
+        else:
+            payloads[name] = obj
+            recipes[name] = None
+
+    def graft(pl):
+        out = {}
+        for name, base in recipes.items():
+            if base is None:
+                out[name] = pl[name]
+                continue
+            q = pl[name]
+            bsc = base.bsc
+            if bsc is not None:
+                bsc = dataclasses.replace(bsc, blocks=q["bsc_blocks"])
+            ell = base.ell_t
+            if ell is not None:
+                ell = dataclasses.replace(ell, values=q["ell_values"])
+            out[name] = dataclasses.replace(
+                base, dense=q["dense"], bias=q.get("bias"), bsc=bsc,
+                ell_t=ell)
+        return out
+
+    return graft, payloads
 
 
 def weight_align(w_hwio, bias=None, *, groups: int = 1,

@@ -1,15 +1,18 @@
 """Timing of one callable on the device, and the choice of device (port of
 ``caffe_escoin_tpu/utils/benchmark.py``: ``device_time``,
 ``device_time_cycle`` and ``force_platform``), the arms of one layer
-timed in turn (``device_time_arms``, the autotuner's), and the name of the
-card that every number is written beside."""
+timed in turn (``device_time_arms``, the autotuner's), the name of the
+card that every number is written beside, and the environment defaults a
+measuring entry point sets for its run (``env_defaults``)."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import statistics
 import subprocess
 import time
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
@@ -34,6 +37,19 @@ def force_platform(platform: str = "auto") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@contextlib.contextmanager
+def env_defaults(defaults: Dict[str, str]):
+    """Each variable of ``defaults`` that the environment does not set,
+    set for the block and removed after it."""
+    added = [k for k in defaults if k not in os.environ]
+    os.environ.update({k: defaults[k] for k in added})
+    try:
+        yield
+    finally:
+        for k in added:
+            os.environ.pop(k, None)
 
 
 def _tensors(tree):

@@ -38,7 +38,8 @@ example scripts on real digits: LeNet and AlexNet trained, pruned and
 scored on the sparse paths, the siamese pair and the net surgery (phase
 10); then the port's ``bench.py``, ``caffe_escoin_tpu_torch/bench.py``,
 in each of its modes as a user runs it (phase 11), and its rows rendered
-as the port's tables by ``tools/report.py`` (phase 12). Between them,
+as the port's tables by ``tools/report.py`` (phase 12); then the probes of
+``caffe_escoin_tpu_torch/experiments/`` (phase 13). Between them,
 the three kernels multiplying in f32 (``mxu_dtype="float32"``, three TF32
 products per multiply) at phase 3's shapes (phase 3f) and VGG-16 b16 and
 ResNet-50 b32 run in f32 on them (phase 4f).
@@ -350,7 +351,13 @@ Phases, one line each (any failure exits non-zero):
      (``bench.prepare_e2e``) must launch, over the 4 inputs, what
      ``Net.routes`` names from the calibrated table (which must need no
      new measurement), and give fc1000 within 5e-2 relative L2 of the
-     same pruned weights dense in f32. ``--xbsp-arm fused
+     same pruned weights dense in f32. Bare with ``--weights-as-args``:
+     its line says ``"weights_as_args": true``; the bare run's nets,
+     with the table as this run left it, forward the 4 inputs over
+     grafted payloads (``split_payloads``) and closed over: the same
+     launches, what ``Net.routes`` names, and fc1000 bit for bit (and,
+     where the calibrated routes are the bare run's, the bare run's
+     launches and fc1000 bits). ``--xbsp-arm fused
      --no-autotune`` b32: ``sconv_fused`` launches equal to 2 x 4
      forwards (``device_time``'s eager call and capture per input) of
      what ``Net.routes`` names. ``--per-layer`` b32, every eligible
@@ -374,14 +381,35 @@ Phases, one line each (any failure exits non-zero):
      run of phase 11 must appear: each e2e, per-layer and fc headline as
      its table's row, the batch curve's rows and peak, and the halo run's
      single-conv rows (the reference's halo table renders those, not the
-     headline).
+     headline; a group of e2e captures, as the bare run with and without
+     ``--weights-as-args``, as its best row).
+  13. the probes (``caffe_escoin_tpu_torch/experiments/``): each run of
+     ``EXP_RUNS`` called in process as ``main(argv)`` (``stability``
+     spawns its phases' processes), with an autotune table of its own
+     (``EXP_AUTOTUNE_CACHE``, emptied first) and the launch counts set to
+     0 before it; rows in ``build/experiments/*.jsonl``, each run's
+     stdout in ``build/experiments_<i>.log``. ``opprofile`` ResNet-50 b32
+     packed and GoogLeNet b16 (12 profiled forwards each, as CUDA-graph
+     replays and layer by layer; the top kernels and their layers
+     printed); ``pool``'s six shapes; ``k3`` at 56 and 7; ``s2d``'s three
+     stems; ``wpack``; ``stability`` phases A and D (50 host-clocked
+     replays each); ``rss_probe train`` 200 iterations. Fails on an error
+     row, a row without the card's label, a pool candidate that is not
+     ``torch.equal`` (or an s2d fold off by more than its tolerance), a
+     k3 arm or a wpack check over 1e-2 * max|ref| + 1e-2, a k3 run
+     without its ``fused_cuda`` rows and ``sconv_fused`` launches, and a
+     ResNet-50 profile whose kernel table (of either form that shows
+     kernels) lacks ``sconv_fused`` or whose layer-by-layer
+     ``sconv_fused`` calls per forward differ from the launch counter's
+     over the profiled forwards. The phase's wall time beside its 150 s
+     budget.
 Then one JSON line with the kernels: ``ms``, ``plain_ms`` and
 ``library_ms`` are eager times summed over the timed shapes, ``graph_ms``,
 ``graph_plain_ms`` and ``graph_library_ms`` the same as CUDA graphs;
 ``launches`` sums the nets' runs (phases 4, 4b, 4c, 4d, 4e, 7c, 8b, 9
-and 10b's kernel routes, and phase 11's bare and forced-fused forwards
-and halo run; phase 6 and the rest of phases 7, 8, 10 and 11 are not
-counted there). Each kernel is followed by its f32-multiply variant
+and 10b's kernel routes, phase 11's bare, weights-as-args and
+forced-fused forwards and halo run, and phase 13's probes; phase 6 and
+the rest of phases 7, 8, 10 and 11 are not counted there). Each kernel is followed by its f32-multiply variant
 (``<name>_f32``: the same source and TPU kernel, phase 3f's errors and
 times with the f32 bound, phase 4f's launches). As the last line
 {"ok": true, "device": {...}}.
@@ -647,6 +675,8 @@ BENCH_KEYS = {  # bench.py :585-613, :268-277, :381-389, :763-766, :840-845
 }
 BENCH_RUNS = [
     ("bare", [], "e2e", {"calibrated", "calibration", "buckets"}),
+    ("bare weights-as-args", ["--weights-as-args"], "e2e",
+     {"calibrated", "calibration", "buckets"}),
     ("e2e xbsp-arm fused", ["--e2e", "--xbsp-arm", "fused", "--no-autotune",
                             "--batch", "32"], "e2e", {"xbsp_arm"}),
     ("per-layer b32", ["--per-layer", "--batch", "32"], "per_layer", set()),
@@ -658,6 +688,24 @@ BENCH_RUNS = [
 ]
 BENCH_LOGITS = "fc1000"
 BENCH_BUDGET_S = 300
+# phase 13: the probes (caffe_escoin_tpu_torch/experiments/), each called in
+# process as ``main(argv)`` at its script's shapes, counts cut to fit the
+# budget, with an autotune table of the phase's own (emptied first); each
+# appends its rows to build/experiments/<name>.jsonl (emptied first), its
+# stdout in build/experiments_<i>.log
+EXP_AUTOTUNE_CACHE = "build/experiments_autotune.json"
+EXP_RUNS = [  # (label, module, argv)
+    ("opprofile resnet50", "opprofile", ["--net", "resnet50"]),
+    ("opprofile googlenet", "opprofile", ["--net", "googlenet"]),
+    ("pool", "pool", []),
+    ("k3", "k3", ["--shapes", "56,7"]),
+    ("s2d", "s2d", []),
+    ("wpack", "wpack", []),
+    ("stability", "stability", ["--phase", "A,D", "--wall-iters", "50"]),
+    ("rss_probe", "rss_probe", ["--variant", "train", "--iters", "200",
+                                "--every", "50"]),
+]
+EXP_BUDGET_S = 150
 
 
 def _card_line() -> str:
@@ -2681,6 +2729,7 @@ def _phase_bench(mods, tag, results, dev):
             if not line["value"] > 0:
                 raise SystemExit(f"bench {label}: value {line['value']}")
             if label == "bare":
+                bare_run_got = got
                 if not got["sconv_fused"]:
                     raise SystemExit("the bare bench launched no sconv_fused")
                 # the bare run's nets again (seed 0): the calibrated routes,
@@ -2729,7 +2778,57 @@ def _phase_bench(mods, tag, results, dev):
                                      "with dense f32")
                 for k, n in fwd_got.items():
                     results[k]["launches"] += n
-                del outs, fwd, dense
+                bare_check = (routes, fwd_got, outs)
+                del fwd, dense
+            elif label == "bare weights-as-args":
+                # the bare run's nets again, with the calibrated table as
+                # this run left it: the forward over grafted payloads
+                # against the closed-over one (and, where the routes are
+                # the bare run's, against the bare run's checked forwards)
+                if line["weights_as_args"] is not True:
+                    raise SystemExit(f"bench {label}: weights_as_args "
+                                     f"{line['weights_as_args']}")
+                args = bench.parse_args(argv + extra)
+                logits, fwd_launches = {}, {}
+                with autotune.net_scope(args.model):
+                    routes = bare.net_s.routes(bare.aligned, bare.shapes)
+                    for flag in (False, True):
+                        fwd = bare.net_s.inference_fn(
+                            bare.aligned, return_blobs=True,
+                            weights_as_args=flag)
+                        for m in mods.values():
+                            m.reset_counts()
+                        logits[flag] = [fwd({"data": x})[BENCH_LOGITS]
+                                        .float() for x in bare.xs]
+                        fwd_launches[flag] = launched()
+                b_routes, b_launches, b_outs = bare_check
+                same = all(torch.equal(a, b) for a, b in
+                           zip(logits[False], logits[True]))
+                as_bare = routes == b_routes
+                where = "the bare run's" if as_bare else "recalibrated"
+                print(f"bench {label}: launches over the run {got} (the "
+                      f"bare run's {bare_run_got}); its sparse forward "
+                      f"over {len(bare.xs)} inputs, payloads as arguments: "
+                      f"launches {fwd_launches[True]}, closed over "
+                      f"{fwd_launches[False]}; {BENCH_LOGITS} bit-equal "
+                      f"{same}; routes {where} {tag}")
+                if fwd_launches[True] != fwd_launches[False] or not same:
+                    raise SystemExit(f"bench {label}: the forward over "
+                                     f"grafted payloads differs from the "
+                                     f"closed-over one")
+                if fwd_launches[True] != kernels_of(routes, len(bare.xs)) \
+                        or not fwd_launches[True]["sconv_fused"]:
+                    raise SystemExit(f"bench {label}: launches "
+                                     f"{fwd_launches[True]} are not what "
+                                     f"its routes name")
+                if as_bare and (fwd_launches[True] != b_launches or not all(
+                        torch.equal(a, b) for a, b in
+                        zip(logits[True], b_outs))):
+                    raise SystemExit(f"bench {label}: differs from the "
+                                     f"bare run on its routes")
+                for k, n in fwd_launches[True].items():
+                    results[k]["launches"] += n
+                del logits, fwd
             elif label == "e2e xbsp-arm fused":
                 # the same weights as the bare run's; on the card
                 # device_time runs each of its 4 inputs once eagerly and
@@ -2855,9 +2954,19 @@ def _phase_report(headlines, tag, card):
     def row_of(cells):
         return "| " + " | ".join(str(c) for c in cells) + " |"
 
+    def group(h):  # report.headline_table's key: one row per group
+        return tuple(h.get(k) for k in ("metric", "batch", "autotune",
+                                         "calibrated", "xbsp_arm", "fused",
+                                         "packed"))
+
     missing = []
     for label, mode, h in headlines:
         if mode == "e2e":
+            # the table shows a group's best capture (bare, with and
+            # without --weights-as-args, is one group)
+            h = min((g for _, m, g in headlines
+                     if m == "e2e" and group(g) == group(h)),
+                    key=lambda g: g["t_sparse_ms"])
             want = [row_of([h["metric"], h["batch"], f"{h['value']}x",
                             f"{h['speedup_vs_dense_f32']}x",
                             h["t_sparse_ms"], h["t_dense_bf16_ms"]])[:-2]]
@@ -2891,6 +3000,178 @@ def _phase_report(headlines, tag, card):
     if missing:
         raise SystemExit(f"report: phase 11 runs missing from the tables: "
                          f"{missing}")
+
+
+def _phase_experiments(mods, tag, results, dev):
+    """Phase 13: the probes in process, each run of EXP_RUNS as
+    ``main(argv)`` with the launch counts set to 0 before it; see the module
+    docstring. Adds each run's launches to ``results``."""
+    import importlib
+
+    import torch
+
+    from caffe_escoin_tpu_torch.engine import autotune
+    from caffe_escoin_tpu_torch.experiments import common, s2d
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    extra = [] if cuda else ["--platform", "cpu"]
+    prev = {k: os.environ.get(k) for k in ("CESCOIN_AUTOTUNE_CACHE",
+                                           "CESCOIN_AUTOTUNE_FUSED")}
+    # absolute: stability's phases run in processes of their own
+    os.environ["CESCOIN_AUTOTUNE_CACHE"] = os.path.abspath(EXP_AUTOTUNE_CACHE)
+    os.environ["CESCOIN_AUTOTUNE_FUSED"] = "1"
+    os.makedirs(common.OUT_DIR, exist_ok=True)
+    for _, name, _ in EXP_RUNS:
+        path = os.path.join(common.OUT_DIR, f"{name}.jsonl")
+        if os.path.exists(path):
+            os.remove(path)
+    if os.path.exists(EXP_AUTOTUNE_CACHE):
+        os.remove(EXP_AUTOTUNE_CACHE)
+    autotune.clear()  # the table starts empty, as on a new machine
+
+    def fail(label, why):
+        raise SystemExit(f"experiments {label}: {why}")
+
+    def within(err, scale):
+        return err <= PARITY_REL * scale + PARITY_ABS
+
+    try:
+        for i, (label, name, argv) in enumerate(EXP_RUNS):
+            mod = importlib.import_module(
+                f"caffe_escoin_tpu_torch.experiments.{name}")
+            for m in mods.values():
+                m.reset_counts()
+            t0 = time.perf_counter()
+            rc, out = _run_entry(mod.main, argv + extra,
+                                 f"build/experiments_{i}.log")
+            if cuda:
+                torch.cuda.synchronize(dev)
+            got = {k: m.launches for k, m in mods.items()}
+            wall = time.perf_counter() - t0
+            if rc:
+                fail(label, f"exited {rc}")
+            rows = [json.loads(ln) for ln in out.splitlines()
+                    if ln.startswith("{")]
+            errors = [r for r in rows if "error" in r]
+            if not rows or errors:
+                fail(label, f"error rows {errors}" if errors else "no row")
+            device = rows[0]["device"]
+            if cuda and device != _card_line():
+                fail(label, f"device {device!r}")
+            for k, n in got.items():
+                results[k]["launches"] += n
+            if name == "opprofile":
+                heads = {r["form"]: r for r in rows
+                         if r["kind"] == "opprofile"}
+                tables = {f: [r for r in rows if r["kind"] ==
+                              "opprofile_kernel" and r["form"] == f]
+                          for f in heads}
+                for form, h in heads.items():
+                    top = tables[form][:10]
+                    print(f"experiments {label} {form}: "
+                          f"{h['module_total_ms_per_iter']} ms of device "
+                          f"work per forward (kernels "
+                          f"{h['kernel_ms_per_iter']}, copies "
+                          f"{h['copy_ms_per_iter']}), graph {h['graph_ms']} "
+                          f"ms, non-kernel share {h['non_kernel_share']}; "
+                          f"kernels seen {h['kernels_seen']}; hand kernels "
+                          f"per forward {h['hand_calls_per_iter']}, launch "
+                          f"counter {h['launches_per_iter']}; top: "
+                          + "; ".join(f"{k['us_per_iter']} us "
+                                      f"{k['share']:.1%} {k['kernel'][:40]} "
+                                      f"({k['layer']})" for k in top)
+                          + f" {tag}")
+                if "resnet50" in label:
+                    eager = heads["eager"]
+                    forms = [f for f in heads if heads[f]["kernels_seen"]]
+                    for form in forms:
+                        if not any(k["kernel"] == "sconv_fused"
+                                   for k in tables[form]):
+                            fail(label, f"the {form} kernel table lacks "
+                                        f"sconv_fused")
+                    calls = eager["hand_calls_per_iter"]["sconv_fused"]
+                    counted = eager["launches_per_iter"]["sconv_fused"]
+                    if not calls or calls != counted:
+                        fail(label, f"sconv_fused {calls} calls per forward "
+                                    f"in the profile, the counter "
+                                    f"{counted}")
+            elif name == "pool":
+                if len(rows) != 6:
+                    fail(label, f"{len(rows)} rows")
+                for r in rows:
+                    print(f"experiments pool {r['tag']} {r['shape']} "
+                          f"k{r['k']} s{r['s']} p{r['p']}: rw "
+                          f"{r['t_rw_us']} us, slice9 {r['t_slice9_us']}, "
+                          f"twopass {r['t_twopass_us']} (torch.equal) {tag}")
+            elif name == "k3":
+                for r in rows:
+                    ok = within(r["err"], r["ref_max"])
+                    print(f"experiments k3 {r['shape']} {r['arm']}: "
+                          f"{r['us']} us, err {r['err']:.3e} (limit "
+                          f"{PARITY_REL * r['ref_max'] + PARITY_ABS:.3e}) "
+                          f"{'ok' if ok else 'FAIL'} {tag}")
+                    if not ok:
+                        fail(label, f"{r['shape']} {r['arm']} err "
+                                    f"{r['err']}")
+                fused = [r for r in rows if r["arm"] == "fused_cuda"]
+                n_shapes = len(argv[argv.index("--shapes") + 1].split(","))
+                if len(fused) != n_shapes or not got["sconv_fused"]:
+                    fail(label, f"fused_cuda rows {len(fused)}, sconv_fused "
+                                f"launches {got['sconv_fused']}")
+            elif name == "s2d":
+                if len(rows) != 3 or any(r["rel_err"] > s2d.REL_TOL
+                                         for r in rows):
+                    fail(label, f"rows {rows}")
+                for r in rows:
+                    print(f"experiments s2d {r['tag']}: stock "
+                          f"{r['t_stock_us']} us, s2d {r['t_s2d_us']} us "
+                          f"({r['speedup']}x), rel_err {r['rel_err']} {tag}")
+            elif name == "wpack":
+                if len(rows) != 9:
+                    fail(label, f"{len(rows)} rows")
+                for r in rows:
+                    ok = "max_err" not in r or within(r["max_err"],
+                                                      r["ref_max"])
+                    print(f"experiments wpack {r['shape']} {r['arm']}: "
+                          f"{r.get('us', r.get('skipped'))} us"
+                          + (f", max_err {r['max_err']:.3e}"
+                             if "max_err" in r else "")
+                          + f" {'ok' if ok else 'FAIL'} {tag}")
+                    if not ok:
+                        fail(label, f"{r['arm']} max_err {r['max_err']}")
+            elif name == "stability":
+                phases = [r.get("phase") for r in rows
+                          if r.get("kind") == "stability"]
+                summary = [r for r in rows
+                           if r.get("kind") == "stability_summary"]
+                if phases != ["A", "D"] or len(summary) != 1:
+                    fail(label, f"phases {phases}")
+                for r in rows:
+                    print(f"experiments stability {json.dumps(r)} {tag}")
+            elif name == "rss_probe":
+                iters = [r["iter"] for r in rows]
+                if iters != [0, 50, 100, 150, 200]:
+                    fail(label, f"iterations {iters}")
+                print(f"experiments rss_probe train: VmRSS "
+                      f"{[r['rss_mb'] for r in rows]} MB, allocated on the "
+                      f"card {[r.get('cuda_allocated_mb') for r in rows]} "
+                      f"MB at iterations {iters} {tag}")
+            print(f"experiments {label} (python -m "
+                  f"caffe_escoin_tpu_torch.experiments.{name}"
+                  f"{''.join(' ' + a for a in argv)}): {len(rows)} rows, "
+                  f"launches {got}, {wall:.1f} s wall {tag}")
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t_phase
+    print(f"experiments phase: {wall:.1f} s wall (budget {EXP_BUDGET_S} s) "
+          f"{tag}")
 
 
 def main(argv=None) -> int:
@@ -4348,6 +4629,10 @@ def main(argv=None) -> int:
 
     # ---- 12. its rows rendered as the port's tables -------------------------
     _phase_report(headlines, tag, card)
+
+    # ---- 13. the probes of the sparse forward --------------------------------
+    torch.cuda.empty_cache()
+    _phase_experiments(mods, tag, results, dev)
 
     # each kernel, then its f32-multiply variant (same source and TPU
     # kernel; its launches are phase 4f's, its times phase 3f's)

@@ -22,8 +22,8 @@ jax only inside its functions):
   which every row the mode appends carries too; ``--halo``'s value (a
   fractional overhead, of either sign) recomputed from its rows;
 * ``--platform auto`` without a card exits 2, ``--weights-as-args``
-  raises, ``--halo`` writes under build/, and ``device_time_cycle`` on the
-  CPU.
+  prints the closed-over run's line with ``"weights_as_args": true``,
+  ``--halo`` writes under build/, and ``device_time_cycle`` on the CPU.
 """
 
 import hashlib
@@ -422,9 +422,39 @@ def test_platform_auto_without_cuda_exits_2(monkeypatch, capsys):
     assert "no CUDA device" in out.err and out.out == ""
 
 
-def test_weights_as_args_raises():
-    with pytest.raises(NotImplementedError):
-        bench.main(["--e2e", "--weights-as-args", "--platform", "cpu"])
+def test_weights_as_args_prints_the_closed_over_numbers(
+        capsys, monkeypatch, tmp_path, autotune_scratch):
+    """``--weights-as-args`` runs (bench.py's flag, passed to the sparse
+    forward's ``inference_fn``): its line says so and is the closed-over
+    run's line, and its sparse forward gives the closed-over one's logits
+    bit for bit. The timer is replaced by one that keeps each forward's
+    outputs and returns a fixed time, so the lines compare whole."""
+    seen = []
+
+    def forward_time(fwd, xs, reps):
+        seen.append([bench._first(fwd({"data": x})).clone() for x in xs])
+        return 1e-3
+
+    monkeypatch.setattr(bench, "_forward_time", forward_time)
+    lines = {}
+    for flag in ("--no-weights-as-args", "--weights-as-args"):
+        del seen[:]
+        rc = bench.main(MODE_ARGV["e2e"] + [flag, "--repeats", "1",
+                                            "--platform", "cpu", "--jsonl",
+                                            str(tmp_path / "rows.jsonl")])
+        assert rc == 0
+        out = capsys.readouterr().out
+        lines[flag] = (json.loads(out.strip().splitlines()[-1]),
+                       list(seen))
+    closed, closed_outs = lines["--no-weights-as-args"]
+    as_args, as_args_outs = lines["--weights-as-args"]
+    assert closed["weights_as_args"] is False
+    assert as_args["weights_as_args"] is True
+    assert {**as_args, "weights_as_args": False} == closed
+    # dense f32, dense bf16, sparse: the sparse forward is the last
+    assert len(as_args_outs) == len(closed_outs) == 3
+    for got, want in zip(as_args_outs[-1], closed_outs[-1]):
+        assert torch.equal(got, want)
 
 
 def test_device_time_cycle_on_cpu_calls_its_pairs_in_turn():

@@ -64,6 +64,12 @@ The examples (caffe_escoin_tpu_torch/examples/): a LeNet leg of
 train_eval_sparse on the card gives the CPU's accuracies within 1/256 from
 the same weights, and AlexNet on the digits, block-pruned and aligned on
 the kernel routes, launches what ``Net.routes`` names.
+
+``weights_as_args`` and the probes: ResNet-50 b8's graph-replay forward
+over grafted payloads gives the closed-over graph's output bit for bit
+(the XBSP executor and the kernel routes), and the k3 probe's
+``fused_cuda`` arm launches ``sconv_fused`` once a call within phase 3's
+rule of the f32 dense conv.
 """
 
 import numpy as np
@@ -1438,3 +1444,52 @@ def test_example_alexnet_on_the_kernel_routes_launches_its_routes(dev):
     assert 0.0 <= acc <= 1.0
     assert {"sconv_fused": sconv_fused.launches, "bsc_spmm": bsc_spmm.launches,
             "sconv_gc": sconv_gc.launches} == expect
+
+
+@pytest.mark.parametrize("xla", [True, False], ids=["xbsp", "kernel"])
+def test_weights_as_args_graph_is_bit_identical_on_resnet50_b8(dev, xla):
+    """ResNet-50 b8 as the probes build it (90% in 128x128 blocks, fused,
+    aligned, bf16; the default XBSP executor or the kernel routes): the
+    graph-replay forward over grafted payloads
+    (``inference_fn(cuda_graph=True, weights_as_args=True)``) gives the
+    closed-over graph's output bit for bit, on two inputs."""
+    import dataclasses
+
+    from caffe_escoin_tpu_torch.experiments import common
+    from caffe_escoin_tpu_torch.nn import Net
+
+    s = common.sparse_net("resnet50", 8, dev, autotune=False)
+    net = Net(s.net.specs, policy=dataclasses.replace(
+        s.net.policy, use_xla_sparse=xla))
+    closed = net.inference_fn(s.aligned, cuda_graph=True)
+    as_args = net.inference_fn(s.aligned, cuda_graph=True,
+                               weights_as_args=True)
+    for m in (sconv_fused, bsc_spmm, sconv_gc):
+        m.reset_counts()
+    for x in s.xs[:2] * 2:  # eager + capture, then replays
+        want = closed({"data": x})["prob"].clone()
+        got = as_args({"data": x})["prob"]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want)
+    assert bool(sconv_fused.launches) == (not xla)
+
+
+@pytest.mark.parametrize("hw", [56, 7])
+def test_k3_fused_arm_launches_sconv_fused(dev, hw):
+    """The k3 probe's ``fused_cuda`` arm is the hand kernel (one launch a
+    call) and meets the f32 dense conv of the pruned weight within phase
+    3's rule."""
+    from caffe_escoin_tpu_torch.experiments import k3
+
+    arms = k3.arms_of(hw, dev, batch=8, sparsity=0.9, arms={"fused"},
+                      rng=np.random.default_rng(0))
+    assert [a[1] for a in arms] == ["fused_cuda"]
+    _, _, fn, ref, sets, _, _ = arms[0]
+    sconv_fused.reset_counts()
+    got = fn(*sets[0]).float()
+    torch.cuda.synchronize()
+    assert sconv_fused.launches == 1
+    want = ref(*sets[0])
+    err = (got - want).abs().max().item()
+    assert err <= 1e-2 * want.abs().max().item() + 1e-2

@@ -1,7 +1,8 @@
 """The port imports no jax and nothing of the JAX package (nor the
 repository's examples/ scripts, which drive it, nor its ``bench.py``, whose
 counterpart is the port's own ``bench`` module, nor its ``scripts/``, whose
-suite and table renderers the port's ``tools`` carry): the machine with the
+suite and table renderers the port's ``tools`` carry, and whose probes its
+``experiments`` carry): the machine with the
 card has no jax. Importing every module needs neither PIL nor h5py either (the
 data layers import them when they read images or HDF5 files), since that
 machine may have neither, and no scikit-learn (the examples' digits are a
@@ -63,6 +64,12 @@ COPIES = ("ops.s2d", "ops.wpack", "ops.norm", "ops.structural",
           "examples.train_eval_sparse", "examples.net_surgery",
           "examples.siamese_digits", "bench", "tools.report",
           "tools.sweep_table", "tools.suite")
+# the probes of scripts/ (exp_*_r5.py, rss_probe.py) and what they share:
+# walk_packages must reach the subpackage
+EXPERIMENTS = ("experiments", "experiments.common", "experiments.opprofile",
+               "experiments.pool", "experiments.k3", "experiments.s2d",
+               "experiments.wpack", "experiments.stability",
+               "experiments.rss_probe")
 
 
 def test_port_imports_no_jax():
@@ -73,3 +80,4 @@ def test_port_imports_no_jax():
     assert int(count) >= 20  # every submodule
     imported = set(names.split())
     assert {f"caffe_escoin_tpu_torch.{m}" for m in COPIES} <= imported
+    assert {f"caffe_escoin_tpu_torch.{m}" for m in EXPERIMENTS} <= imported
