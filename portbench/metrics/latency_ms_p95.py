@@ -1,0 +1,8 @@
+"""The 95th percentile over every query of the window, from its issue to
+its logits on the host."""
+
+import numpy as np
+
+
+def read(run):
+    return float(np.percentile(run.latency_s, 95)) * 1e3
