@@ -29,13 +29,14 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeout
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+
+from caffe_escoin_tpu_torch.utils import trace
 
 ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "csrc"
@@ -49,7 +50,6 @@ LDFLAGS = ["-shared", "-pthread"]
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 build_error: Optional[str] = None  # why the last build attempt failed
-build_seconds: Optional[float] = None  # wall time of this process's build
 
 _F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -83,8 +83,8 @@ def _compile(cxx: str, args) -> None:
 def build() -> Path:
     """Compile the sources unless the library for this tree and host exists:
     one ``g++ -c`` per source, all started together, then one link, in a
-    private directory; the library is renamed into place under a lock."""
-    global build_seconds
+    private directory; the library is renamed into place under a lock.
+    The compile and link are the set-up span ``setup:native_build``."""
     cxx = _cxx()
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++) on PATH")
@@ -96,20 +96,20 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():  # another process built it while this one waited
             return out
-        t0 = time.perf_counter()
         tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
         try:
-            objs = [str(tmp / (Path(s).stem + ".o")) for s in SOURCES]
-            with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-                for f in [pool.submit(_compile, cxx, [*CXXFLAGS, "-c",
-                                                      str(CSRC / s), "-o", o])
-                          for s, o in zip(SOURCES, objs)]:
-                    f.result()
-            _compile(cxx, [*LDFLAGS, "-o", str(tmp / out.name), *objs])
+            with trace.span("setup:native_build", always=True):
+                objs = [str(tmp / (Path(s).stem + ".o")) for s in SOURCES]
+                with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+                    for f in [pool.submit(_compile, cxx,
+                                          [*CXXFLAGS, "-c", str(CSRC / s),
+                                           "-o", o])
+                              for s, o in zip(SOURCES, objs)]:
+                        f.result()
+                _compile(cxx, [*LDFLAGS, "-o", str(tmp / out.name), *objs])
             os.replace(tmp / out.name, out)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        build_seconds = time.perf_counter() - t0
     return out
 
 

@@ -11,12 +11,11 @@ the 4 inputs, ``torch.profiler`` (CPU and CUDA activities) records
 
 * ``graph``: ``Net.inference_fn(cuda_graph=True)`` replays, the
   counterpart of the one jitted module;
-* ``eager``: the layers stepped one by one as ``utils/timing._run_layer``
-  steps them, each inside ``torch.profiler.record_function("layer:<name>")``,
-  whose output must equal ``Net.forward``'s bit for bit. Every kernel is
-  attributed to the layer whose span ran it; a replay has no spans, so
-  the graph form's kernels take the layers the eager form found for
-  their names.
+* ``eager``: ``Net.forward`` with the program's tracing on
+  (``utils/trace``), which puts each layer's call in a ``cet:layer:<name>``
+  span. Every kernel is attributed to the layer whose span ran it; a
+  replay has no spans, so the graph form's kernels take the layers the
+  eager form found for their names.
 
 Output: one ``opprofile`` row per form, ``module_total_ms_per_iter`` (the
 device time of its kernels and copies per forward) beside ``graph_ms``
@@ -48,15 +47,15 @@ import torch
 from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.experiments import common
 from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
+from caffe_escoin_tpu_torch.utils import trace
 from caffe_escoin_tpu_torch.utils.benchmark import device_time
-from caffe_escoin_tpu_torch.utils.timing import _run_layer
 
 NETS = {  # net -> (batch, packed, top kernels printed), as the scripts ran
     "resnet50": (32, True, 40),
     "googlenet": (16, False, 60),
 }
 ITERS = 12
-LAYER_PREFIX = "layer:"
+LAYER_SPAN = trace.PREFIX + trace.LAYER
 KERNEL_MODULES = {"sconv_fused": sconv_fused, "sconv_gc": sconv_gc,
                   "bsc_spmm": bsc_spmm}
 _COPY = ("Memcpy", "Memset")
@@ -75,71 +74,42 @@ def kernel_of(name: str) -> str:
     return name
 
 
-def layerwise(net, params, inputs, *, spans: bool = True):
-    """Every blob of one forward, the layers stepped one by one as
-    ``utils/timing._run_layer`` steps them, each inside a
-    ``record_function`` span named after it (``spans=False``: none)."""
-    blobs = dict(inputs)
-    for layer in net.layers:
-        spec = layer.spec
-        ins = [blobs[b] for b in spec.bottoms]
-        p = params.get(spec.share_params or spec.name, {})
-        if spans:
-            with torch.profiler.record_function(LAYER_PREFIX + spec.name):
-                outs = _run_layer(layer, p, ins, net.state0)
-        else:
-            outs = _run_layer(layer, p, ins, net.state0)
-        for t, o in zip(spec.tops, outs):
-            blobs[t] = o
-    return blobs
-
-
-def _layer_of(evt):
-    while evt is not None:
-        if evt.name.startswith(LAYER_PREFIX):
-            return evt.name[len(LAYER_PREFIX):]
-        evt = evt.cpu_parent
-    return None
-
-
 def aggregate(events, cuda: bool):
     """(records, copy_us): ``records`` maps a kernel name (an op name on
     the CPU) to its total us, its calls and its us by layer; ``copy_us``
-    is the device's memcpy and memset time. On the card a kernel's layer is
-    the layer span whose device-side range (the profiler's projection of a
-    ``record_function`` onto the GPU timeline) holds the kernel's start;
-    the hand kernels, launched through ctypes, have no CPU op to be
-    correlated with. On the CPU an op's layer is its enclosing span."""
+    is the device's memcpy and memset time. An op's layer is the
+    ``cet:layer:`` span that holds its start: on the card the span's
+    device-side range (the profiler's projection of a ``record_function``
+    onto the GPU timeline), since the hand kernels, launched through
+    ctypes, have no CPU op to be correlated with; on the CPU the span
+    itself. The program's spans (``cet:``) are no ops."""
+    kind = (torch.autograd.DeviceType.CUDA if cuda
+            else torch.autograd.DeviceType.CPU)
+    mine = [e for e in events if e.device_type == kind]
+    spans = sorted((e.time_range.start, e.time_range.end,
+                    e.name[len(LAYER_SPAN):]) for e in mine
+                   if e.name.startswith(LAYER_SPAN))
+    starts = [sp[0] for sp in spans]
     totals = collections.defaultdict(lambda: {"us": 0.0, "calls": 0})
     layers = collections.defaultdict(collections.Counter)
     copy_us = 0.0
-    if cuda:
-        device = [e for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end,
-                        e.name[len(LAYER_PREFIX):]) for e in device
-                       if e.name.startswith(LAYER_PREFIX))
-        starts = [sp[0] for sp in spans]
-        for e in device:
-            if e.name.startswith(LAYER_PREFIX):
-                continue
+    for e in mine:
+        if e.name.startswith(trace.PREFIX):
+            continue
+        if cuda:
             us = e.time_range.elapsed_us()
             if e.name.startswith(_COPY):
                 copy_us += us
                 continue
-            totals[e.name]["us"] += us
-            totals[e.name]["calls"] += 1
-            i = bisect.bisect_right(starts, e.time_range.start) - 1
-            if i >= 0 and e.time_range.start <= spans[i][1]:
-                layers[e.name][spans[i][2]] += us
-    else:
-        for e in events:
-            if (e.device_type == torch.autograd.DeviceType.CPU
-                    and not e.name.startswith(LAYER_PREFIX)
-                    and e.self_cpu_time_total > 0):
-                totals[e.name]["us"] += e.self_cpu_time_total
-                totals[e.name]["calls"] += 1
-                layers[e.name][_layer_of(e)] += e.self_cpu_time_total
+        else:
+            us = e.self_cpu_time_total
+            if us <= 0:
+                continue
+        totals[e.name]["us"] += us
+        totals[e.name]["calls"] += 1
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= spans[i][1]:
+            layers[e.name][spans[i][2]] += us
     return {name: {**t, "layers": layers.get(name, {})}
             for name, t in totals.items()}, copy_us
 
@@ -190,8 +160,7 @@ def _profile(fn, iters, cuda):
 def run(device, emit, *, net_name="resnet50", batch=None, iters=ITERS,
         top=None):
     """The two forms' rows and their kernel tables; returns
-    ``{form: (row, kernel rows)}``. Raises AssertionError where the
-    layer-by-layer forward is not ``Net.forward``'s bit for bit."""
+    ``{form: (row, kernel rows)}``."""
     d_batch, pack, d_top = NETS.get(net_name, (1, False, 40))
     batch = d_batch if batch is None else batch
     top = d_top if top is None else top
@@ -207,24 +176,21 @@ def run(device, emit, *, net_name="resnet50", batch=None, iters=ITERS,
         graph_ms = device_time(
             lambda y: common.first(eager_fn({"data": y})), xs[0],
             iters=20, arg_sets=[(x,) for x in xs]) * 1e3
-        with torch.inference_mode():
-            want = net.forward(aligned, {"data": xs[0]}, return_blobs=True)
-            got = layerwise(net, aligned, {"data": xs[0]}, spans=False)
-        unequal = [b for b in got if not torch.equal(got[b], want[b])]
-        if unequal:
-            raise AssertionError(f"opprofile {net_name}: the layer-by-layer "
-                                 f"forward differs from Net.forward on "
-                                 f"{unequal[:5]}")
         forms = {  # eager first: the graph form's layers are its
-            "eager": lambda i: layerwise(net, aligned,
-                                         {"data": xs[i % len(xs)]}),
+            "eager": lambda i: net.forward(aligned,
+                                           {"data": xs[i % len(xs)]}),
             "graph": lambda i: graph_fn({"data": xs[i % len(xs)]}),
         }
         by_name = {}
         for form, fn in forms.items():
             before = {k: m.launches for k, m in KERNEL_MODULES.items()}
-            with torch.inference_mode():
-                events = _profile(fn, iters, cuda)
+            if form == "eager":
+                trace.enable()
+            try:
+                with torch.inference_mode():
+                    events = _profile(fn, iters, cuda)
+            finally:
+                trace.disable()
             launched = {k: (m.launches - before[k]) / iters
                         for k, m in KERNEL_MODULES.items()}
             records, copy_us = aggregate(events, cuda)

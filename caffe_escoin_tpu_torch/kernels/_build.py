@@ -19,11 +19,12 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from caffe_escoin_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -45,7 +46,6 @@ SIGNATURES = {
 SIGNATURES.update({f"{k}_f32": v for k, v in list(SIGNATURES.items())})
 
 _lib = None
-build_seconds = None  # wall time of the build this process ran, if any
 ptxas_log = ""  # nvcc's -Xptxas -v report of that build
 
 
@@ -83,44 +83,47 @@ def _run_nvcc(args) -> subprocess.CompletedProcess:
 
 def build() -> Path:
     """Compile the sources unless the library for this tree exists: one
-    ``nvcc -c`` per source, all started together, then one link."""
-    global build_seconds, ptxas_log
+    ``nvcc -c`` per source, all started together, then one link (the
+    set-up span ``setup:kernel_build``, only when it compiles)."""
+    global ptxas_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = sorted(CSRC.glob("*.cu"))
-    t0 = time.perf_counter()
     # build in a private directory, then rename the library into place: a
     # concurrent build never sees a half-written one
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        objs = [str(tmp / f"{src.stem}.o") for src in cu]
-        with ThreadPoolExecutor(max_workers=len(cu)) as pool:
-            futures = [pool.submit(_run_nvcc, [*NVCC_FLAGS, "-c", "-o", obj,
-                                               str(src)])
-                       for src, obj in zip(cu, objs)]
-            logs = [f.result().stderr for f in futures]
-        _run_nvcc(["-shared", "-o", str(tmp / out.name), *objs])
+        with trace.span("setup:kernel_build", always=True):
+            objs = [str(tmp / f"{src.stem}.o") for src in cu]
+            with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+                futures = [pool.submit(_run_nvcc, [*NVCC_FLAGS, "-c", "-o",
+                                                   obj, str(src)])
+                           for src, obj in zip(cu, objs)]
+                logs = [f.result().stderr for f in futures]
+            _run_nvcc(["-shared", "-o", str(tmp / out.name), *objs])
         os.replace(tmp / out.name, out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    build_seconds = time.perf_counter() - t0
     ptxas_log = "".join(logs)
     return out
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use; its loading is the set-up
+    span ``setup:kernel_load`` (the build apart)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.cet_error_string.argtypes = [ctypes.c_int]
-        lib.cet_error_string.restype = ctypes.c_char_p
+        path = build()
+        with trace.span("setup:kernel_load", always=True):
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.cet_error_string.argtypes = [ctypes.c_int]
+            lib.cet_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 

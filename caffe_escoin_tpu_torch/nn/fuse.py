@@ -36,6 +36,7 @@ import torch
 from caffe_escoin_tpu_torch.nn.net import LayerSpec, Net
 from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
 from caffe_escoin_tpu_torch.ops import wpack
+from caffe_escoin_tpu_torch.utils import trace
 
 CONV_TYPES = ("Convolution", "ConvolutionReLU")
 FOLDABLE_TYPES = CONV_TYPES + ("InnerProduct",)
@@ -208,19 +209,22 @@ def fuse_inference(net: Net, params: Dict[str, Any],
                    state: Optional[Dict[str, Any]] = None
                    ) -> Tuple[Net, Dict[str, Any]]:
     """Returns (fused_net, fused_params). ``state`` supplies the BatchNorm
-    moving statistics (default ``net.state0``)."""
+    moving statistics (default ``net.state0``). A set-up span,
+    ``setup:fuse``."""
     if state is None:
         state = net.state0
-    specs = list(net.specs)
-    finals = _final_tops(specs)
-    specs, new_params = _fold_affine(net, specs, dict(params), state, finals)
-    specs = _fold_residual(specs, finals)
-    fused = Net(specs, policy=net.policy, phase=net.phase,
-                device=net.device)
-    names = {s.name for s in specs}
-    # carry the state of BatchNorm layers that did not fold
-    fused.state0 = {k: v for k, v in state.items() if k in names}
-    fused.blob_shapes = dict(net.blob_shapes)
+    with trace.span("setup:fuse", always=True):
+        specs = list(net.specs)
+        finals = _final_tops(specs)
+        specs, new_params = _fold_affine(net, specs, dict(params), state,
+                                         finals)
+        specs = _fold_residual(specs, finals)
+        fused = Net(specs, policy=net.policy, phase=net.phase,
+                    device=net.device)
+        names = {s.name for s in specs}
+        # carry the state of BatchNorm layers that did not fold
+        fused.state0 = {k: v for k, v in state.items() if k in names}
+        fused.blob_shapes = dict(net.blob_shapes)
     return fused, new_params
 
 

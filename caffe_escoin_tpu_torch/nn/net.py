@@ -27,6 +27,7 @@ import torch
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
 from caffe_escoin_tpu_torch.sparse.weight_align import (AlignedConvWeight,
                                                         split_payloads)
+from caffe_escoin_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +110,8 @@ class Layer(torch.nn.Module):
 
 def params_to(params, device, dtype: Optional[torch.dtype] = None):
     """Move a params (or state) map to ``device``; ``dtype`` casts floating
-    tensors (an AlignedConvWeight keeps its bias in f32)."""
+    tensors (an AlignedConvWeight keeps its bias in f32). A set-up span,
+    ``setup:to_device``."""
     def conv(v):
         if isinstance(v, AlignedConvWeight):
             return v.to(device, dtype)
@@ -120,7 +122,8 @@ def params_to(params, device, dtype: Optional[torch.dtype] = None):
             return v.to(device=device, dtype=cast)
         return v
 
-    return conv(params)
+    with trace.span("setup:to_device", always=True):
+        return conv(params)
 
 
 class Net(torch.nn.Module):
@@ -242,7 +245,11 @@ class Net(torch.nn.Module):
         ``layer_hook(layer, params) -> (params, post)``, where given, hands
         each layer the params it returns and passes each of the layer's
         outputs through ``post`` (None: as they are); the tensor-parallel
-        forward (``parallel/tp.forward_sharded``) gathers shards so."""
+        forward (``parallel/tp.forward_sharded``) gathers shards so.
+
+        With tracing on (``utils/trace``), each layer's call is a
+        ``layer:<name>`` span."""
+        traced = trace.ON
         blobs: Dict[str, torch.Tensor] = dict(inputs)
         if state is None:
             state = self.state0
@@ -256,15 +263,21 @@ class Net(torch.nn.Module):
             post = None
             if layer_hook is not None:
                 lp, post = layer_hook(layer, lp)
-            if layer.has_state and train:
-                outs, new_state[spec.name] = layer(lp, ins, state[spec.name],
-                                                   train=True)
-            elif layer.has_state:
-                outs = layer(lp, ins, state[spec.name])
-            elif train and layer.uses_generator:
-                outs = layer(lp, ins, train=True, generator=generator)
-            else:
-                outs = layer(lp, ins)
+            if traced:
+                sp = trace.span(trace.LAYER + spec.name).__enter__()
+            try:
+                if layer.has_state and train:
+                    outs, new_state[spec.name] = layer(
+                        lp, ins, state[spec.name], train=True)
+                elif layer.has_state:
+                    outs = layer(lp, ins, state[spec.name])
+                elif train and layer.uses_generator:
+                    outs = layer(lp, ins, train=True, generator=generator)
+                else:
+                    outs = layer(lp, ins)
+            finally:
+                if traced:
+                    sp.__exit__(None, None, None)
             if post is not None:
                 outs = [post(o) for o in outs]
             for t, o in zip(spec.tops, outs):
@@ -319,12 +332,14 @@ class Net(torch.nn.Module):
         return count(params)
 
     def weight_align(self, params):
-        """Host-side sparse compile of every layer's params."""
+        """Host-side sparse compile of every layer's params (a set-up span,
+        ``setup:align``)."""
         out = dict(params)
-        for layer in self.layers:
-            name = layer.spec.name
-            if name in out:
-                out[name] = layer.align(out[name])
+        with trace.span("setup:align", always=True):
+            for layer in self.layers:
+                name = layer.spec.name
+                if name in out:
+                    out[name] = layer.align(out[name])
         return out
 
     def inference_fn(self, aligned_params, *,
@@ -354,7 +369,15 @@ class Net(torch.nn.Module):
         they stay valid until the next call with the same signature
         overwrites them, so clone what must outlive it. CPU inputs run
         eagerly. A net with a layer that is not ``graph_safe`` (a data
-        layer, Filter, HDF5Output) raises a ValueError that names it."""
+        layer, Filter, HDF5Output) raises a ValueError that names it.
+
+        Spans and counters (``utils/trace``): a new signature's first call
+        and capture are the set-up spans ``setup:first_call`` and
+        ``setup:capture``, and each capture adds to ``entry.captures`` and
+        to ``capture.launches.<kernel>`` the hand kernels' launches inside
+        the captured forward. With tracing on, a call is an ``entry`` span
+        holding ``entry:signature``, ``entry:copy_in`` and ``entry:replay``
+        and counts ``entry.replays`` or ``entry.eager_calls``."""
         if cuda_graph:
             unsafe = [f"{l.spec.name} ({l.spec.type})" for l in self.layers
                       if not l.graph_safe]
@@ -373,27 +396,68 @@ class Net(torch.nn.Module):
                 return self.forward(aligned_params, inputs, state=state,
                                     return_blobs=return_blobs)
 
+        def run_eager(inputs):
+            if trace.ON:
+                trace.count("entry.eager_calls")
+                with trace.span("entry"):
+                    return run(inputs)
+            return run(inputs)
+
         if not cuda_graph:
-            return run
+            return run_eager
         graphs: Dict[Any, Any] = {}
 
-        def replay(inputs):
-            if not all(v.is_cuda for v in inputs.values()):
-                return run(inputs)
-            sig = tuple(sorted((k, tuple(v.shape), v.dtype, v.device)
-                               for k, v in inputs.items()))
-            if sig not in graphs:
+        def capture(sig, inputs):
+            with trace.span("setup:first_call", always=True):
                 out = run(inputs)
+            with trace.span("setup:capture", always=True):
+                before = trace.kernel_counts()
                 static = {k: v.clone() for k, v in inputs.items()}
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph):
                     captured = run(static)
                 graphs[sig] = (graph, static, captured)
-                return out
+            trace.count("entry.captures", always=True)
+            for k, n in trace.kernel_counts().items():
+                trace.count(f"capture.launches.{k}",
+                            n["launches"] - before[k]["launches"],
+                            always=True)
+            return out
+
+        def replay(inputs):
+            if trace.ON:
+                return replay_traced(inputs)
+            if not all(v.is_cuda for v in inputs.values()):
+                return run(inputs)
+            sig = tuple(sorted((k, tuple(v.shape), v.dtype, v.device)
+                               for k, v in inputs.items()))
+            if sig not in graphs:
+                return capture(sig, inputs)
             graph, static, captured = graphs[sig]
             for k, v in inputs.items():
                 static[k].copy_(v)
             graph.replay()
             return captured
+
+        def replay_traced(inputs):
+            # ``replay`` with the entry's spans and counters
+            with trace.span("entry"):
+                if not all(v.is_cuda for v in inputs.values()):
+                    trace.count("entry.eager_calls")
+                    return run(inputs)
+                with trace.span("entry:signature"):
+                    sig = tuple(sorted((k, tuple(v.shape), v.dtype, v.device)
+                                       for k, v in inputs.items()))
+                    found = graphs.get(sig)
+                if found is None:
+                    return capture(sig, inputs)
+                graph, static, captured = found
+                with trace.span("entry:copy_in"):
+                    for k, v in inputs.items():
+                        static[k].copy_(v)
+                with trace.span("entry:replay"):
+                    graph.replay()
+                trace.count("entry.replays")
+                return captured
 
         return replay

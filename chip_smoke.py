@@ -1597,6 +1597,7 @@ def _phase_data(mods, tag, results, dev):
     from caffe_escoin_tpu_torch.tools.prototxt import (net_from_prototxt,
                                                        net_to_prototxt)
     from caffe_escoin_tpu_torch.utils.pruning import prune_conv_weight
+    from caffe_escoin_tpu_torch.utils import trace
 
     t_phase = time.perf_counter()
     cuda = dev.type == "cuda"
@@ -1834,9 +1835,10 @@ def _phase_data(mods, tag, results, dev):
         if lib is None:
             raise SystemExit(f"the native library did not build: "
                              f"{native.build_error}")
+        built = trace.snapshot()["spans"].get("setup:native_build")
         print(f"data native library: {native.library_path(native._cxx()).name}"
               f" under build/native ("
-              + (f"g++ {native.build_seconds:.1f} s" if native.build_seconds
+              + (f"g++ {built['total_s']:.1f} s" if built
                  else "built before") + f") {tag}")
         with native.NativeCerecLoader(cerec, DATA_BATCH, (hw, hw, 3),
                                       shuffle=True, seed=SEED, workers=2,
@@ -3201,6 +3203,7 @@ def main(argv=None) -> int:
         from caffe_escoin_tpu_torch.utils.benchmark import device_time
         from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm,
                                                     sconv_fused, sconv_gc)
+        from caffe_escoin_tpu_torch.utils import trace
         from caffe_escoin_tpu_torch.models import ZOO
         from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
         from caffe_escoin_tpu_torch.nn.fuse import (fold_stem_s2d,
@@ -3234,9 +3237,9 @@ def main(argv=None) -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _build.load()
-    built = _build.build_seconds
-    print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({'nvcc ' + format(built, '.1f') + ' s' if built else 'cached'}, "
+    built = trace.snapshot()["spans"].get("setup:kernel_build")
+    nvcc = f"nvcc {built['total_s']:.1f} s" if built else "cached"
+    print(f"build: {time.perf_counter() - t0:.1f} s ({nvcc}, "
           f"{_build.library_path().name}) {tag}")
     if _build.ptxas_log:
         print("ptxas: " + _ptxas_summary(_build.ptxas_log) + f" {tag}")

@@ -17,7 +17,8 @@ sizes.
   script's JAX towers on the same bf16 inputs and weights, within 1e-2 *
   max|ref| + 1e-2;
 * ``opprofile``: both forms' rows and kernel tables on a CPU profile of
-  LeNet, the layer-by-layer forward bit-equal to ``Net.forward``;
+  LeNet, ``Net.forward`` with the program's tracing on bit-equal to it
+  with tracing off;
 * ``stability`` and ``rss_probe``: their rows on LeNet for a few
   iterations with ``--platform cpu`` (stability's phases in processes of
   their own);
@@ -317,12 +318,22 @@ def test_opprofile_lenet_cpu_profile(autotune_scratch):
     assert len(rows) == 2 + 2 * 8
 
 
-def test_opprofile_layerwise_is_net_forward_bit_for_bit(autotune_scratch):
+def test_traced_net_forward_is_untraced_bit_for_bit(autotune_scratch):
+    """The eager form's forward: ``Net.forward`` with tracing on gives the
+    blobs it gives with tracing off."""
+    from caffe_escoin_tpu_torch.utils import trace
+
     s = common.sparse_net("lenet", 2, CPU)
     with autotune.net_scope("lenet"), torch.inference_mode():
-        got = opprofile.layerwise(s.net, s.aligned, {"data": s.xs[1]})
         want = s.net.forward(s.aligned, {"data": s.xs[1]},
                              return_blobs=True)
+        trace.enable()
+        try:
+            got = s.net.forward(s.aligned, {"data": s.xs[1]},
+                                return_blobs=True)
+        finally:
+            trace.disable()
+            trace.reset()
     assert set(got) == set(want)
     assert all(torch.equal(got[b], want[b]) for b in want)
 
@@ -349,13 +360,15 @@ def _device_event(name, start, end):
 
 
 def test_aggregate_attributes_device_kernels_to_layer_spans():
-    """On the card: the layer spans' device-side ranges are no kernels, a
-    kernel belongs to the span that holds its start, copies are counted
-    apart, and a kernel outside every span has no layer."""
+    """On the card: the program's spans' device-side ranges are no
+    kernels, a kernel belongs to the layer span that holds its start,
+    copies are counted apart, and a kernel outside every span has no
+    layer."""
     events = [
-        _device_event("layer:conv1", 0, 10),
+        _device_event("cet:entry", 0, 40),
+        _device_event("cet:layer:conv1", 0, 10),
         _device_event("cudnn_conv", 1, 6),
-        _device_event("layer:res2", 12, 30),
+        _device_event("cet:layer:res2", 12, 30),
         _device_event("sconv_pipe_kernel<ConvRows<bf16>>", 13, 20),
         _device_event("sconv_pipe_kernel<ConvRows<bf16>>", 21, 29),
         _device_event("Memcpy DtoD (Device -> Device)", 31, 33),
