@@ -33,15 +33,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _IP = ctypes.POINTER(ctypes.c_int)
+_FP = ctypes.POINTER(ctypes.c_float)
 # argtypes of each C entry point: pointers and the stream as c_void_p; the
-# integer arguments come as one int array (``c_ints``), built once per layer
-# shape, since ctypes converts each argument anew on every call. Each kernel
-# has a bf16 entry and an f32 one (``_f32``, mxu_dtype "float32") with the
-# same arguments.
+# integer arguments come as one int array (``c_ints``) and the float ones as
+# one float array (``c_floats``), built once per layer shape, since ctypes
+# converts each argument anew on every call. Each kernel has a bf16 entry and
+# an f32 one (``_f32``: mxu_dtype "float32", or an f32 map for the LRN) with
+# the same arguments.
 SIGNATURES = {
     "cet_sconv_fused": [_P] * 7 + [_IP, _P],
     "cet_bsc_spmm": [_P] * 8 + [_IP, _P],
     "cet_sconv_gc": [_P] * 6 + [_IP, _P],
+    "cet_lrn": [_P] * 2 + [_IP, _FP, _P],
 }
 SIGNATURES.update({f"{k}_f32": v for k, v in list(SIGNATURES.items())})
 
@@ -131,6 +134,12 @@ def load() -> ctypes.CDLL:
 def c_ints(*values: int) -> ctypes.Array:
     """An int array for a C entry point's integer arguments."""
     return (ctypes.c_int * len(values))(*values)
+
+
+def c_floats(*values: float) -> ctypes.Array:
+    """A float array for a C entry point's float arguments (each value
+    rounded to f32 to nearest)."""
+    return (ctypes.c_float * len(values))(*values)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -11,27 +11,19 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-import functools
 import math
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
+
+from caffe_escoin_tpu_torch.kernels import lrn as lrn_kernel
 
 # the process group whose ranks' batches a training BatchNorm normalizes
 # over (None: this rank's batch alone)
 _STATS_GROUP = contextvars.ContextVar("batch_stats_group", default=None)
 
-
-@functools.lru_cache(maxsize=256)
-def _lrn_mask(c: int, groups: int, d: int, device: torch.device
-              ) -> torch.Tensor:
-    """1 where lane l's window term at offset ``d`` stays inside its group
-    (lane l holds group l // cg, logical channel l % cg), else 0. Built once
-    per (c, groups, d, device): a tensor built inside a forward would break
-    CUDA-graph capture."""
-    lane_c = torch.arange(c) % (c // groups)
-    return ((lane_c + d >= 0) & (lane_c + d < c // groups)).float().to(device)
+# the plain LRN's lane masks, under the name they had here
+_lrn_mask = lrn_kernel._lrn_mask
 
 
 def lrn_across_channels(x, *, local_size=5, alpha=1e-4, beta=0.75, k=1.0,
@@ -39,32 +31,16 @@ def lrn_across_channels(x, *, local_size=5, alpha=1e-4, beta=0.75, k=1.0,
     """Local response normalization across channels (NHWC, last axis):
     y = x / (k + alpha/n * sum over the window of x_c^2)^beta, Caffe's
     ACROSS_CHANNELS with alpha divided by the window size
-    (``lrn_layer.cpp:104``).
+    (``lrn_layer.cpp:104``). ``groups=r`` normalizes r independent channel
+    blocks that share the channel axis (the W-pair packed layout of
+    ops/wpack.py): no window crosses a block.
 
-    As the JAX function: in f32, cast back to x's dtype at the end; the
-    windowed sum built from shifted channel slices, added in the same
-    order; for beta = 0.75, s^-0.75 as r * sqrt(r) with r = rsqrt(s).
-    ``groups=r`` normalizes r independent channel blocks that share the
-    channel axis (the W-pair packed layout of ops/wpack.py), with a lane
-    mask on each shifted slice so that no window crosses a block."""
-    half = local_size // 2
-    xf = x.float()
-    sq = xf * xf
-    padded = F.pad(sq, (half, local_size - 1 - half))
-    c = x.shape[-1]
-    window = None
-    for i in range(local_size):
-        term = padded[..., i:i + c]
-        if groups > 1:
-            term = term * _lrn_mask(c, groups, i - half, x.device)
-        window = term if window is None else window + term
-    s = k + (alpha / local_size) * window
-    if beta == 0.75:
-        r = torch.rsqrt(s)
-        scale = r * torch.sqrt(r)  # s^-0.75
-    else:
-        scale = torch.pow(s, -beta)
-    return (xf * scale).to(x.dtype)
+    On CUDA the one-pass kernel of kernels/lrn.py; on the CPU its plain
+    version, the JAX function's arithmetic (f32, the window summed in the
+    same order, s^-0.75 as r * sqrt(r) with r = rsqrt(s), cast back to x's
+    dtype)."""
+    return lrn_kernel.lrn(x, local_size=local_size, alpha=alpha, beta=beta,
+                          k=k, groups=groups)
 
 
 def batch_norm_inference(x, mean, var, *, eps=1e-5):

@@ -35,6 +35,11 @@ call of ``inference_fn``'s forward); ``setup:fuse``, ``setup:align``,
 captured forwards: what their replays launch). The hand kernels' own
 ``calls`` / ``launches`` / ``launches_f32`` stay in their modules;
 ``snapshot()`` reads them.
+
+The hand kernels are of two kinds: ``KERNELS``, the ports of the JAX
+package's Pallas kernels, and ``OP_KERNELS``, kernels of ops that the JAX
+package leaves to XLA (``lrn``: LRN across channels). ``kernel_counts()``,
+and so ``snapshot()`` and the capture counters, read both.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 PREFIX = "cet:"
 LAYER = "layer:"
 KERNELS = ("sconv_fused", "sconv_gc", "bsc_spmm")
+OP_KERNELS = ("lrn",)
 KERNEL_COUNTERS = ("calls", "launches", "launches_f32")
 
 ON = False  # read directly on the per-query path: ``if trace.ON``
@@ -175,10 +181,10 @@ def reset() -> None:
 
 
 def kernel_counts() -> Dict[str, Dict[str, int]]:
-    """Each hand kernel's ``calls`` / ``launches`` / ``launches_f32``, read
-    from its module."""
+    """Each hand kernel's (``KERNELS`` and ``OP_KERNELS``) ``calls`` /
+    ``launches`` / ``launches_f32``, read from its module."""
     out = {}
-    for k in KERNELS:
+    for k in KERNELS + OP_KERNELS:
         mod = importlib.import_module(f"caffe_escoin_tpu_torch.kernels.{k}")
         out[k] = {c: getattr(mod, c) for c in KERNEL_COUNTERS}
     return out

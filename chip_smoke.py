@@ -46,7 +46,8 @@ ResNet-50 b32 run in f32 on them (phase 4f).
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
-  2. build: the three CUDA kernels, each with a bf16 and an f32 entry,
+  2. build: the three ported CUDA kernels, each with a bf16 and an f32
+     entry, and the LRN kernel (bf16 and f32 maps),
      from the sources in this checkout, and nvcc's register and spill
      report per kernel template, Rows policy and operand type (the direct
      convs' instances apart from the SpMM's; ``f32`` names the f32-operand
@@ -69,6 +70,12 @@ Phases, one line each (any failure exits non-zero):
      48, 96 and 112 deep, block widths 16, 24 and 96, part-filled last
      columns at couts 208, 224, 288 and 320, each with a live block, Cin
      528, group=2) and bsc_spmm at AlexNet's fc6 (32 x 9216 -> 4096).
+  3l. the LRN kernel (csrc/lrn.cu, a kernel of an op the JAX package
+     leaves to XLA) at GoogLeNet b32's norm1 and norm2 in bf16: within one
+     bf16 ulp of its plain version, one launch a call; timed eager and as
+     a CUDA graph beside its plain version, ``F.local_response_norm`` on
+     the map's NCHW view (the library's, timed here only; the port never
+     calls it) and its bound, one bf16 read and one write at 3.35 TB/s.
   3b. the XBSP arms (torch ops, no kernel of this package): unroll,
      gathered and gathered_cols at three ResNet-50 shapes (on the padded
      3x3 one also in the ``CESCOIN_XBSP_NOPAD`` pad-free form) and spmm at
@@ -95,9 +102,11 @@ Phases, one line each (any failure exits non-zero):
      TF32 TFLOP/s). Every launch of the phase must multiply in f32; they
      are printed, not counted in the kernels line.
   4. nets, each on 4 distinct inputs with every launch counter set to 0
-     just before and read just after: every kernel must have launched as
-     many times as the layers' routes (``Net.routes``, the function the
-     dispatch runs through) say; the last classifier's logits within 5e-2
+     just before and read just after: every route kernel must have
+     launched as many times as the layers' routes (``Net.routes``, the
+     function the dispatch runs through) say, and the LRN kernel once per
+     LRN layer (GoogLeNet and AlexNet 2, ResNet-50 and VGG-16 0; so too in
+     phases 4b-4f and 7c); the last classifier's logits within 5e-2
      relative L2 of the same pruned, fused net run dense in f32 (cuDNN,
      TF32 off). Also the routing's host time per layer (``Net.routes``,
      host clock).
@@ -244,13 +253,14 @@ Phases, one line each (any failure exits non-zero):
      on the test-phase net, fused, aligned in SCONV_PAR, bf16,
      ``use_xla_sparse=False``, on 4 inputs: launches equal to what
      ``Net.routes`` names, which must be 4 ``sconv_fused`` + 3
-     ``bsc_spmm``; fc8's logits within 5e-2 relative L2 of the same
+     ``bsc_spmm``, and 2 LRN launches; fc8's logits within 5e-2 relative L2 of the same
      weights dense in f32; its CUDA-graph time beside phase 5's AlexNet
      row. 7d: ``cli train --model alexnet --batch 32 --num-classes 1000
      --iterations 4`` (snapshot under build/), then ``cli test --weights``
      on that snapshot at ``--conv_mode 3 --sparsity 0.9``: its forward
-     times, and every launch counter at 0 (training runs dense, the
-     command line's test the XBSP arms).
+     times, and every route kernel's launch counter at 0 (training runs
+     dense, the command line's test the XBSP arms; the LRN kernel runs
+     there, uncounted).
   8. the data slice, every file in a temporary directory. 8a: 256 random
      uint8 images 3x256x256 from seed 0 written as an LMDB
      (``write_lmdb`` + ``datum_encode``, 50 MB) and as a ``.cerec``, and
@@ -411,7 +421,11 @@ and 10b's kernel routes, phase 11's bare, weights-as-args and
 forced-fused forwards and halo run, and phase 13's probes; phase 6 and
 the rest of phases 7, 8, 10 and 11 are not counted there). Each kernel is followed by its f32-multiply variant
 (``<name>_f32``: the same source and TPU kernel, phase 3f's errors and
-times with the f32 bound, phase 4f's launches). As the last line
+times with the f32 bound, phase 4f's launches). Last comes the LRN kernel
+(``lrn``, ``replaces`` null): phase 3l's errors, times and bound, and its
+launches in phases 4, 4b-4f and 7c, one per LRN layer of each forward
+(GoogLeNet's and AlexNet's two, none in ResNet-50 or VGG-16), checked
+there against that count. As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (or
@@ -458,6 +472,9 @@ KERNELS = {  # name -> the TPU kernel it replaces
 # the f32-multiply variant of each (mxu_dtype="float32"; phases 3f and 4f),
 # listed beside it in the kernels line
 KERNELS_F32 = {f"{k}_f32": k for k in KERNELS}
+# the hand kernel of an op that the JAX package leaves to XLA: one launch per
+# LRN layer of a forward on the card, whatever the routes
+LRN_KERNEL = "lrn"
 # phase 3f: each kernel multiplying in f32 against its plain version in f64
 # on the card, max abs err within this share of max|ref| (one TF32 pass
 # misses it by more than 10x)
@@ -479,6 +496,12 @@ NETS = [
          input_scale=1.0, keep_norm=True),
 ]
 ROUTE_REPS = 100
+# phase 3l: the LRN kernel at GoogLeNet b32's norm1 and norm2 (Caffe's
+# alpha 1e-4, beta 0.75, k 1, n 5), on activations of this scale
+LRN_SHAPES = (("norm1 b32 56x56x64", (32, 56, 56, 64)),
+              ("norm2 b32 56x56x192", (32, 56, 56, 192)))
+LRN_PARAMS = dict(local_size=5, alpha=1e-4, beta=0.75, k=1.0)
+LRN_SCALE = 30.0
 # the autotuned row: bench.py's calibration (polish 8, net scope), and a
 # cache file of this run's own (gitignored, deleted first)
 CALIB_POLISH = 8
@@ -562,7 +585,8 @@ PROFILE_STEPS = 2
 STEP_NETS = (("alexnet", 8), ("cifar10_bn", 100))
 STEP_LOSS_REL, STEP_UPDATE_REL, STEP_BN_TOL = 1e-4, 1e-3, 1e-4
 # phase 7c: what the trained, pruned AlexNet must launch per forward
-TRAINED_LAUNCHES = {"sconv_fused": 4, "bsc_spmm": 3, "sconv_gc": 0}
+TRAINED_LAUNCHES = {"sconv_fused": 4, "bsc_spmm": 3, "sconv_gc": 0,
+                    LRN_KERNEL: 2}
 CLI_TRAIN_ITERS = 4
 # the GoogLeNet stem layers phase 4e prints side by side
 STEM_LAYERS = ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
@@ -728,10 +752,14 @@ def _ptxas_summary(log) -> str:
         symbol = entry.split("\n", 1)[0]
         kern = re.search(r"\d([a-z][a-z_]*_kernel)I", symbol)
         rows = re.search(r"\d([A-Za-z]+Rows)", symbol)
-        fam = fams[(kern.group(1) if kern else "other")
-                   + (f"<{rows.group(1)}" if rows else "<")
-                   + (", f32" if "RowsIfE" in symbol else "")
-                   + (", split>" if "Lb1E" in symbol else ">")]
+        if kern and kern.group(1) == "lrn_kernel":
+            fam = fams["lrn_kernel<" + ("f32" if "lrn_kernelIf" in symbol
+                                        else "bf16") + ">"]
+        else:
+            fam = fams[(kern.group(1) if kern else "other")
+                       + (f"<{rows.group(1)}" if rows else "<")
+                       + (", f32" if "RowsIfE" in symbol else "")
+                       + (", split>" if "Lb1E" in symbol else ">")]
         fam["n"] += 1
         fam["regs"] += [int(r) for r in
                         re.findall(r"Used (\d+) registers", entry)]
@@ -825,6 +853,81 @@ def _bound(nbytes, flops, rates=BOUND_RATES):
           for k, v in (("bytes", nbytes), ("operations", flops))}
     by = max(ms, key=ms.get)
     return ms[by], by
+
+
+def _lrn_layers(net) -> int:
+    """The LRN kernel's launches in one forward of ``net`` on the card: one
+    per LRN layer."""
+    return sum(layer.spec.type == "LRN" for layer in net.layers)
+
+
+def _bf16_ulps(out, ref) -> float:
+    """The largest |out - ref| in bf16 spacings at ref (inf where ref is 0
+    and out is not)."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    _, e = torch.frexp(ref)
+    ulp = torch.ldexp(torch.ones_like(ref), e - 8)
+    diff = (out - ref).abs()
+    return float(torch.where(ref == 0, diff * float("inf"),
+                             diff / ulp).nan_to_num(0.0).max())
+
+
+def _phase_lrn(tag, dev, r):
+    """Phase 3l (see the module docstring); its errors, times and bounds
+    summed into ``r``, the LRN kernel's results."""
+    import torch
+    import torch.nn.functional as F
+
+    from caffe_escoin_tpu_torch.kernels import lrn
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    arms = {
+        "kernel": lambda x: lrn.lrn(x, **LRN_PARAMS),
+        "plain": lambda x: lrn.lrn_plain(x, **LRN_PARAMS),
+        "library": lambda x: F.local_response_norm(
+            x.permute(0, 3, 1, 2), LRN_PARAMS["local_size"],
+            alpha=LRN_PARAMS["alpha"], beta=LRN_PARAMS["beta"],
+            k=LRN_PARAMS["k"]),
+    }
+    for label, shape in LRN_SHAPES:
+        xs = [(torch.randn(shape, generator=gen, device=dev) * LRN_SCALE
+               ).bfloat16() for _ in range(N_INPUTS)]
+        launches = lrn.launches
+        with torch.inference_mode():
+            out = arms["kernel"](xs[0])
+            torch.cuda.synchronize()
+            ref = arms["plain"](xs[0])
+            ulps = _bf16_ulps(out, ref)
+        r["err"] = max(r["err"], (out.float() - ref.float()).abs().max()
+                       .item())
+        ok = lrn.launches == launches + 1 and ulps <= 1
+        print(f"parity cet_lrn {label}: {ulps:.2f} bf16 ulp of the plain "
+              f"version at most (bound 1), {lrn.launches - launches} launch "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"cet_lrn {label}: disagrees with its plain "
+                             f"version or did not launch once")
+        with torch.inference_mode():
+            graph = {arm: _graph_ms(fn, xs) for arm, fn in arms.items()}
+            eager = {arm: _time_ms(fn, xs) for arm, fn in arms.items()}
+        nbytes = 2 * xs[0].numel() * xs[0].element_size()
+        bound_ms, bound_by = _bound(nbytes, 0)
+        for arm in arms:
+            key = "ms" if arm == "kernel" else f"{arm}_ms"
+            r[key] += eager[arm]
+            r["graph_" + key] += graph[arm]
+        r["bound_ms"] += bound_ms
+        r["bound"]["bytes"] += bound_ms  # all of it: no operations
+        print(f"time cet_lrn {label}, as a CUDA graph (eager): " + ", ".join(
+            f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms" for arm in arms)
+              + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB at {BOUND_RATES['bytes'] / 1e12:.2f} "
+              f"TB/s), kernel graph at {bound_ms / graph['kernel']:.1%} of "
+              f"it, {graph['kernel'] / graph['library']:.2f}x the library "
+              f"{tag}")
+        del xs, out, ref
 
 
 def _nopad(fn, x):
@@ -1278,6 +1381,7 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
                                                        ExecutionPolicy)
     from caffe_escoin_tpu_torch.engine.solver import Solver
     from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
+    from caffe_escoin_tpu_torch.kernels import lrn
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
     from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
@@ -1425,6 +1529,7 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     routes = fnet.routes(aligned, in_shape)
     expect = collections.Counter(
         ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
+    expect[LRN_KERNEL] = _lrn_layers(fnet)
     fwd = fnet.inference_fn(params_to(aligned, dev, torch.bfloat16),
                             return_blobs=True)
     fwd_d = Net(fnet.specs, policy=ExecutionPolicy()).inference_fn(
@@ -1432,11 +1537,12 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     inputs = [{"data": torch.randn(in_shape["data"], generator=gen,
                                    device=dev)} for _ in range(N_INPUTS)]
-    for m in mods.values():
+    net_mods = {**mods, LRN_KERNEL: lrn}
+    for m in net_mods.values():
         m.reset_counts()
     outs = [fwd(x)["fc8"].float().clone() for x in inputs]
     torch.cuda.synchronize()
-    launches = {k: m.launches for k, m in mods.items()}
+    launches = {k: m.launches for k, m in net_mods.items()}
     print(f"deploy trained alexnet b{TRAIN_BATCH}: routes "
           f"{dict(collections.Counter(routes.values()))}; launches over "
           f"{N_INPUTS} forwards {launches} (expected {N_INPUTS} x "
@@ -3201,7 +3307,7 @@ def main(argv=None) -> int:
         from caffe_escoin_tpu_torch.ops import conv as conv_ops
         from caffe_escoin_tpu_torch.ops import linear as linear_ops
         from caffe_escoin_tpu_torch.utils.benchmark import device_time
-        from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm,
+        from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, lrn,
                                                     sconv_fused, sconv_gc)
         from caffe_escoin_tpu_torch.utils import trace
         from caffe_escoin_tpu_torch.models import ZOO
@@ -3222,8 +3328,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run from "
               f"the repository root", file=sys.stderr)
         return 1
+    # the route kernels, whose launches a net's routes name; the phases that
+    # run a forward on the kernel routes (4, 4b-4f, 7c) count the LRN kernel
+    # beside them (net_mods), one launch per LRN layer
     mods = {"sconv_fused": sconv_fused, "bsc_spmm": bsc_spmm,
             "sconv_gc": sconv_gc}
+    net_mods = {**mods, LRN_KERNEL: lrn}
     card = _card_line()
     print(card)
     tag = f"[{card}]"
@@ -3260,7 +3370,7 @@ def main(argv=None) -> int:
                        graph_ms=0.0, graph_plain_ms=0.0,
                        graph_library_ms=0.0, bound_ms=0.0, launches=0,
                        bound={"bytes": 0.0, "operations": 0.0})
-               for k in (*KERNELS, *KERNELS_F32)}
+               for k in (*KERNELS, *KERNELS_F32, LRN_KERNEL)}
     timed = []  # (kernel, label, {arm: fn}, args, bytes, flops)
 
     def check(kernel, label, out, ref):
@@ -3525,6 +3635,9 @@ def main(argv=None) -> int:
                      * (3.0 / 9216) ** 0.5, SPARSITY, BLOCK)
     spmm_case("alexnet fc6 32x9216->4096 +relu", 32,
               dense_to_bsc(w, BLOCK).to(dev, torch.bfloat16), True, g=gen_z)
+
+    # ---- 3l. the LRN kernel ------------------------------------------------
+    _phase_lrn(tag, dev, results["lrn"])
 
     # ---- 3b. the XBSP arms against the f32 dense conv ----------------------
     def time_line(what, label, arms, args, nbytes, flops):
@@ -3799,6 +3912,7 @@ def main(argv=None) -> int:
                     * 1e6)
         expect = collections.Counter(
             ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
+        expect[LRN_KERNEL] = _lrn_layers(fnet)
         sparse_params = params_to(aligned, dev, torch.bfloat16)
         dense_net = Net(fnet.specs, policy=ExecutionPolicy())
         dense_params = params_to(fparams, dev)
@@ -3821,11 +3935,11 @@ def main(argv=None) -> int:
         fwd_s = fnet.inference_fn(sparse_params, return_blobs=True)
         fwd_d = dense_net.inference_fn(dense_params, return_blobs=True)
         fwd_db = dense_bf16_net.inference_fn(dense_bf16_params)
-        for m in mods.values():
+        for m in net_mods.values():
             m.reset_counts()
         sparse_out = [fwd_s({"data": x}) for x in xs]
         torch.cuda.synchronize()
-        launches = {k: m.launches for k, m in mods.items()}
+        launches = {k: m.launches for k, m in net_mods.items()}
         print(f"net {model} launches over {N_INPUTS} forwards: {launches} "
               f"(expected {N_INPUTS} x {dict(expect)}) {tag}")
         for name, n in launches.items():
@@ -3833,7 +3947,7 @@ def main(argv=None) -> int:
                 raise SystemExit(f"{model} launched {name} {n} times, "
                                  f"expected {N_INPUTS * expect[name]}")
             results[name]["launches"] += n
-        if not all(launches[k] for k in expect):
+        if not all(launches[k] for k, n in expect.items() if n):
             raise SystemExit(f"{model}: a kernel of its path never launched")
         num, den, peak = 0.0, 0.0, 0.0
         for x, so in zip(xs, sparse_out):
@@ -3881,27 +3995,31 @@ def main(argv=None) -> int:
             den += ref.pow(2).sum().item()
         return (num / den) ** 0.5
 
-    def launches_of(fwd, inputs, expect, what, f32=False):
-        """Each kernel launched N_INPUTS x what ``expect`` names, every
-        launch multiplying in f32 with ``f32`` and none without; counted
-        into the kernel's results (its ``_f32`` variant's with ``f32``)."""
-        for m in mods.values():
+    def launches_of(fwd, inputs, expect, what, net, f32=False):
+        """Each route kernel launched N_INPUTS x what ``expect`` names and
+        the LRN kernel N_INPUTS x ``net``'s LRN layers, every launch in f32
+        with ``f32`` and none without; counted into the kernel's results
+        (a route kernel's ``_f32`` variant's with ``f32``)."""
+        want = {k: expect.get(k, 0) for k in mods}
+        want[LRN_KERNEL] = _lrn_layers(net)
+        for m in net_mods.values():
             m.reset_counts()
         for i in inputs:
             fwd(i)
         torch.cuda.synchronize()
-        got = {k: m.launches for k, m in mods.items()}
-        got_f32 = {k: m.launches_f32 for k, m in mods.items()}
+        got = {k: m.launches for k, m in net_mods.items()}
+        got_f32 = {k: m.launches_f32 for k, m in net_mods.items()}
         print(f"net {what} launches over {N_INPUTS} forwards: {got}"
-              + (f", of them multiplying in f32 {got_f32}" if f32 else "")
-              + f" (expected {N_INPUTS} x {dict(expect)}) {tag}")
+              + (f", of them in f32 {got_f32}" if f32 else "")
+              + f" (expected {N_INPUTS} x {want}) {tag}")
         for name, n in got.items():
-            if (n != N_INPUTS * expect.get(name, 0)
+            if (n != N_INPUTS * want[name]
                     or got_f32[name] != (n if f32 else 0)):
                 raise SystemExit(f"{what} launched {name} {n} times ("
                                  f"{got_f32[name]} in f32), expected "
-                                 f"{N_INPUTS * expect.get(name, 0)}")
-            results[f"{name}_f32" if f32 else name]["launches"] += n
+                                 f"{N_INPUTS * want[name]}")
+            f32_variant = f32 and name in KERNELS
+            results[f"{name}_f32" if f32_variant else name]["launches"] += n
 
     # ---- 4b. ResNet-50 b32 autotuned ---------------------------------------
     row = kept["resnet50"]
@@ -3985,14 +4103,15 @@ def main(argv=None) -> int:
                          "complete after calibration")
     at_expect = collections.Counter(
         ROUTE_KERNELS[r] for r in at_routes.values() if r in ROUTE_KERNELS)
+    at_expect[LRN_KERNEL] = _lrn_layers(at_net)
     print(f"net resnet50 autotuned routes (served from the last run's "
           f"cache): {dict(collections.Counter(at_routes.values()))}; "
           + ", ".join(f"{n} {r}" for n, r in at_routes.items()) + f" {tag}")
-    for m in mods.values():
+    for m in net_mods.values():
         m.reset_counts()
     at_out = [fwd_at(i) for i in at_inputs]
     torch.cuda.synchronize()
-    at_launches = {k: m.launches for k, m in mods.items()}
+    at_launches = {k: m.launches for k, m in net_mods.items()}
     print(f"net resnet50 autotuned launches over {N_INPUTS} forwards: "
           f"{at_launches} (expected {N_INPUTS} x {dict(at_expect)}: one "
           f"sconv_fused per \"fused\" route) {tag}")
@@ -4116,7 +4235,7 @@ def main(argv=None) -> int:
             ROUTE_KERNELS[r] for r in z_routes.values() if r in ROUTE_KERNELS)
         print(f"net {model} autotuned routes (served from the cache): "
               f"{dict(collections.Counter(z_routes.values()))} {tag}")
-        launches_of(fwd_z, z_inputs, z_expect, f"{model} autotuned")
+        launches_of(fwd_z, z_inputs, z_expect, f"{model} autotuned", z_net)
         rel_l2 = logits_rel_l2(fwd_z, zrow, f"autotuned {model}")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net {model} autotuned {zrow['logits']} logits vs dense f32: "
@@ -4269,7 +4388,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"packed {model} routes launch {dict(expect)}, "
                              f"expected {PACKED_LAUNCHES[model]}")
         fwd_p = pnet.inference_fn(p_params, return_blobs=True)
-        launches_of(fwd_p, inputs, expect, f"{model} packed")
+        launches_of(fwd_p, inputs, expect, f"{model} packed", pnet)
         rel_l2 = logits_rel_l2(fwd_p, row, f"packed {model}")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net {model} packed {row['logits']} logits vs dense f32 "
@@ -4324,7 +4443,7 @@ def main(argv=None) -> int:
               f"cache): {dict(collections.Counter(pat_routes.values()))} "
               f"{tag}")
         launches_of(fwd_pat, inputs, pat_expect,
-                    f"{model} autotuned packed")
+                    f"{model} autotuned packed", at_pnet)
         rel_l2 = logits_rel_l2(fwd_pat, row, "autotuned packed resnet50")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net {model} autotuned packed fc1000 logits vs dense f32: "
@@ -4372,7 +4491,7 @@ def main(argv=None) -> int:
               f"stride {stem.get('stride', 1)} pad {stem.get('pad', 0)} on "
               f"{grid}; packed blobs {getattr(n, 'packed_blobs', {})}; "
               f"routes {dict(collections.Counter(f_routes.values()))} {tag}")
-        launches_of(fwd, inputs, expect, f"googlenet {label}")
+        launches_of(fwd, inputs, expect, f"googlenet {label}", n)
         rel_l2 = logits_rel_l2(fwd, row, f"googlenet {label}")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net googlenet {label} loss3/classifier logits vs dense f32 "
@@ -4444,7 +4563,7 @@ def main(argv=None) -> int:
                   f"{n} {r}" for n, r in f_routes.items()
                   if r != row["routes"].get(n)) + f" {tag}")
         f_fwd = f_net.inference_fn(f_params, return_blobs=True)
-        launches_of(f_fwd, inputs, expect, f"{model} f32", f32=True)
+        launches_of(f_fwd, inputs, expect, f"{model} f32", f_net, f32=True)
         f32_logits(f_fwd, row, f"{model} f32")
         f_graph_fwd = f_net.inference_fn(f_params, cuda_graph=True)
         for inputs_i in inputs[:2] * 2:
@@ -4519,7 +4638,7 @@ def main(argv=None) -> int:
         print(f"net resnet50 autotuned f32 routes (served from the cache): "
               f"{dict(collections.Counter(at32_routes.values()))} {tag}")
         launches_of(fwd_at32, inputs, at32_expect, "resnet50 autotuned f32",
-                    f32=True)
+                    at_net32, f32=True)
         f32_logits(fwd_at32, row, "resnet50 autotuned f32")
         at32_ms = {}
         for label, fn in (("f32 kernel routes", f_fwd),
@@ -4639,12 +4758,14 @@ def main(argv=None) -> int:
 
     # each kernel, then its f32-multiply variant (same source and TPU
     # kernel; its launches are phase 4f's, its times phase 3f's)
+    # and the LRN kernel, which replaces no TPU kernel (its times phase
+    # 3l's, its launches the nets' LRN layers in phases 4, 4b-4e and 7c)
     names = [(k, base) for base in KERNELS
-             for k in (base, f"{base}_f32")]
+             for k in (base, f"{base}_f32")] + [(LRN_KERNEL, LRN_KERNEL)]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"caffe_escoin_tpu_torch/csrc/{base}.cu",
-         "replaces": KERNELS[base], "launches": results[k]["launches"],
+         "replaces": KERNELS.get(base), "launches": results[k]["launches"],
          "max_abs_err": results[k]["err"],
          **{key: results[k][key] for key in (
              "ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",

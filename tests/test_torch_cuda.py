@@ -39,6 +39,13 @@ padded to 640, and group=2's block-diagonal weights (also against the
 dense grouped ``F.conv2d``); ``bsc_spmm`` at AlexNet's fc6; and the LRN and
 s2d ops replayed from a CUDA graph.
 
+The LRN kernel (csrc/lrn.cu) against its plain version on the card, at
+GoogLeNet's norm1 and norm2 (b32, b8, packed), over groups {1, 2, 4},
+local_size {5, 4}, beta {0.75, 0.5}, C not a multiple of 8 and
+local_size 3 and 1: f32 within rtol 1e-5, atol 1e-6 (the same f32
+operations, rsqrt and powf may round apart), bf16 at most one bf16 ulp
+apart; its gradient is the plain version's.
+
 The data slice: a Data layer's tops land on the card (pinned host copies)
 as the batches of the file it reads, and the layer types of the rest of
 the catalog (Deconvolution, SPP, Im2col, the recurrent layers, Embed,
@@ -78,8 +85,8 @@ import torch
 
 from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
-from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, sconv_fused,
-                                            sconv_gc)
+from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, lrn,
+                                            sconv_fused, sconv_gc)
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
@@ -1008,7 +1015,7 @@ def test_bsc_spmm_at_alexnet_fc6(dev):
 
 
 def test_lrn_and_s2d_capture_in_a_cuda_graph(dev):
-    """The packed LRN's masks and the s2d stem's pad and crop build no
+    """The packed LRN (the kernel) and the s2d stem's pad and crop build no
     tensor per call: both replay from a CUDA graph and agree with eager."""
     from caffe_escoin_tpu_torch.ops import norm as norm_ops
     from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
@@ -1020,6 +1027,7 @@ def test_lrn_and_s2d_capture_in_a_cuda_graph(dev):
         return (norm_ops.lrn_across_channels(x, groups=2),
                 s2d_ops.s2d_input(img, 2, (2, 2), (0, 0)))
 
+    launches = lrn.launches
     eager = fwd()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1031,9 +1039,101 @@ def test_lrn_and_s2d_capture_in_a_cuda_graph(dev):
         captured = fwd()
     graph.replay()
     torch.cuda.synchronize()
+    assert lrn.launches == launches + 3  # the LRN is the kernel's
     assert captured[1].shape == (2, 10, 10, 12)  # cropped to the conv's 10
     for a, b in zip(captured, eager):
         assert torch.equal(a, b)
+
+
+# the LRN kernel: GoogLeNet's norm1 and norm2 at b32 and b8 and the packed
+# norm1 (Caffe's alpha 1e-4, k 1, n 5, activations of scale 30), then the
+# grid of groups x local_size x beta on a small map (alpha 1e-2, k 2, scale
+# 3), maps whose C is not a multiple of the 16-byte vector, and the
+# narrower windows of local_size 3 and 1; name ->
+# (shape, groups, local_size, beta, alpha, k, scale)
+LRN_CASES = {
+    "norm1_b32": ((32, 56, 56, 64), 1, 5, 0.75, 1e-4, 1.0, 30.0),
+    "norm2_b32": ((32, 56, 56, 192), 1, 5, 0.75, 1e-4, 1.0, 30.0),
+    "norm1_b8": ((8, 56, 56, 64), 1, 5, 0.75, 1e-4, 1.0, 30.0),
+    "norm2_b8": ((8, 56, 56, 192), 1, 5, 0.75, 1e-4, 1.0, 30.0),
+    "packed_norm1_b8": ((8, 56, 28, 128), 2, 5, 0.75, 1e-4, 1.0, 30.0),
+    **{f"g{g}_n{n}_beta{b}": ((2, 9, 7, 48), g, n, b, 1e-2, 2.0, 3.0)
+       for g in (1, 2, 4) for n in (5, 4) for b in (0.75, 0.5)},
+    "c20": ((3, 5, 7, 20), 1, 5, 0.75, 1e-2, 2.0, 3.0),
+    "c20_g2_n4_beta0.5": ((3, 5, 7, 20), 2, 4, 0.5, 1e-2, 2.0, 3.0),
+    "c3": ((2, 3, 5, 3), 1, 5, 0.75, 1e-2, 2.0, 3.0),
+    "c40_n3": ((2, 4, 4, 40), 1, 3, 0.75, 1e-2, 2.0, 3.0),
+    "c72_n1": ((1, 3, 3, 72), 1, 1, 0.75, 1e-3, 2.0, 3.0),
+}
+
+
+def _lrn_case(name, dev, dtype):
+    shape, groups, n, beta, alpha, k, scale = LRN_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    return x, dict(local_size=n, alpha=alpha, beta=beta, k=k, groups=groups)
+
+
+def _within_one_bf16_ulp(out, ref):
+    """Each |out - ref| at most the bf16 spacing at ref (exact at 0)."""
+    out, ref = out.float(), ref.float()
+    _, e = torch.frexp(ref)
+    ulp = torch.where(ref == 0, torch.zeros_like(ref),
+                      torch.ldexp(torch.ones_like(ref), e - 8))
+    bad = (out - ref).abs() > ulp
+    assert not bad.any(), (int(bad.sum()), out[bad][:4], ref[bad][:4])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(LRN_CASES))
+def test_lrn_kernel_matches_plain(dev, name, dtype):
+    """The kernel against its plain version on the same card: f32 within
+    rtol 1e-5, atol 1e-6; bf16 at most one bf16 ulp apart. One launch a
+    call, an f32 one for an f32 map."""
+    x, kw = _lrn_case(name, dev, dtype)
+    launches, launches_f32 = lrn.launches, lrn.launches_f32
+    with torch.inference_mode():
+        out = lrn.lrn(x, **kw)
+        torch.cuda.synchronize()
+        ref = lrn.lrn_plain(x, **kw)
+    f32 = dtype == torch.float32
+    assert (lrn.launches, lrn.launches_f32) == (launches + 1,
+                                                launches_f32 + int(f32))
+    assert out.dtype == dtype and out.shape == x.shape
+    assert torch.isfinite(out).all()
+    if f32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    else:
+        _within_one_bf16_ulp(out, ref)
+
+
+def test_lrn_kernel_copies_a_strided_map_and_refuses_others(dev):
+    """A non-contiguous map is copied first; an f16 map and a window
+    beyond the kernel's reach raise."""
+    x, kw = _lrn_case("g2_n5_beta0.75", dev, torch.bfloat16)
+    wide = torch.cat([x, x], dim=-1)[..., 5:53]
+    assert not wide.is_contiguous()
+    _within_one_bf16_ulp(lrn.lrn(wide, **kw), lrn.lrn_plain(wide, **kw))
+    with pytest.raises(TypeError):
+        lrn.lrn(x.half(), **kw)
+    with pytest.raises(ValueError):
+        lrn.lrn(x, local_size=lrn.MAX_LOCAL_SIZE + 1)
+
+
+def test_lrn_kernel_backward_is_the_plain_gradient(dev):
+    """Through the autograd Function: the kernel forward (one launch), the
+    plain version's gradient backward, equal to autograd's through the
+    plain version."""
+    x, kw = _lrn_case("g2_n4_beta0.5", dev, torch.float32)
+    g = torch.randn_like(x)
+    x.requires_grad_()
+    launches = lrn.launches
+    y = lrn.lrn(x, **kw)
+    (got,) = torch.autograd.grad(y, x, g)
+    assert lrn.launches == launches + 1
+    xr = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(lrn.lrn_plain(xr, **kw), xr, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("arm", ["conv", "conv_gathered",

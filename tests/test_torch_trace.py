@@ -122,7 +122,7 @@ def test_entry_counters_spans_and_reset():
     assert snap["counters"]["entry.eager_calls"] == 4
     assert snap["spans"]["entry"]["count"] == 4
     assert snap["spans"][trace.LAYER + "conv1"]["count"] == 4
-    assert set(snap["kernels"]) == set(trace.KERNELS)
+    assert set(snap["kernels"]) == set(trace.KERNELS + trace.OP_KERNELS)
     trace.reset()
     snap = trace.snapshot()
     assert snap["spans"] == {} and snap["counters"] == {}
