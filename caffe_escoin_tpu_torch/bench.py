@@ -48,13 +48,13 @@ Where this module differs from ``bench.py``:
 * ``--per-layer`` times one layout, NHWC, once: torch has no counterpart
   of XLA's entry-layout choice that ``bench.py`` takes the better of.
 * The autotune table defaults to ``.autotune_cuda.json`` at the repository
-  root (``CESCOIN_AUTOTUNE_CACHE``), not the TPU's ``.autotune_tpu.json``;
-  ``CESCOIN_AUTOTUNE_LOG_HITS`` defaults to 1 as there, and
-  ``CESCOIN_AUTOTUNE_FUSED`` to 1: the hand-written ``sconv_fused`` kernel
-  is one of the measured arms on the card, where it won every ResNet-50
-  b32 key, as the JAX package's Pallas kernel was not on the TPU. The
-  three are set for the run and restored after. There is no compile
-  cache.
+  root (``CESCOIN_AUTOTUNE_CACHE``), not the TPU's ``.autotune_tpu.json``,
+  and ``CESCOIN_AUTOTUNE_LOG_HITS`` defaults to 1 as there; both are set
+  for the run and restored after. The hand-written ``sconv_fused`` kernel
+  is one of the measured arms wherever it runs the shape (autotune offers
+  it with no switch; ``bench.py`` sets one for the JAX package's Pallas
+  kernel), and won every ResNet-50 b32 key on the card. There is no
+  compile cache.
 * ``--halo`` runs the hand-written kernels: the single conv through
   ``parallel/halo.spatial_sconv2d(engine="pallas")`` (``sconv_gc``)
   against ``sconv_gc`` on the whole map, and the chain and tower on the
@@ -96,7 +96,6 @@ HALO_RECORD = os.path.join(_ROOT, "build", "SCALING.jsonl")
 ENV_DEFAULTS = {
     "CESCOIN_AUTOTUNE_CACHE": os.path.join(_ROOT, ".autotune_cuda.json"),
     "CESCOIN_AUTOTUNE_LOG_HITS": "1",
-    "CESCOIN_AUTOTUNE_FUSED": "1",
 }
 # the published HBM3 rate of one H100 SXM (NVIDIA's data sheet), against
 # which the measured stream rate is reported

@@ -1,5 +1,5 @@
-"""Measured per-shape arm choice for the sparse conv dispatcher (port of
-``caffe_escoin_tpu/engine/autotune.py``).
+"""Measured per-shape arm choice for the sparse conv dispatcher and the
+sparse fc (port of ``caffe_escoin_tpu/engine/autotune.py``).
 
 ``kernels/xla_block_sparse.best_arm``'s hand rules come from profiles of
 one device; the fix the JAX package made, carried over: measure each
@@ -10,9 +10,10 @@ never loses to its own baseline in isolation (the never-lose floor).
 
 Measurement happens lazily, the first time a forward asks for a key: the
 weights are at hand, so each candidate runs on synthetic inputs of the real
-shape (``measure_arms``) before the forward goes on. Results are cached in
-the process and, when the policy or ``$CESCOIN_AUTOTUNE_CACHE`` names one,
-in a JSON file. The port differs from the JAX module in five ways:
+shape (``measure_arms``, ``measure_fc_arms``) before the forward goes on.
+Results are cached in the process and, when the policy or
+``$CESCOIN_AUTOTUNE_CACHE`` names one, in a JSON file. The port differs
+from the JAX module in seven ways:
 
 * a key starts with ``"cuda:<device name>"`` (or ``"cpu"``), not JAX's
   backend name; the other elements keep their positions, which
@@ -29,7 +30,20 @@ in a JSON file. The port differs from the JAX module in five ways:
 * an arm that raises while it is measured, or a whole-net forward that
   raises during calibration, propagates: every port arm runs every shape
   it is offered, so no arm silently drops out in favour of another (the
-  JAX module skips an arm XLA cannot build).
+  JAX module skips an arm XLA cannot build);
+* the hand-written ``sconv_fused`` kernel is a candidate wherever the
+  dispatcher would run it (``sconv_fused.supported`` and ``fits_budget``),
+  with no switch: the policy alone decides what competes (the JAX module
+  offers its Pallas kernel only behind an environment switch);
+* a sparse fc has a measured arm too (``choose_fc_arm``): the XBSP
+  ``spmm``, the ``bsc_spmm`` kernel and the dense matmul, under a key of
+  its own (``fc_cache_key``, ``"fc"`` first), where the JAX module runs
+  every sparse fc on the XBSP ``spmm``.
+
+Each measurement is the set-up span ``setup:autotune`` (``utils/trace``)
+and adds one to ``autotune.measured.conv`` or ``autotune.measured.fc``;
+``counting_picks`` counts the arms a captured forward is served as
+``autotune.pick.<arm>``.
 
 The conventional file is ``.autotune_cuda.json`` (gitignored). A TPU table
 (``.autotune_tpu.json``) named by mistake is ignored whole: its
@@ -37,9 +51,7 @@ fingerprint differs, and no key of it could match a port key.
 
 Switches, as in the JAX module: ``CESCOIN_AUTOTUNE_CACHE`` (the file when
 the policy names none), ``CESCOIN_AUTOTUNE_LOG_HITS`` (print each cached
-pick served outside ``record_keys``), ``CESCOIN_AUTOTUNE_FUSED`` (let the
-``sconv_fused`` kernel compete where the dispatcher would run it:
-``sconv_fused.supported`` and ``fits_budget``).
+pick served outside ``record_keys``).
 
 Enabled by ``ExecutionPolicy(autotune=True)``; off by default.
 """
@@ -57,6 +69,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from caffe_escoin_tpu_torch.engine.context import resolve_mxu_dtype
+from caffe_escoin_tpu_torch.utils import trace
 
 _CACHE: Dict[str, str] = {}
 _TIMES: Dict[str, Dict[str, float]] = {}  # key -> arm -> seconds (reporting)
@@ -74,6 +87,7 @@ _RECORDING = threading.local()
 _NET_SCOPE: Optional[str] = None
 
 ARMS = ("unroll", "gathered", "gathered_cols", "dense", "fused")
+FC = "fc"  # the first element of an fc's key
 _TOGGLES = ("CESCOIN_XBSP_NOPAD",)
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -98,7 +112,10 @@ def net_scope(tag: Optional[str]):
 def _pattern_sig(aligned) -> Tuple[int, int, int, int]:
     """Pattern signature: an arm's cost depends on block counts, not on
     which blocks are live. Read from the host pattern, once per weight."""
-    bsc = aligned.bsc
+    return _bsc_sig(aligned.bsc)
+
+
+def _bsc_sig(bsc) -> Tuple[int, int, int, int]:
     sig = bsc.memo.get("sig")
     if sig is None:
         block_row, bcol_nnz = bsc.pattern()
@@ -130,6 +147,19 @@ def cache_key(aligned, x_shape, stride, padding, dilation, dtype,
              tuple(padding), tuple(dilation), aligned.cin_pad, aligned.cout,
              aligned.groups, tuple(aligned.bsc.block_shape),
              _pattern_sig(aligned))
+    if resolve_mxu_dtype(mxu_dtype, dev) == "float32":
+        parts += ("float32",)
+    return repr(parts)
+
+
+def fc_cache_key(bsc, rows: int, dtype, mxu_dtype: str = "auto") -> str:
+    """repr of ("fc", device, rows, dtype, (K, N), block_shape, pattern
+    signature), and "float32" last as in ``cache_key``: the key of an fc
+    of ``rows`` input rows over the BSC weight ``bsc`` [K, N]. A conv key
+    starts with the device, so no fc key equals one."""
+    dev = bsc.blocks.device
+    parts = (FC, _device_label(dev), int(rows), str(dtype),
+             tuple(bsc.shape), tuple(bsc.block_shape), _bsc_sig(bsc))
     if resolve_mxu_dtype(mxu_dtype, dev) == "float32":
         parts += ("float32",)
     return repr(parts)
@@ -225,12 +255,9 @@ def measure_arms(aligned, policy, x_shape, stride, padding, dilation,
         "dense": lambda y: conv_ops.conv2d_dense(
             y, wd, aligned.bias, groups=aligned.groups, **geo),
     }
-    # the hand-written direct kernel competes only when opted in, and only
-    # where the dispatcher would run it: the reference's gate, size budget
-    # included (as the JAX package's Pallas fused kernel)
-    if (os.environ.get("CESCOIN_AUTOTUNE_FUSED")
-            and sconv_fused.supported(x, aligned, stride=stride,
-                                      dilation=dilation)
+    # the hand-written direct kernel competes wherever the dispatcher would
+    # run it: the reference's gate, size budget included
+    if (sconv_fused.supported(x, aligned, stride=stride, dilation=dilation)
             and sconv_fused.fits_budget(x, aligned, padding)):
         cands["fused"] = lambda y: sconv_fused.sconv(
             y, aligned, padding=padding, relu=False,
@@ -242,6 +269,92 @@ def measure_arms(aligned, policy, x_shape, stride, padding, dilation,
     return device_time_arms(cands, xsets, iters=max(iters, 8))
 
 
+def measure_fc_arms(bsc, dense, bias, relu: bool, policy, rows: int,
+                    *, iters: int = 10) -> Dict[str, float]:
+    """Time each arm of a sparse fc on synthetic inputs of ``rows`` rows,
+    on the weight's device: the XBSP ``spmm`` (where ``spmm_supported``
+    holds), the ``bsc_spmm`` kernel and the dense matmul on ``dense``
+    [K, N], each with the bias and ReLU epilogue. Returns arm ->
+    seconds."""
+    from caffe_escoin_tpu_torch.ops import linear as linear_ops
+    from caffe_escoin_tpu_torch.utils.benchmark import device_time_arms
+
+    dev = bsc.blocks.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xsets = [(torch.randn((rows, bsc.shape[0]), generator=gen, device=dev
+                          ).to(_dtype(policy)),) for _ in range(4)]
+    arms = linear_ops.fc_arms(bsc, policy)
+    return device_time_arms(
+        {arm: functools.partial(linear_ops.run_fc_arm, arm, sparse_w=bsc,
+                                bias=bias, relu=relu, policy=policy,
+                                dense=dense)
+         for arm in arms}, xsets, iters=max(iters, 8))
+
+
+def _served(key: str, what: str) -> Optional[str]:
+    """The arm served for ``key`` without measuring (a calibration
+    override, this net's calibrated arm, or the cached winner), recorded
+    in ``record_keys``; None where none is cached."""
+    rec = getattr(_RECORDING, "keys", None)
+    with _LOCK:
+        if key in _OVERRIDES:
+            arm = _OVERRIDES[key]
+        elif (_NET_SCOPE is not None
+              and _scoped_key(key, _NET_SCOPE) in _CACHE):
+            arm = _CACHE[_scoped_key(key, _NET_SCOPE)]
+        elif key in _CACHE:
+            arm = _CACHE[key]
+            if (os.environ.get("CESCOIN_AUTOTUNE_LOG_HITS")
+                    and rec is None):
+                # a served pick is not a fresh measurement: after a code
+                # change, delete the cache file to re-measure
+                print(f"[autotune] cached arm '{arm}' for {what} (no "
+                      f"re-measurement)", flush=True)
+        else:
+            return None
+    if rec is not None:
+        rec.append((key, arm))
+    return arm
+
+
+def _measured(key: str, kind: str, what: str, path: str, on_cuda: bool,
+              measure: Callable[[], Dict[str, float]], log) -> str:
+    """Measure ``key`` now (``measure()``: arm -> seconds), cache and
+    record the winner. A set-up span, ``setup:autotune``; counts
+    ``autotune.measured.<kind>``. Raises during a CUDA-graph capture."""
+    if on_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"autotune: no cached arm for {what} during CUDA-graph "
+            f"capture; run the forward once (or calibrate) before capturing")
+    _MEASURING.active = True
+    try:
+        with trace.span("setup:autotune", always=True):
+            times = measure()
+    finally:
+        _MEASURING.active = False
+    trace.count(f"autotune.measured.{kind}", always=True)
+    winner = min(times, key=times.get)
+    with _LOCK:
+        _CACHE[key] = winner
+        _TIMES[key] = times
+        _save_file(path)
+    rec = getattr(_RECORDING, "keys", None)
+    if rec is not None:
+        rec.append((key, winner))
+    if log is not None:
+        pretty = " ".join(f"{a}={t * 1e6:.0f}us" for a, t in sorted(
+            times.items()))
+        log(f"autotune {what}: {pretty} -> {winner}")
+    return winner
+
+
+def _cache_path(policy) -> str:
+    path = (getattr(policy, "autotune_cache", "")
+            or os.environ.get("CESCOIN_AUTOTUNE_CACHE", ""))
+    _load_file(path)
+    return path
+
+
 def choose_arm(aligned, policy, x_shape, stride, padding, dilation,
                *, log=None) -> Optional[str]:
     """The cached measured winner for this (shape, pattern), measured now
@@ -250,82 +363,75 @@ def choose_arm(aligned, policy, x_shape, stride, padding, dilation,
     the cache before any capture."""
     if getattr(_MEASURING, "active", False):
         return None  # re-entrant call from inside a candidate arm
-    path = (getattr(policy, "autotune_cache", "")
-            or os.environ.get("CESCOIN_AUTOTUNE_CACHE", ""))
-    _load_file(path)
+    path = _cache_path(policy)
     key = cache_key(aligned, x_shape, stride, padding, dilation,
                     _dtype(policy), getattr(policy, "mxu_dtype", "auto"))
-    rec = getattr(_RECORDING, "keys", None)
-    with _LOCK:
-        if key in _OVERRIDES:
-            if rec is not None:
-                rec.append((key, _OVERRIDES[key]))
-            return _OVERRIDES[key]
-        if _NET_SCOPE is not None:
-            skey = _scoped_key(key, _NET_SCOPE)
-            if skey in _CACHE:
-                if rec is not None:
-                    rec.append((key, _CACHE[skey]))
-                return _CACHE[skey]
-        if key in _CACHE:
-            if rec is not None:
-                rec.append((key, _CACHE[key]))
-            if (os.environ.get("CESCOIN_AUTOTUNE_LOG_HITS")
-                    and rec is None):
-                # a served pick is not a fresh measurement: after a code
-                # change, delete the cache file to re-measure
-                print(f"[autotune] cached arm '{_CACHE[key]}' for "
-                      f"{tuple(x_shape)} k{aligned.kernel_shape} "
-                      f"cout{aligned.cout} (no re-measurement)", flush=True)
-            return _CACHE[key]
-    if (aligned.bsc.blocks.is_cuda
-            and torch.cuda.is_current_stream_capturing()):
-        raise RuntimeError(
-            f"autotune: no cached arm for {tuple(x_shape)} "
-            f"k{aligned.kernel_shape} cout{aligned.cout} during CUDA-graph "
-            f"capture; run the forward once (or calibrate) before capturing")
-    _MEASURING.active = True
-    try:
-        times = measure_arms(aligned, policy, x_shape, stride, padding,
-                             dilation)
-    finally:
-        _MEASURING.active = False
-    winner = min(times, key=times.get)
-    with _LOCK:
-        _CACHE[key] = winner
-        _TIMES[key] = times
-        _save_file(path)
-    if rec is not None:
-        rec.append((key, winner))
-    if log is not None:
-        pretty = " ".join(f"{a}={t * 1e6:.0f}us" for a, t in sorted(
-            times.items()))
-        log(f"autotune {tuple(x_shape)} k{aligned.kernel_shape} "
-            f"cout{aligned.cout}: {pretty} -> {winner}")
-    return winner
+    what = f"{tuple(x_shape)} k{aligned.kernel_shape} cout{aligned.cout}"
+    arm = _served(key, what)
+    if arm is not None:
+        return arm
+    return _measured(key, "conv", what, path, aligned.bsc.blocks.is_cuda,
+                     lambda: measure_arms(aligned, policy, x_shape, stride,
+                                          padding, dilation), log)
+
+
+def choose_fc_arm(bsc, dense, bias, relu: bool, policy, rows: int,
+                  *, log=None) -> Optional[str]:
+    """``choose_arm`` for a sparse fc of ``rows`` input rows over the BSC
+    weight ``bsc`` [K, N] (``dense`` its dense [K, N], for the dense arm):
+    one of ``ops.linear.fc_arms``, cached under ``fc_cache_key``."""
+    if getattr(_MEASURING, "active", False):
+        return None
+    path = _cache_path(policy)
+    key = fc_cache_key(bsc, rows, _dtype(policy),
+                       getattr(policy, "mxu_dtype", "auto"))
+    what = f"fc {rows}x{bsc.shape[0]}->{bsc.shape[1]}"
+    arm = _served(key, what)
+    if arm is not None:
+        return arm
+    return _measured(key, FC, what, path, bsc.blocks.is_cuda,
+                     lambda: measure_fc_arms(bsc, dense, bias, relu, policy,
+                                             rows), log)
 
 
 @contextlib.contextmanager
 def record_keys():
-    """Collect every (cache_key, arm) served to choose_arm callers inside
-    the context, cache hits included, with multiplicity: the arm decisions
-    a whole-net forward depends on."""
+    """Collect every (cache_key, arm) served to choose_arm and
+    choose_fc_arm callers inside the context, cache hits included, with
+    multiplicity: the arm decisions a whole-net forward depends on. An
+    enclosing ``record_keys`` receives them too."""
     prev = getattr(_RECORDING, "keys", None)
-    _RECORDING.keys = []
+    keys = _RECORDING.keys = []
     try:
-        yield _RECORDING.keys
+        yield keys
     finally:
         _RECORDING.keys = prev
+        if prev is not None:
+            prev.extend(keys)
+
+
+@contextlib.contextmanager
+def counting_picks():
+    """Count the arm of each pick served inside the context as the set-up
+    counter ``autotune.pick.<arm>`` (``Net.inference_fn`` wraps a capture
+    in it: the layers each arm serves in the captured forward)."""
+    with record_keys() as rec:
+        yield rec
+    for _, arm in rec:
+        trace.count(f"autotune.pick.{arm}", always=True)
 
 
 def _key_traffic(key: str, mult: int = 1) -> float:
     """Rough share of the time from the key itself (x_shape, stride, cout
-    at positions 1, 4, 8): input + output elements times multiplicity.
-    Orders the polish trials."""
+    at positions 1, 4, 8; an fc's rows and (K, N) at 2 and 4): input +
+    output elements times multiplicity. Orders the polish trials."""
     import ast
 
     try:
         t = ast.literal_eval(key)
+        if t[0] == FC:
+            rows, (k, n) = t[2], t[4]
+            return float(mult) * rows * (k + n)
         n, h, w, c = t[1]
         sh, sw = t[4]
         cout = t[8]
@@ -333,6 +439,14 @@ def _key_traffic(key: str, mult: int = 1) -> float:
                               + n * (h // sh) * (w // sw) * cout)
     except (ValueError, SyntaxError, TypeError, IndexError):
         return 0.0
+
+
+def _polish_arms(key: str):
+    """The arms ``calibrate_graph``'s polish tries on a key: those that run
+    every shape of its kind."""
+    if key.startswith(f"('{FC}',"):
+        return ("dense", "bsc_spmm")
+    return ("dense", "unroll", "gathered", "gathered_cols")
 
 
 def calibrate_graph(time_fn: Callable[[], float], *,
@@ -360,8 +474,9 @@ def calibrate_graph(time_fn: Callable[[], float], *,
        keeping a flip only when the whole-graph time improves by
        ``keep_margin``.
     4. ``polish``: up to that many trials of another arm ("dense",
-       "unroll", "gathered", "gathered_cols") on the keys with the most
-       traffic, each kept only when it improves by ``keep_margin``.
+       "unroll", "gathered", "gathered_cols"; an fc's "dense" and
+       "bsc_spmm") on the keys with the most traffic, each kept only when
+       it improves by ``keep_margin``.
     5. Persist the winners to the cache (the file ``cache_path``, else
        ``$CESCOIN_AUTOTUNE_CACHE``). With ``net_tag``, a key whose arm
        changed is stored under "net=<tag>|<key>" (served inside
@@ -456,7 +571,7 @@ def calibrate_graph(time_fn: Callable[[], float], *,
             for k in order2:
                 if trials >= polish:
                     break
-                for alt in ("dense", "unroll", "gathered", "gathered_cols"):
+                for alt in _polish_arms(k):
                     if alt == assign[k] or trials >= polish:
                         continue
                     prev = assign[k]

@@ -32,11 +32,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 OUT_DIR = os.path.join(ROOT, "build", "experiments")
 # the JAX package's paths, which no probe writes under
 REFUSED_DIRS = ("caffe_escoin_tpu", "scripts", "logs")
-# as the port's bench sets them for a run: the CUDA autotune table, and
-# the hand sconv_fused kernel among the measured arms
+# as the port's bench sets it for a run: the CUDA autotune table
 ENV_DEFAULTS = {
     "CESCOIN_AUTOTUNE_CACHE": os.path.join(ROOT, ".autotune_cuda.json"),
-    "CESCOIN_AUTOTUNE_FUSED": "1",
 }
 SPARSITY = 0.9
 BLOCK = (128, 128)

@@ -26,7 +26,6 @@ import torch
 import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.engine.context import ConvMode
-from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.nn.fillers import fill
 from caffe_escoin_tpu_torch.nn.net import Layer, register_layer
 from caffe_escoin_tpu_torch.ops import activations as act
@@ -307,7 +306,8 @@ ROUTE_KERNELS = {**conv_ops.ROUTE_KERNELS, "spmm": "bsc_spmm"}
 class InnerProductLayer(Layer):
     """FC layer. Sparse execution runs a block-sparse SpMM over the 1x1
     GEMM-view AlignedConvWeight: the XBSP ``spmm`` with ``use_xla_sparse``,
-    else the SpMM kernel."""
+    else the SpMM kernel; with ``autotune``, the measured fastest of those
+    and the dense matmul (``ops.linear.fc_arm``)."""
 
     category = "fc"
 
@@ -331,31 +331,47 @@ class InnerProductLayer(Layer):
         return weight_align(params["w"][None, None], params.get("b"),
                             policy=self.policy)
 
-    def route(self, params, in_shapes=None, in_dtype=None):
-        """"xbsp_spmm" (the XBSP unroll), "spmm" (the SpMM kernel, with
-        ``use_xla_sparse=False``) or "dense", by the JAX package's rule
-        (its ``nn/layers.py:291-314``): a forced ``xbsp_arm`` decides
-        first ("dense" forces the dense matmul, any other arm the sparse
-        one); else the block-density gate, as the conv dispatcher's, sends
-        an element-sparse but block-dense pattern to the one dense
-        matmul."""
+    def _sparse(self, params) -> bool:
+        """Whether the fc runs sparse, by the JAX package's rule (its
+        ``nn/layers.py:291-314``): a forced ``xbsp_arm`` decides first
+        ("dense" forces the dense matmul, any other arm the sparse one);
+        else the block-density gate, as the conv dispatcher's, sends an
+        element-sparse but block-dense pattern to the one dense matmul."""
         pol = self.policy
         if (not isinstance(params, AlignedConvWeight) or params.bsc is None
                 or pol.conv_mode == ConvMode.LOWERED_GEMM):
-            return "dense"
+            return False
         if pol.xbsp_arm != "auto":
-            sparse = pol.xbsp_arm != "dense"
-        else:
-            sparse = (params.sparsity >= pol.sparse_threshold
-                      and params.block_density <= 0.5)
-        if not sparse:
+            return pol.xbsp_arm != "dense"
+        return (params.sparsity >= pol.sparse_threshold
+                and params.block_density <= 0.5)
+
+    def route(self, params, in_shapes, in_dtype=None):
+        """"xbsp_spmm" (the XBSP unroll), "spmm" (the SpMM kernel) or
+        "dense": "dense" where ``_sparse`` says so, else the arm
+        ``ops.linear.fc_arm`` picks for an input of ``in_shapes[0]`` (with
+        ``autotune``, served from the autotune cache, and measured first
+        on the weight's device where a key is not in it yet; without, the
+        XBSP ``spmm`` under ``use_xla_sparse`` and the SpMM kernel
+        without)."""
+        if not self._sparse(params):
             return "dense"
-        return "xbsp_spmm" if xbs.spmm_supported(params.bsc, pol) else "spmm"
+        arm = linear_ops.fc_arm(params.bsc, self.policy, in_shapes[0][0],
+                                bias=params.bias, relu=self._relu(),
+                                dense=self._dense(params))
+        return {"bsc_spmm": "spmm"}.get(arm, arm)
+
+    def _relu(self) -> bool:
+        return self.p.get("fuse_relu", False) and self.policy.fuse_relu
+
+    @staticmethod
+    def _dense(aligned):
+        return aligned.dense.reshape(-1, aligned.cout)
 
     def forward(self, params, inputs, state=None):
         (x,) = inputs
         x2 = x.reshape(x.shape[0], -1)
-        fuse_relu = self.p.get("fuse_relu", False) and self.policy.fuse_relu
+        fuse_relu = self._relu()
         cd = self.policy.compute_dtype
         in_dtype = x.dtype
         if cd is not None:
@@ -363,14 +379,15 @@ class InnerProductLayer(Layer):
             params = _cast(params, cd)
         if isinstance(params, AlignedConvWeight):
             aligned = params
-            if self.route(aligned) != "dense":
+            if self._sparse(aligned):
                 if aligned.cin_pad != aligned.cin:
                     x2 = F.pad(x2, (0, aligned.cin_pad - aligned.cin))
                 out = linear_ops.linear_sparse(x2, aligned.bsc, aligned.bias,
                                                relu=fuse_relu,
-                                               policy=self.policy)
+                                               policy=self.policy,
+                                               dense=self._dense(aligned))
             else:
-                out = linear_ops.linear(x2, aligned.dense.reshape(-1, aligned.cout),
+                out = linear_ops.linear(x2, self._dense(aligned),
                                         aligned.bias, relu=fuse_relu)
         else:
             out = linear_ops.linear(x2, params["w"], params.get("b"),

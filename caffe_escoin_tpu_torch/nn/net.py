@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
 from caffe_escoin_tpu_torch.sparse.weight_align import (AlignedConvWeight,
                                                         split_payloads)
@@ -214,8 +215,8 @@ class Net(torch.nn.Module):
         LOWERED_SPARSE with the ELL format, or with
         ``use_xla_sparse=False`` "fused", "gc", "lowered", "spmm") for
         inputs of these shapes and dtype, from shapes alone: nothing runs.
-        With ``autotune`` on, each sparse conv's arm is served from the
-        autotune cache (inside the ``net_scope`` the forward runs in), so
+        With ``autotune`` on, each sparse conv's and fc's arm is served
+        from the autotune cache (inside the ``net_scope`` the forward runs in), so
         call it with the params on their device after calibration or a
         forward; a key not in the cache yet would be measured first."""
         out = {}
@@ -373,9 +374,10 @@ class Net(torch.nn.Module):
 
         Spans and counters (``utils/trace``): a new signature's first call
         and capture are the set-up spans ``setup:first_call`` and
-        ``setup:capture``, and each capture adds to ``entry.captures`` and
-        to ``capture.launches.<kernel>`` the hand kernels' launches inside
-        the captured forward. With tracing on, a call is an ``entry`` span
+        ``setup:capture``, and each capture adds to ``entry.captures``, to
+        ``capture.launches.<kernel>`` the hand kernels' launches inside the
+        captured forward, and to ``autotune.pick.<arm>`` the layers each
+        autotuned arm serves in it. With tracing on, a call is an ``entry`` span
         holding ``entry:signature``, ``entry:copy_in`` and ``entry:replay``
         and counts ``entry.replays`` or ``entry.eager_calls``."""
         if cuda_graph:
@@ -414,7 +416,7 @@ class Net(torch.nn.Module):
                 before = trace.kernel_counts()
                 static = {k: v.clone() for k, v in inputs.items()}
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
+                with autotune.counting_picks(), torch.cuda.graph(graph):
                     captured = run(static)
                 graphs[sig] = (graph, static, captured)
             trace.count("entry.captures", always=True)

@@ -24,13 +24,54 @@ def linear(x, w, bias=None, *, relu=False):
     return out
 
 
+def fc_arms(sparse_w: BSC, policy: ExecutionPolicy):
+    """The arms that run a BSC fc under ``policy``, as autotune measures
+    them: the XBSP ``spmm`` (where ``spmm_supported``), the ``bsc_spmm``
+    kernel, and the dense matmul."""
+    sparse = ("xbsp_spmm",) if xbs.spmm_supported(sparse_w, policy) else ()
+    return sparse + ("bsc_spmm", "dense")
+
+
+def run_fc_arm(arm: str, x2d, *, sparse_w: BSC, bias, relu: bool,
+               policy: ExecutionPolicy, dense=None):
+    """x2d [M, K] through one fc arm: "xbsp_spmm" (one product per live
+    block), "bsc_spmm" (the SpMM kernel; both with bias and ReLU in f32) or
+    "dense" (one matmul on ``dense`` [K', N] over x2d's first K' columns,
+    K' <= K: the weight without the BSC's padding)."""
+    if arm == "xbsp_spmm":
+        return xbs.spmm(x2d, sparse_w, bias=bias, relu=relu)
+    if arm == "bsc_spmm":
+        return bsc_spmm.bsc_spmm(x2d, sparse_w, bias=bias, relu=relu,
+                                 mxu_dtype=policy.mxu_dtype)
+    if arm == "dense":
+        return linear(x2d[:, :dense.shape[0]], dense, bias, relu=relu)
+    raise ValueError(f"unknown fc arm {arm!r}")
+
+
+def fc_arm(sparse_w: BSC, policy: ExecutionPolicy, rows: int, *, bias=None,
+           relu=False, dense=None) -> str:
+    """The arm ``linear_sparse`` runs for ``rows`` input rows: with
+    ``policy.autotune`` (no forced ``xbsp_arm``) and a dense weight to
+    offer, the measured winner (engine/autotune.choose_fc_arm); else the
+    JAX package's rule, the XBSP ``spmm`` under ``use_xla_sparse`` and the
+    SpMM kernel without."""
+    if policy.autotune and policy.xbsp_arm == "auto" and dense is not None:
+        from caffe_escoin_tpu_torch.engine import autotune
+
+        got = autotune.choose_fc_arm(sparse_w, dense, bias, relu, policy,
+                                     rows)
+        if got is not None:
+            return got
+    return "xbsp_spmm" if xbs.spmm_supported(sparse_w, policy) else "bsc_spmm"
+
+
 def linear_sparse(x, sparse_w, bias=None, *, relu=False,
-                  policy: Optional[ExecutionPolicy] = None):
-    """Sparse-weight FC. ``sparse_w`` is a BSC of W[K, M], run by the XBSP
-    ``spmm`` (one product per live block) with ``use_xla_sparse``, else by
-    the block-sparse SpMM kernel, bias and ReLU in f32; or an ELL of
-    W^T[M, K], run by the gather SpMM, then bias and ReLU in f32 and one
-    cast to x's dtype."""
+                  policy: Optional[ExecutionPolicy] = None, dense=None):
+    """Sparse-weight FC. ``sparse_w`` is a BSC of W[K, M], run by the arm
+    ``fc_arm`` picks (``dense`` [K, M] is the weight the dense arm
+    multiplies, and autotune measures the arms only where it is given),
+    bias and ReLU in its epilogue; or an ELL of W^T[M, K], run by the
+    gather SpMM, then bias and ReLU in f32 and one cast to x's dtype."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if isinstance(sparse_w, ELL):
@@ -43,9 +84,8 @@ def linear_sparse(x, sparse_w, bias=None, *, relu=False,
     if not isinstance(sparse_w, BSC):
         raise TypeError(type(sparse_w))
     policy = policy or ExecutionPolicy()
-    if xbs.spmm_supported(sparse_w, policy):
-        out = xbs.spmm(x2d, sparse_w, bias=bias, relu=relu)
-    else:
-        out = bsc_spmm.bsc_spmm(x2d, sparse_w, bias=bias, relu=relu,
-                                mxu_dtype=policy.mxu_dtype)
+    arm = fc_arm(sparse_w, policy, x2d.shape[0], bias=bias, relu=relu,
+                 dense=dense)
+    out = run_fc_arm(arm, x2d, sparse_w=sparse_w, bias=bias, relu=relu,
+                     policy=policy, dense=dense)
     return out.reshape(*lead, sparse_w.shape[1])

@@ -29,10 +29,15 @@ Span names: ``layer:<name>`` (each layer of ``Net.forward``);
 ``entry``, ``entry:signature``, ``entry:copy_in``, ``entry:replay`` (a
 call of ``inference_fn``'s forward); ``setup:fuse``, ``setup:align``,
 ``setup:to_device``, ``setup:kernel_build``, ``setup:kernel_load``,
-``setup:native_build``, ``setup:first_call``, ``setup:capture``. Counters:
-``entry.replays``, ``entry.eager_calls``, ``entry.captures`` and
-``capture.launches.<kernel>`` (each hand kernel's launches inside the
-captured forwards: what their replays launch). The hand kernels' own
+``setup:native_build``, ``setup:first_call``, ``setup:capture``,
+``setup:autotune`` (each measurement of autotune's arms,
+``engine/autotune``: inside ``setup:first_call`` where a forward asks for a
+key first). Counters: ``entry.replays``, ``entry.eager_calls``,
+``entry.captures``, ``capture.launches.<kernel>`` (each hand kernel's
+launches inside the captured forwards: what their replays launch), and
+the set-up counters ``autotune.measured.conv`` and ``autotune.measured.fc``
+(the keys measured) and ``autotune.pick.<arm>`` (the layers each arm
+serves in the captured forwards). The hand kernels' own
 ``calls`` / ``launches`` / ``launches_f32`` stay in their modules;
 ``snapshot()`` reads them.
 

@@ -111,8 +111,8 @@ Phases, one line each (any failure exits non-zero):
      TF32 off). Also the routing's host time per layer (``Net.routes``,
      host clock).
   4b. ResNet-50 b32 autotuned, configured as bench.py's ``pol_sparse``:
-     the XBSP branch (``use_xla_sparse``) with ``autotune`` on and
-     ``CESCOIN_AUTOTUNE_FUSED=1`` (the fused kernel competes), on the same
+     the XBSP branch (``use_xla_sparse``) with ``autotune`` on (the fused
+     kernel competes where it runs the shape), on the same
      pruned, fused weights and the same 4 inputs as the ResNet-50 row, the
      cache in a fresh file under ``build/``. ``calibrate_graph`` with
      polish 8 under ``net_scope("resnet50")``, three times, each from an
@@ -942,22 +942,35 @@ def _nopad(fn, x):
 
 def _check_arms(net, params, shapes, measured):
     """(keys, keys with "fused"): every arm competed on every measured key,
-    the fused kernel wherever the dispatcher would run it
+    a conv's with the fused kernel wherever the dispatcher would run it
     (``sconv_fused.supported`` and the reference's size gate
-    ``fits_budget``). Each key is mapped back to its conv as the
-    dispatcher forms it (a strided 1x1 conv on its subsampled map); raises
-    SystemExit otherwise."""
+    ``fits_budget``), a sparse fc's ``ops.linear.fc_arms``. Each key is
+    mapped back to its conv as the dispatcher forms it (a strided 1x1 conv
+    on its subsampled map), or to its fc; raises SystemExit otherwise."""
     import torch
 
     from caffe_escoin_tpu_torch.engine import autotune
     from caffe_escoin_tpu_torch.kernels import sconv_fused
     from caffe_escoin_tpu_torch.ops import conv as conv_ops
+    from caffe_escoin_tpu_torch.ops import linear as linear_ops
     from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
 
     dtype = net.policy.compute_dtype or torch.float32
     seen, n_fused = set(), 0
     for layer, in_shapes in net.walk_shapes(shapes):
         al = params.get(layer.spec.name)
+        if (layer.spec.type == "InnerProduct"
+                and isinstance(al, AlignedConvWeight) and layer._sparse(al)):
+            key = autotune.fc_cache_key(al.bsc, in_shapes[0][0], dtype,
+                                        net.policy.mxu_dtype)
+            want = set(linear_ops.fc_arms(al.bsc, net.policy))
+            if key in measured and key not in seen:
+                seen.add(key)
+                if set(measured[key]) != want:
+                    raise SystemExit(f"autotune: {layer.spec.name} measured "
+                                     f"{sorted(measured[key])}, expected "
+                                     f"{sorted(want)}")
+            continue
         if (layer.spec.type not in ("Convolution", "ConvolutionReLU")
                 or not isinstance(al, AlignedConvWeight) or al.bsc is None):
             continue
@@ -3124,11 +3137,9 @@ def _phase_experiments(mods, tag, results, dev):
     t_phase = time.perf_counter()
     cuda = dev.type == "cuda"
     extra = [] if cuda else ["--platform", "cpu"]
-    prev = {k: os.environ.get(k) for k in ("CESCOIN_AUTOTUNE_CACHE",
-                                           "CESCOIN_AUTOTUNE_FUSED")}
+    prev = {k: os.environ.get(k) for k in ("CESCOIN_AUTOTUNE_CACHE",)}
     # absolute: stability's phases run in processes of their own
     os.environ["CESCOIN_AUTOTUNE_CACHE"] = os.path.abspath(EXP_AUTOTUNE_CACHE)
-    os.environ["CESCOIN_AUTOTUNE_FUSED"] = "1"
     os.makedirs(common.OUT_DIR, exist_ok=True)
     for _, name, _ in EXP_RUNS:
         path = os.path.join(common.OUT_DIR, f"{name}.jsonl")
@@ -4023,7 +4034,6 @@ def main(argv=None) -> int:
 
     # ---- 4b. ResNet-50 b32 autotuned ---------------------------------------
     row = kept["resnet50"]
-    os.environ["CESCOIN_AUTOTUNE_FUSED"] = "1"
     os.makedirs(os.path.dirname(AUTOTUNE_CACHE), exist_ok=True)
     pol_at = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
                              compute_dtype=torch.bfloat16, cast_back=False,
@@ -4533,7 +4543,6 @@ def main(argv=None) -> int:
     # the same multiply type (the f32 fused arm against the XBSP arms and
     # dense, all f32 with TF32 off). Launches against Net.routes, every one
     # multiplying in f32; logits against the row's dense f32 net
-    os.environ["CESCOIN_AUTOTUNE_FUSED"] = "1"
     t_4f = time.perf_counter()
 
     def f32_logits(fwd, row, what):

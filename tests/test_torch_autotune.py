@@ -9,6 +9,7 @@ crafted cost model, so every decision of ``calibrate_graph`` is exact.
 
 import ast
 import json
+import os
 
 import numpy as np
 import pytest
@@ -45,7 +46,6 @@ def fresh(tmp_path, monkeypatch):
     """An empty in-process table and a cache file of this test's own."""
     path = str(tmp_path / "arms.json")
     monkeypatch.setenv("CESCOIN_AUTOTUNE_CACHE", path)
-    monkeypatch.delenv("CESCOIN_AUTOTUNE_FUSED", raising=False)
     autotune.clear()
     yield path
     autotune.clear()
@@ -351,11 +351,10 @@ def test_choose_arm_measures_once_and_caches(fresh, monkeypatch):
 def test_an_arm_that_raises_fails_the_measurement(fresh, monkeypatch,
                                                   failing):
     """No candidate drops out quietly: an XBSP arm, or the fused kernel
-    offered under CESCOIN_AUTOTUNE_FUSED, that raises fails choose_arm,
-    and nothing is cached."""
+    (offered where it runs the shape, with no switch), that raises fails
+    choose_arm, and nothing is cached."""
     from caffe_escoin_tpu_torch.kernels import sconv_fused
 
-    monkeypatch.setenv("CESCOIN_AUTOTUNE_FUSED", "1")
     rng = np.random.default_rng(6)
     _, al = _aligned(rng, 32, 32, 3)
 
@@ -379,25 +378,234 @@ def test_choose_arm_is_not_reentrant(fresh, monkeypatch):
     assert xbs.best_arm(al, POL, x_shape=(1, 6, 6, 32)) == "unroll"
 
 
-@pytest.mark.parametrize("fused", [False, True, "over_budget"])
-def test_measure_arms_times_every_candidate(fresh, monkeypatch, fused):
+@pytest.mark.parametrize("case", ["fused", "over_budget", "dilated"])
+def test_measure_arms_times_every_candidate(fresh, monkeypatch, case):
     """On CPU tensors (host clock): the four arms, and the direct kernel's
-    plain version with CESCOIN_AUTOTUNE_FUSED where the dispatcher would
-    run it (not on a shape over the reference's size budget); each time
-    positive."""
+    plain version where the dispatcher would run it, with no switch: not
+    on a shape over the reference's size budget, nor on a dilated conv,
+    which the kernel does not take; each time positive."""
     from caffe_escoin_tpu_torch.kernels import sconv_fused
 
-    if fused:
-        monkeypatch.setenv("CESCOIN_AUTOTUNE_FUSED", "1")
-    if fused == "over_budget":
+    if case == "over_budget":
         monkeypatch.setattr(sconv_fused, "VMEM_BUDGET", 1024)
+    dilation = (2, 2) if case == "dilated" else (1, 1)
     rng = np.random.default_rng(5)
     _, al = _aligned(rng, 16, 16, 3)
-    times = autotune.measure_arms(al, POL, (1, 5, 5, 16), (1, 1), (1, 1),
-                                  (1, 1), iters=2)
+    times = autotune.measure_arms(al, POL, (1, 5, 5, 16), (1, 1), dilation,
+                                  dilation, iters=2)
     expect = {"unroll", "gathered", "gathered_cols", "dense"}
-    assert set(times) == (expect | {"fused"} if fused is True else expect)
+    assert set(times) == (expect | {"fused"} if case == "fused" else expect)
     assert all(t > 0 for t in times.values())
+
+
+@pytest.mark.parametrize("supported, fits", [(True, True), (True, False),
+                                             (False, True), (False, False)])
+def test_fused_is_offered_exactly_where_its_gate_passes(
+        fresh, monkeypatch, supported, fits):
+    """The candidate set comes from the policy and the shape alone: the
+    fused kernel competes exactly where ``sconv_fused.supported`` and
+    ``fits_budget`` both pass, and no environment variable is read."""
+    from caffe_escoin_tpu_torch.kernels import sconv_fused
+
+    for name in [k for k in os.environ if k.startswith("CESCOIN_")]:
+        monkeypatch.delenv(name)
+    monkeypatch.setattr(sconv_fused, "supported",
+                        lambda *a, **k: supported)
+    monkeypatch.setattr(sconv_fused, "fits_budget", lambda *a, **k: fits)
+    offered = []
+    monkeypatch.setattr(benchmark, "device_time_arms",
+                        lambda arms, sets, iters: offered.append(set(arms))
+                        or {a: 1.0 for a in arms})
+    rng = np.random.default_rng(7)
+    _, al = _aligned(rng, 16, 16, 3)
+    autotune.measure_arms(al, POL, (1, 5, 5, 16), (1, 1), (1, 1), (1, 1))
+    assert ("fused" in offered[0]) == (supported and fits)
+    assert offered[0] - {"fused"} == {"unroll", "gathered", "gathered_cols",
+                                      "dense"}
+
+
+# ---- the fc's arms ---------------------------------------------------------
+
+def _fc(rng, k=64, n=32, sparsity=0.75, policy=POL):
+    """A pruned fc weight [K, N] aligned as InnerProduct aligns it: (its
+    BSC, its dense [K, N], a bias)."""
+    w = prune_conv_weight(rng.standard_normal((1, 1, k, n)).astype(
+        np.float32), sparsity, (8, 8))
+    al = weight_align(w, policy=policy)
+    return al.bsc, al.dense.reshape(k, n), torch.randn(n)
+
+
+def test_fc_keys_are_their_own_and_conv_keys_are_unchanged(fresh):
+    """A conv key is the repr of the tuple it has always been; an fc key
+    starts with "fc" and equals no conv key, on the same weight too."""
+    rng = np.random.default_rng(8)
+    _, al = _aligned(rng, 32, 64, 1)
+    key = autotune.cache_key(al, (2, 8, 6, 32), (2, 2), (0, 0), (1, 1),
+                             torch.bfloat16, "bfloat16")
+    assert key == repr(("cpu", (2, 8, 6, 32), "torch.bfloat16", (1, 1),
+                        (2, 2), (0, 0), (1, 1), al.cin_pad, al.cout,
+                        al.groups, (8, 8), autotune._pattern_sig(al)))
+    fkey = autotune.fc_cache_key(al.bsc, 2, torch.bfloat16, "bfloat16")
+    t = ast.literal_eval(fkey)
+    assert t == ("fc", "cpu", 2, "torch.bfloat16", tuple(al.bsc.shape),
+                 (8, 8), autotune._pattern_sig(al))
+    assert fkey != key and not fkey.startswith("('cpu'")
+    assert autotune._key_traffic(fkey, 2) == 2.0 * 2 * sum(al.bsc.shape)
+    assert autotune.fc_cache_key(al.bsc, 3, torch.bfloat16,
+                                 "bfloat16") != fkey
+    f32 = autotune.fc_cache_key(al.bsc, 2, torch.bfloat16, "float32")
+    assert f32 == fkey[:-1] + ", 'float32')"
+
+
+@pytest.mark.parametrize("fastest", ["dense", "bsc_spmm", "xbsp_spmm"])
+def test_fc_arms_are_timed_in_turn_and_the_fastest_wins(fresh, monkeypatch,
+                                                        fastest):
+    """The three arms, each with the bias and ReLU epilogue, timed through
+    ``device_time_arms`` on a counting clock (each call advances it by its
+    arm's cost): every arm runs each input set once eagerly, then round i
+    runs every arm once on set i % 4; the cheapest arm is picked."""
+    from caffe_escoin_tpu_torch.ops import linear as linear_ops
+    from caffe_escoin_tpu_torch.utils import benchmark
+
+    clock = {"t": 0.0}
+    cost = {"xbsp_spmm": 3.0, "bsc_spmm": 2.0, "dense": 4.0}
+    cost[fastest] = 1.0
+    seen = []
+    sets = {}
+
+    def fake(arm, x2d, *, sparse_w, bias, relu, policy, dense):
+        assert relu and bias is not None and dense.shape == sparse_w.shape
+        seen.append((arm, sets.setdefault(x2d.data_ptr(), len(sets))))
+        clock["t"] += cost[arm]
+
+    monkeypatch.setattr(linear_ops, "run_fc_arm", fake)
+    monkeypatch.setattr(benchmark, "time", type("clock", (), {
+        "perf_counter": staticmethod(lambda: clock["t"])}))
+    bsc, dense, bias = _fc(np.random.default_rng(9))
+    arm = autotune.choose_fc_arm(bsc, dense, bias, True, POL, 4)
+    assert arm == fastest
+    arms = ["xbsp_spmm", "bsc_spmm", "dense"]
+    eager = [(a, i) for a in arms for i in range(4)]
+    assert seen[:12] == eager
+    assert seen[12:] == [(a, i % 4) for i in range(10) for a in arms]
+    key = autotune.fc_cache_key(bsc, 4, torch.float32)
+    assert autotune.report()[key] == {a: cost[a] for a in arms}
+
+
+def test_fc_pick_is_cached_and_not_measured_again(fresh, monkeypatch):
+    measured = []
+    monkeypatch.setattr(autotune, "measure_fc_arms",
+                        lambda *a, **k: measured.append(1) or {
+                            "xbsp_spmm": 3.0, "bsc_spmm": 2.0, "dense": 1.0})
+    bsc, dense, bias = _fc(np.random.default_rng(10))
+    args = (bsc, dense, bias, False, POL, 4)
+    assert autotune.choose_fc_arm(*args) == "dense"
+    assert autotune.choose_fc_arm(*args) == "dense"
+    assert measured == [1]
+    key = autotune.fc_cache_key(bsc, 4, torch.float32)
+    with open(fresh) as fh:
+        assert json.load(fh)[key] == "dense"
+    autotune.clear()  # from the file, not measured again
+    assert autotune.choose_fc_arm(*args) == "dense" and measured == [1]
+
+
+@pytest.mark.parametrize("kind", ["conv", "fc"])
+def test_a_measurement_during_capture_raises(fresh, monkeypatch, kind):
+    """On the card, a key not cached when a CUDA graph is being captured
+    raises, for an fc as for a conv: nothing is measured inside a
+    capture."""
+    import dataclasses
+    import types
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    for name in ("measure_arms", "measure_fc_arms"):
+        monkeypatch.setattr(autotune, name, lambda *a, **k: pytest.fail(
+            "measured during a capture"))
+    rng = np.random.default_rng(11)
+    if kind == "conv":
+        _, al = _aligned(rng, 32, 32, 3)
+        bsc = al.bsc
+    else:
+        bsc, dense, bias = _fc(rng)
+    # the weight as if it were on the card (its blocks report is_cuda)
+    blocks = types.SimpleNamespace(device=torch.device("cpu"), is_cuda=True)
+    card = types.SimpleNamespace(blocks=blocks, shape=bsc.shape,
+                                 block_shape=bsc.block_shape,
+                                 memo={"sig": autotune._bsc_sig(bsc)})
+    with pytest.raises(RuntimeError, match="during CUDA-graph capture"):
+        if kind == "conv":
+            al = dataclasses.replace(al, bsc=card)
+            autotune.choose_arm(al, POL, (1, 6, 6, 32), (1, 1), (1, 1),
+                                (1, 1))
+        else:
+            autotune.choose_fc_arm(card, dense, bias, False, POL, 4)
+    assert autotune._CACHE == {}
+
+
+@pytest.mark.parametrize("xla", [True, False])
+def test_autotune_off_leaves_the_fc_routes(fresh, monkeypatch, xla):
+    """Without autotune an fc runs as it always has: the XBSP ``spmm`` on
+    the XBSP branch, as in the JAX package, and the ``bsc_spmm`` kernel on
+    the kernel routes; nothing is measured. With autotune on, the route
+    is the measured pick ("bsc_spmm" named "spmm")."""
+    import dataclasses
+
+    from caffe_escoin_tpu_torch.kernels import bsc_spmm
+    from caffe_escoin_tpu_torch.nn import Net
+    from caffe_escoin_tpu_torch.nn.net import LayerSpec
+
+    ran = []
+    monkeypatch.setattr(autotune, "measure_fc_arms",
+                        lambda *a, **k: ran.append("measured") or {
+                            "xbsp_spmm": 3.0, "bsc_spmm": 1.0, "dense": 2.0})
+    for mod, name in ((xbs, "spmm"), (bsc_spmm, "bsc_spmm")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: (
+            ran.append(_n), _r(*a, **k))[1])
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=(8, 8),
+                          use_xla_sparse=xla)
+    spec = LayerSpec("fc", "InnerProduct", ("data",),
+                     params=dict(num_output=32))
+    rng = np.random.default_rng(12)
+    w = prune_conv_weight(rng.standard_normal((1, 1, 64, 32)).astype(
+        np.float32), 0.75, (8, 8))[0, 0]
+    x = torch.randn(4, 64)
+    for autotuned in (False, True):
+        p = dataclasses.replace(pol, autotune=autotuned)
+        net = Net([spec], policy=p)
+        aligned = net.weight_align({"fc": {"w": torch.from_numpy(w),
+                                           "b": torch.zeros(32)}})
+        ran.clear()
+        route = net.routes(aligned, {"data": (4, 64)})["fc"]
+        out = net.forward(aligned, {"data": x})["fc"]
+        torch.testing.assert_close(out, x @ torch.from_numpy(w),
+                                   rtol=1e-4, atol=1e-4)
+        if not autotuned:
+            assert route == ("xbsp_spmm" if xla else "spmm")
+            assert ran == ["spmm" if xla else "bsc_spmm"]
+        else:
+            assert route == "spmm" and ran == ["measured", "bsc_spmm"]
+
+
+def test_calibrate_polish_tries_an_fcs_own_arms(fresh):
+    """calibrate_graph counts the fc keys among the sparse keys, and its
+    polish offers an fc key only the fc's arms that run every shape."""
+    rng = np.random.default_rng(13)
+    bsc, dense, bias = _fc(rng)
+    key = autotune.fc_cache_key(bsc, 4, torch.float32)
+    autotune._CACHE[key] = "xbsp_spmm"
+    tried = []
+
+    def time_fn():
+        arm = autotune.choose_fc_arm(bsc, dense, bias, False, POL, 4)
+        tried.append(arm)
+        return {"xbsp_spmm": 1.0, "dense": 2.0, "bsc_spmm": 0.5}[arm]
+
+    rep = autotune.calibrate_graph(time_fn, polish=8, log=lambda m: None)
+    assert rep["sparse_keys"] == 1
+    assert set(tried) == {"xbsp_spmm", "dense", "bsc_spmm"}
+    assert rep["arms"] == {key: "bsc_spmm"}
 
 
 def test_device_time_cycles_its_argument_sets():

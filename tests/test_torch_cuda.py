@@ -59,7 +59,10 @@ and ``device_time_arms`` replay CUDA graphs (each pair captured once; the
 arms in turn), the port's ``bench`` runs
 ``--per-layer --smoke`` on the card within phase 3's limit,
 ``Net.inference_fn(cuda_graph=True)`` replays the eager forward's results,
-and a capture that would have to measure an autotune key raises.
+a capture that would have to measure an autotune key raises, and VGG-16
+b32 autotuned, set up by the benchmark's ``portbench/`` from its
+configuration, routes every pruned layer as autotune picked it and meets
+the configuration's limit against the plain reference.
 
 parallel/ at world size 1, over NCCL (a group from an in-process store):
 the halo path's ``engine="pallas"`` launches ``sconv_gc`` once and gives
@@ -798,11 +801,72 @@ def test_autotune_refuses_to_measure_during_graph_capture(dev, tmp_path,
         key = autotune.cache_key(al, shape, (1, 1), (1, 1), (1, 1),
                                  torch.bfloat16)
         assert key.startswith("('cuda:")
+        # the fused kernel competes wherever it runs the shape
+        x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+        fused = (sconv_fused.supported(x, al)
+                 and sconv_fused.fits_budget(x, al, (1, 1)))
         assert set(autotune.report()[key]) == {
-            "unroll", "gathered", "gathered_cols", "dense"}
+            "unroll", "gathered", "gathered_cols", "dense"} | (
+            {"fused"} if fused else set())
         assert arm == min(autotune.report()[key],
                           key=autotune.report()[key].get)
     finally:
+        autotune.clear()
+
+
+def test_vgg16_b32_autotuned_through_the_graph_entry(dev):
+    """VGG-16 b32 set up as the benchmark's ``vgg16-block90-autotuned``
+    configuration sets it up (``portbench/``: seeded weights, 90% of
+    128x128 blocks pruned in 12 convs and 3 fcs, SCONV_PAR on the XBSP
+    branch, autotune, no cache file), through ``inference_fn(cuda_graph=
+    True)``: the first call measures every pruned layer's arms, the
+    capture counts one ``autotune.pick.*`` for each of the 15 pruned
+    layers, every pruned layer's route is its autotuned pick (an fc's the
+    fastest measured), and the replayed logits are within the
+    configuration's ``logit_rel_err`` of the plain f32 reference."""
+    from pathlib import Path
+
+    from portbench import check, harness, weights
+    from portbench.system import PortSystem
+
+    from caffe_escoin_tpu_torch.utils import trace
+
+    bench = harness.Bench(Path(__file__).resolve().parents[1])
+    cfg = bench.config("vgg16-block90-autotuned")
+    seed = 2 ** 31 + 7
+    table, params, pruned = weights.make_net(
+        cfg, bench.reference(cfg["reference"]), seed, dev)
+    assert len(pruned) == 15
+    hwc = tuple(cfg["input_hwc"])
+    pool = weights.images(2 * 32, hwc, weights.generator(
+        seed, weights.POOL, dev), dev).view(2, 32, *hwc)
+    autotune.clear()
+    before = trace.snapshot()["counters"]
+    system = PortSystem(cfg, table, params, dev)
+    try:
+        # the first query measures and captures, the second replays
+        kept = [(j, system.query(pool[j])) for j in range(2)]
+        after = trace.snapshot()["counters"]
+        grew = {k: n - before.get(k, 0) for k, n in after.items()
+                if k.startswith("autotune.") and n != before.get(k, 0)}
+        assert sum(n for k, n in grew.items()
+                   if k.startswith("autotune.pick.")) == 15, grew
+        assert grew["autotune.measured.fc"] == 3, grew
+        with autotune.record_keys() as served:
+            routes = system.net.routes(system.aligned,
+                                       {"data": tuple(pool[0].shape)})
+        order = [name for name in routes if name in pruned]
+        assert len(order) == len(served) == 15
+        times = autotune.report()
+        for name, (key, arm) in zip(order, served):
+            assert routes[name] == {"bsc_spmm": "spmm"}.get(arm, arm), name
+            if name.startswith("fc"):
+                assert arm == min(times[key], key=times[key].get), name
+        numbers, _ = check.against_reference(table, params, pool, kept, cfg)
+        print(f"vgg16 b32 autotuned: routes {routes}; {numbers}")
+        assert numbers["logit_rel_err"] <= cfg["limits"]["logit_rel_err"]
+    finally:
+        system.close()
         autotune.clear()
 
 

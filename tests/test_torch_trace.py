@@ -163,6 +163,81 @@ def test_setup_spans_record_with_tracing_off():
     assert trace.snapshot()["counters"] == {"c": 1}
 
 
+def lenet_autotuned(tmp_path, device=CPU, batch=2, autotune_on=True):
+    """LeNet with conv2 and ip1 pruned at 90% in 16x16 blocks, fused and
+    aligned on the XBSP branch, autotuned with a cache file of its own in
+    ``tmp_path``; (net, aligned params, input, pruned layer names)."""
+    from caffe_escoin_tpu_torch.engine import autotune
+
+    autotune.clear()
+    make_specs, shapes = ZOO["lenet"]
+    policy = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR,
+                             block_shape=(16, 16), autotune=autotune_on,
+                             autotune_cache=str(tmp_path / "arms.json"))
+    net = Net(make_specs(), policy=policy, phase="test")
+    shape = (batch,) + tuple(shapes["data"][1:])
+    params = net.init(torch.Generator().manual_seed(0), {"data": shape})
+    for name in ("conv2", "ip1"):
+        w = params[name]["w"].numpy()
+        w4 = w if w.ndim == 4 else w[None, None]
+        pruned = prune_conv_weight(w4, 0.9, (16, 16)).reshape(w.shape)
+        params[name] = dict(params[name], w=torch.from_numpy(pruned))
+    net, params = fuse_inference(net, params)
+    aligned = params_to(net.weight_align(params), device)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    return net, aligned, x.to(device), ("conv2", "ip1")
+
+
+def _autotune_counters():
+    return {k: n for k, n in trace.snapshot()["counters"].items()
+            if k.startswith("autotune.")}
+
+
+def test_autotune_spans_and_counters_record_with_tracing_off(tmp_path):
+    """Each key autotune measures is one ``setup:autotune`` span and one
+    ``autotune.measured.conv`` or ``.fc``, tracing off; a second forward
+    measures nothing; the picks of a forward counted by ``counting_picks``
+    sum to the pruned layers, and an enclosing ``record_keys`` sees them
+    too."""
+    from caffe_escoin_tpu_torch.engine import autotune
+
+    assert not trace.enabled()
+    net, aligned, x, pruned = lenet_autotuned(tmp_path)
+    with torch.inference_mode():
+        net.forward(aligned, {"data": x})
+        snap = trace.snapshot()
+        assert snap["spans"]["setup:autotune"]["count"] == 2
+        assert _autotune_counters() == {"autotune.measured.conv": 1,
+                                        "autotune.measured.fc": 1}
+        with autotune.record_keys() as outer:
+            with autotune.counting_picks() as picks:
+                net.forward(aligned, {"data": x})
+    assert trace.snapshot()["spans"]["setup:autotune"]["count"] == 2
+    got = _autotune_counters()
+    assert got.pop("autotune.measured.conv") == 1
+    assert got.pop("autotune.measured.fc") == 1
+    assert all(k.startswith("autotune.pick.") for k in got)
+    assert sum(got.values()) == len(pruned) == len(picks)
+    assert outer == picks
+    for _, arm in picks:
+        assert got[f"autotune.pick.{arm}"] >= 1
+    # the routes name the picks ("bsc_spmm" is the fc route "spmm")
+    routes = net.routes(aligned, {"data": tuple(x.shape)})
+    assert sorted(routes[n] for n in pruned) == sorted(
+        {"bsc_spmm": "spmm"}.get(arm, arm) for _, arm in picks)
+    autotune.clear()
+
+
+def test_autotune_off_records_nothing(tmp_path):
+    from caffe_escoin_tpu_torch.engine import autotune
+
+    net, aligned, x, _ = lenet_autotuned(tmp_path, autotune_on=False)
+    with torch.inference_mode(), autotune.counting_picks() as picks:
+        net.forward(aligned, {"data": x})
+    assert picks == [] and _autotune_counters() == {}
+    assert "setup:autotune" not in trace.snapshot()["spans"]
+
+
 # ---- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -202,3 +277,25 @@ def test_capture_counts_launches_and_traced_calls_replay(dev):
         assert snap["spans"][name]["count"] == 3
     for k in want:
         assert torch.equal(got[k], first[k])
+
+
+@pytest.mark.cuda
+def test_capture_counts_the_autotuned_picks(dev, tmp_path):
+    """A capture counts one ``autotune.pick.<arm>`` per pruned layer of the
+    captured forward, as the layers' routes name them; the measuring is
+    inside the first call, never in the capture."""
+    net, aligned, x, pruned = lenet_autotuned(tmp_path, dev, batch=8)
+    aligned = params_to(aligned, dev, torch.bfloat16)
+    fn = net.inference_fn(aligned, cuda_graph=True)
+    fn({"data": x})
+    fn({"data": x})
+    snap = trace.snapshot()
+    assert snap["counters"]["entry.captures"] == 1
+    assert snap["counters"]["autotune.measured.conv"] == 1
+    assert snap["counters"]["autotune.measured.fc"] == 1
+    picks = {k[len("autotune.pick."):]: n for k, n in snap["counters"].items()
+             if k.startswith("autotune.pick.")}
+    assert sum(picks.values()) == len(pruned)
+    assert snap["spans"]["setup:autotune"]["count"] == 2
+    assert (snap["spans"]["setup:first_call"]["total_s"]
+            >= snap["spans"]["setup:autotune"]["total_s"])
