@@ -1,13 +1,15 @@
-"""A/B of three max-pool formulations on the card (port of
+"""A/B of four max-pool formulations on the card (port of
 ``scripts/exp_pool_r5.py``), on its six hot shapes in bf16:
 
-* ``rw``: the port's own max-pool path (``ops/pool.pool2d``: pad with
-  -inf, ``F.max_pool2d`` on a channels-first view, crop), the counterpart
-  of ``lax.reduce_window``;
+* ``rw``: the max-pool kernel's plain version
+  (``kernels/maxpool.max_pool_plain``: pad with -inf, ``F.max_pool2d`` on a
+  channels-first view, crop), the counterpart of ``lax.reduce_window``;
 * ``slice9``: the max of kh*kw shifted strided slices of the padded input;
-* ``twopass``: the 1-D W-max (stride sw), then the 1-D H-max (stride sh).
+* ``twopass``: the 1-D W-max (stride sw), then the 1-D H-max (stride sh);
+* ``hand``: the port's own max-pool path, ``ops/pool.pool2d``: the hand
+  kernel ``csrc/maxpool.cu`` on the card (the plain version on the CPU).
 
-The three must give the same tensor (``torch.equal``, as the script
+The four must give the same tensor (``torch.equal``, as the script
 asserts ``np.array_equal``). Each is timed by ``device_time`` over
 CUDA-graph replays cycling 4 inputs; one ``pool_ab`` row per shape with
 ``t_<name>_us``.
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.experiments import common
+from caffe_escoin_tpu_torch.kernels.maxpool import max_pool_plain
 from caffe_escoin_tpu_torch.ops.pool import _pooled_size, pool2d
 from caffe_escoin_tpu_torch.utils.benchmark import device_time
 
@@ -48,7 +51,9 @@ def _padded(x, k, s, p):
 
 
 def pool_rw(x, k, s, p):
-    return pool2d(x, (k, k), stride=(s, s), padding=(p, p), mode="max")
+    ho = _pooled_size(x.shape[1], k, s, p, True)
+    wo = _pooled_size(x.shape[2], k, s, p, True)
+    return max_pool_plain(x, (k, k), (s, s), (p, p), (ho, wo))
 
 
 def pool_slice9(x, k, s, p):
@@ -74,8 +79,12 @@ def pool_twopass(x, k, s, p):
     return out.contiguous()
 
 
+def pool_hand(x, k, s, p):
+    return pool2d(x, (k, k), stride=(s, s), padding=(p, p), mode="max")
+
+
 CANDIDATES = (("rw", pool_rw), ("slice9", pool_slice9),
-              ("twopass", pool_twopass))
+              ("twopass", pool_twopass), ("hand", pool_hand))
 
 
 def run(device, emit, *, shapes=SHAPES, iters=ITERS):

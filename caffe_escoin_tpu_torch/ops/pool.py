@@ -4,6 +4,9 @@ pooling between W-pair packed layouts, and spatial pyramid pooling (port of
 
 * ceil-mode output sizing, with the last window required to start inside
   the padded input (``_pooled_size``);
+* max pooling is ``kernels/maxpool.max_pool``: the hand kernel
+  ``csrc/maxpool.cu`` on the card, the plain pad / ``F.max_pool2d`` / crop
+  elsewhere;
 * average pooling divides each window by its size clipped at the input
   plus padding (``pooling_layer.cpp``: ``hend = min(hstart + k, H + pad)``):
   the padding counts, the ceil-extended edge beyond it does not. The JAX
@@ -19,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from caffe_escoin_tpu_torch.kernels import maxpool
 from caffe_escoin_tpu_torch.ops import wpack
 
 
@@ -127,12 +131,7 @@ def pool2d(x, kernel, *, stride=None, padding=(0, 0), mode="max",
         return out.contiguous()
     if mode != "max":
         raise ValueError(f"unknown pool mode {mode!r}")
-    # pad right/bottom enough to cover the (possibly ceil-extended) last window
-    pad_h2 = max(0, (ho - 1) * sh + kh - h - ph)
-    pad_w2 = max(0, (wo - 1) * sw + kw - w - pw)
-    xp = F.pad(x, (0, 0, pw, pad_w2, ph, pad_h2), value=float("-inf"))
-    out = F.max_pool2d(xp.permute(0, 3, 1, 2), (kh, kw), (sh, sw))
-    return out.permute(0, 2, 3, 1)[:, :ho, :wo, :].contiguous()
+    return maxpool.max_pool(x, (kh, kw), (sh, sw), (ph, pw), (ho, wo))
 
 
 def _check_mode(mode, who):

@@ -43,8 +43,9 @@ serves in the captured forwards). The hand kernels' own
 
 The hand kernels are of two kinds: ``KERNELS``, the ports of the JAX
 package's Pallas kernels, and ``OP_KERNELS``, kernels of ops that the JAX
-package leaves to XLA (``lrn``: LRN across channels). ``kernel_counts()``,
-and so ``snapshot()`` and the capture counters, read both.
+package leaves to XLA (``lrn``: LRN across channels; ``maxpool``: max
+pooling). ``kernel_counts()``, and so ``snapshot()`` and the capture
+counters, read both.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ import torch
 PREFIX = "cet:"
 LAYER = "layer:"
 KERNELS = ("sconv_fused", "sconv_gc", "bsc_spmm")
-OP_KERNELS = ("lrn",)
+OP_KERNELS = ("lrn", "maxpool")
 KERNEL_COUNTERS = ("calls", "launches", "launches_f32")
 
 ON = False  # read directly on the per-query path: ``if trace.ON``

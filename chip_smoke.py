@@ -47,7 +47,7 @@ ResNet-50 b32 run in f32 on them (phase 4f).
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
   2. build: the three ported CUDA kernels, each with a bf16 and an f32
-     entry, and the LRN kernel (bf16 and f32 maps),
+     entry, and the LRN and max-pool kernels (bf16 and f32 maps),
      from the sources in this checkout, and nvcc's register and spill
      report per kernel template, Rows policy and operand type (the direct
      convs' instances apart from the SpMM's; ``f32`` names the f32-operand
@@ -76,6 +76,14 @@ Phases, one line each (any failure exits non-zero):
      a CUDA graph beside its plain version, ``F.local_response_norm`` on
      the map's NCHW view (the library's, timed here only; the port never
      calls it) and its bound, one bf16 read and one write at 3.35 TB/s.
+  3m. the max-pool kernel (csrc/maxpool.cu, a kernel of an op the JAX
+     package leaves to XLA) at b32's pool shapes in bf16 (``MAXPOOL_SHAPES``:
+     GoogLeNet's and ResNet-50's pool1, GoogLeNet's pool2 and its
+     inception_3a and 4e pools, VGG-16's pool1): its plain version's bits,
+     one launch a call; timed eager and as a CUDA graph beside its plain
+     version, ``F.max_pool2d`` on the map's NCHW view with Caffe's padding
+     and ceil mode (the library's, timed here only) and its bound, one bf16
+     read of the map and one write of the output at 3.35 TB/s.
   3b. the XBSP arms (torch ops, no kernel of this package): unroll,
      gathered and gathered_cols at three ResNet-50 shapes (on the padded
      3x3 one also in the ``CESCOIN_XBSP_NOPAD`` pad-free form) and spmm at
@@ -104,9 +112,11 @@ Phases, one line each (any failure exits non-zero):
   4. nets, each on 4 distinct inputs with every launch counter set to 0
      just before and read just after: every route kernel must have
      launched as many times as the layers' routes (``Net.routes``, the
-     function the dispatch runs through) say, and the LRN kernel once per
-     LRN layer (GoogLeNet and AlexNet 2, ResNet-50 and VGG-16 0; so too in
-     phases 4b-4f and 7c); the last classifier's logits within 5e-2
+     function the dispatch runs through) say, the LRN kernel once per
+     LRN layer (GoogLeNet and AlexNet 2, ResNet-50 and VGG-16 0) and the
+     max-pool kernel once per max pool on an unpacked input (GoogLeNet 13,
+     ResNet-50 1, VGG-16 5, AlexNet 3; so too in phases 4b-4f and 7c); the
+     last classifier's logits within 5e-2
      relative L2 of the same pruned, fused net run dense in f32 (cuDNN,
      TF32 off). Also the routing's host time per layer (``Net.routes``,
      host clock).
@@ -421,11 +431,13 @@ and 10b's kernel routes, phase 11's bare, weights-as-args and
 forced-fused forwards and halo run, and phase 13's probes; phase 6 and
 the rest of phases 7, 8, 10 and 11 are not counted there). Each kernel is followed by its f32-multiply variant
 (``<name>_f32``: the same source and TPU kernel, phase 3f's errors and
-times with the f32 bound, phase 4f's launches). Last comes the LRN kernel
+times with the f32 bound, phase 4f's launches). Last come the LRN kernel
 (``lrn``, ``replaces`` null): phase 3l's errors, times and bound, and its
 launches in phases 4, 4b-4f and 7c, one per LRN layer of each forward
 (GoogLeNet's and AlexNet's two, none in ResNet-50 or VGG-16), checked
-there against that count. As the last line
+there against that count; and the max-pool kernel (``maxpool``,
+``replaces`` null): phase 3m's, and its launches there, one per max pool
+on an unpacked input. As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (or
@@ -472,9 +484,11 @@ KERNELS = {  # name -> the TPU kernel it replaces
 # the f32-multiply variant of each (mxu_dtype="float32"; phases 3f and 4f),
 # listed beside it in the kernels line
 KERNELS_F32 = {f"{k}_f32": k for k in KERNELS}
-# the hand kernel of an op that the JAX package leaves to XLA: one launch per
-# LRN layer of a forward on the card, whatever the routes
+# the hand kernels of ops that the JAX package leaves to XLA: one launch per
+# LRN layer, and per max pool on an unpacked input, of a forward on the
+# card, whatever the routes
 LRN_KERNEL = "lrn"
+MAXPOOL_KERNEL = "maxpool"
 # phase 3f: each kernel multiplying in f32 against its plain version in f64
 # on the card, max abs err within this share of max|ref| (one TF32 pass
 # misses it by more than 10x)
@@ -502,6 +516,18 @@ LRN_SHAPES = (("norm1 b32 56x56x64", (32, 56, 56, 64)),
               ("norm2 b32 56x56x192", (32, 56, 56, 192)))
 LRN_PARAMS = dict(local_size=5, alpha=1e-4, beta=0.75, k=1.0)
 LRN_SCALE = 30.0
+# phase 3m: the max-pool kernel at the benchmark's b32 pool shapes, (label,
+# map, kernel, stride, padding), ceil mode
+MAXPOOL_SHAPES = (
+    ("pool1 b32 112x112x64 3x3/s2 (GoogLeNet, ResNet-50)",
+     (32, 112, 112, 64), 3, 2, 0),
+    ("googlenet pool2 b32 56x56x192 3x3/s2", (32, 56, 56, 192), 3, 2, 0),
+    ("googlenet inception_3a/pool b32 28x28x192 3x3/s1/p1",
+     (32, 28, 28, 192), 3, 1, 1),
+    ("googlenet inception_4e/pool b32 14x14x528 3x3/s1/p1",
+     (32, 14, 14, 528), 3, 1, 1),
+    ("vgg16 pool1 b32 224x224x64 2x2/s2", (32, 224, 224, 64), 2, 2, 0),
+)
 # the autotuned row: bench.py's calibration (polish 8, net scope), and a
 # cache file of this run's own (gitignored, deleted first)
 CALIB_POLISH = 8
@@ -586,7 +612,7 @@ STEP_NETS = (("alexnet", 8), ("cifar10_bn", 100))
 STEP_LOSS_REL, STEP_UPDATE_REL, STEP_BN_TOL = 1e-4, 1e-3, 1e-4
 # phase 7c: what the trained, pruned AlexNet must launch per forward
 TRAINED_LAUNCHES = {"sconv_fused": 4, "bsc_spmm": 3, "sconv_gc": 0,
-                    LRN_KERNEL: 2}
+                    LRN_KERNEL: 2, MAXPOOL_KERNEL: 3}
 CLI_TRAIN_ITERS = 4
 # the GoogLeNet stem layers phase 4e prints side by side
 STEM_LAYERS = ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
@@ -755,6 +781,9 @@ def _ptxas_summary(log) -> str:
         if kern and kern.group(1) == "lrn_kernel":
             fam = fams["lrn_kernel<" + ("f32" if "lrn_kernelIf" in symbol
                                         else "bf16") + ">"]
+        elif kern and kern.group(1).startswith("maxpool_"):
+            fam = fams[kern.group(1) + "<" + ("f32" if "3F32" in symbol
+                                              else "bf16") + ">"]
         else:
             fam = fams[(kern.group(1) if kern else "other")
                        + (f"<{rows.group(1)}" if rows else "<")
@@ -855,10 +884,17 @@ def _bound(nbytes, flops, rates=BOUND_RATES):
     return ms[by], by
 
 
-def _lrn_layers(net) -> int:
-    """The LRN kernel's launches in one forward of ``net`` on the card: one
-    per LRN layer."""
-    return sum(layer.spec.type == "LRN" for layer in net.layers)
+def _op_kernel_launches(net) -> dict:
+    """The launches of the op kernels in one forward of ``net`` on the
+    card: the LRN kernel's, one per LRN layer; the max-pool kernel's, one
+    per max pool on an unpacked input (a packed input takes
+    ``pool2d_packed``)."""
+    return {LRN_KERNEL: sum(layer.spec.type == "LRN" for layer in net.layers),
+            MAXPOOL_KERNEL: sum(
+                layer.spec.type == "Pooling"
+                and layer.p.get("mode", "max") == "max"
+                and not layer.p.get("global_pooling", False)
+                and layer.p.get("pack_in", 1) == 1 for layer in net.layers)}
 
 
 def _bf16_ulps(out, ref) -> float:
@@ -928,6 +964,66 @@ def _phase_lrn(tag, dev, r):
               f"it, {graph['kernel'] / graph['library']:.2f}x the library "
               f"{tag}")
         del xs, out, ref
+
+
+def _phase_maxpool(tag, dev, r):
+    """Phase 3m (see the module docstring); its errors, times and bounds
+    summed into ``r``, the max-pool kernel's results."""
+    import torch
+    import torch.nn.functional as F
+
+    from caffe_escoin_tpu_torch.kernels import maxpool
+    from caffe_escoin_tpu_torch.ops.pool import _pooled_size
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for label, shape, k, s, p in MAXPOOL_SHAPES:
+        args = ((k, k), (s, s), (p, p),
+                tuple(_pooled_size(n, k, s, p, True) for n in shape[1:3]))
+        arms = {
+            "kernel": lambda x, a=args: maxpool.max_pool(x, *a),
+            "plain": lambda x, a=args: maxpool.max_pool_plain(x, *a),
+            "library": lambda x, k=k, s=s, p=p: F.max_pool2d(
+                x.permute(0, 3, 1, 2), k, s, padding=p, ceil_mode=True),
+        }
+        xs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+              for _ in range(N_INPUTS)]
+        launches = maxpool.launches
+        with torch.inference_mode():
+            out = arms["kernel"](xs[0])
+            torch.cuda.synchronize()
+            ref = arms["plain"](xs[0])
+            lib = arms["library"](xs[0]).permute(0, 2, 3, 1)
+        r["err"] = max(r["err"], (out.float() - ref.float()).abs().max()
+                       .item())
+        ok = (maxpool.launches == launches + 1 and torch.equal(out, ref)
+              and torch.equal(lib, ref))
+        print(f"parity cet_maxpool {label}: the plain version's values "
+              f"(torch.equal, and the library's), "
+              f"{maxpool.launches - launches} launch "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"cet_maxpool {label}: disagrees with its plain "
+                             f"version or did not launch once")
+        with torch.inference_mode():
+            graph = {arm: _graph_ms(fn, xs) for arm, fn in arms.items()}
+            eager = {arm: _time_ms(fn, xs) for arm, fn in arms.items()}
+        nbytes = (xs[0].numel() + out.numel()) * xs[0].element_size()
+        bound_ms, bound_by = _bound(nbytes, 0)
+        for arm in arms:
+            key = "ms" if arm == "kernel" else f"{arm}_ms"
+            r[key] += eager[arm]
+            r["graph_" + key] += graph[arm]
+        r["bound_ms"] += bound_ms
+        r["bound"]["bytes"] += bound_ms  # all of it: no operations
+        print(f"time cet_maxpool {label}, as a CUDA graph (eager): "
+              + ", ".join(f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms"
+                          for arm in arms)
+              + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB at {BOUND_RATES['bytes'] / 1e12:.2f} "
+              f"TB/s), kernel graph at {bound_ms / graph['kernel']:.1%} of "
+              f"it, {graph['kernel'] / graph['library']:.2f}x the library "
+              f"{tag}")
+        del xs, out, ref, lib
 
 
 def _nopad(fn, x):
@@ -1394,7 +1490,7 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
                                                        ExecutionPolicy)
     from caffe_escoin_tpu_torch.engine.solver import Solver
     from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
-    from caffe_escoin_tpu_torch.kernels import lrn
+    from caffe_escoin_tpu_torch.kernels import lrn, maxpool
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
     from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
@@ -1542,7 +1638,7 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     routes = fnet.routes(aligned, in_shape)
     expect = collections.Counter(
         ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
-    expect[LRN_KERNEL] = _lrn_layers(fnet)
+    expect.update(_op_kernel_launches(fnet))
     fwd = fnet.inference_fn(params_to(aligned, dev, torch.bfloat16),
                             return_blobs=True)
     fwd_d = Net(fnet.specs, policy=ExecutionPolicy()).inference_fn(
@@ -1550,7 +1646,7 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     inputs = [{"data": torch.randn(in_shape["data"], generator=gen,
                                    device=dev)} for _ in range(N_INPUTS)]
-    net_mods = {**mods, LRN_KERNEL: lrn}
+    net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool}
     for m in net_mods.values():
         m.reset_counts()
     outs = [fwd(x)["fc8"].float().clone() for x in inputs]
@@ -3222,7 +3318,8 @@ def _phase_experiments(mods, tag, results, dev):
                     print(f"experiments pool {r['tag']} {r['shape']} "
                           f"k{r['k']} s{r['s']} p{r['p']}: rw "
                           f"{r['t_rw_us']} us, slice9 {r['t_slice9_us']}, "
-                          f"twopass {r['t_twopass_us']} (torch.equal) {tag}")
+                          f"twopass {r['t_twopass_us']}, hand "
+                          f"{r['t_hand_us']} (torch.equal) {tag}")
             elif name == "k3":
                 for r in rows:
                     ok = within(r["err"], r["ref_max"])
@@ -3319,7 +3416,8 @@ def main(argv=None) -> int:
         from caffe_escoin_tpu_torch.ops import linear as linear_ops
         from caffe_escoin_tpu_torch.utils.benchmark import device_time
         from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, lrn,
-                                                    sconv_fused, sconv_gc)
+                                                    maxpool, sconv_fused,
+                                                    sconv_gc)
         from caffe_escoin_tpu_torch.utils import trace
         from caffe_escoin_tpu_torch.models import ZOO
         from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
@@ -3340,11 +3438,12 @@ def main(argv=None) -> int:
               f"the repository root", file=sys.stderr)
         return 1
     # the route kernels, whose launches a net's routes name; the phases that
-    # run a forward on the kernel routes (4, 4b-4f, 7c) count the LRN kernel
-    # beside them (net_mods), one launch per LRN layer
+    # run a forward on the kernel routes (4, 4b-4f, 7c) count the op kernels
+    # beside them (net_mods): one LRN launch per LRN layer, one max-pool
+    # launch per max pool on an unpacked input
     mods = {"sconv_fused": sconv_fused, "bsc_spmm": bsc_spmm,
             "sconv_gc": sconv_gc}
-    net_mods = {**mods, LRN_KERNEL: lrn}
+    net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool}
     card = _card_line()
     print(card)
     tag = f"[{card}]"
@@ -3381,7 +3480,8 @@ def main(argv=None) -> int:
                        graph_ms=0.0, graph_plain_ms=0.0,
                        graph_library_ms=0.0, bound_ms=0.0, launches=0,
                        bound={"bytes": 0.0, "operations": 0.0})
-               for k in (*KERNELS, *KERNELS_F32, LRN_KERNEL)}
+               for k in (*KERNELS, *KERNELS_F32, LRN_KERNEL,
+                         MAXPOOL_KERNEL)}
     timed = []  # (kernel, label, {arm: fn}, args, bytes, flops)
 
     def check(kernel, label, out, ref):
@@ -3649,6 +3749,9 @@ def main(argv=None) -> int:
 
     # ---- 3l. the LRN kernel ------------------------------------------------
     _phase_lrn(tag, dev, results["lrn"])
+
+    # ---- 3m. the max-pool kernel -------------------------------------------
+    _phase_maxpool(tag, dev, results[MAXPOOL_KERNEL])
 
     # ---- 3b. the XBSP arms against the f32 dense conv ----------------------
     def time_line(what, label, arms, args, nbytes, flops):
@@ -3923,7 +4026,7 @@ def main(argv=None) -> int:
                     * 1e6)
         expect = collections.Counter(
             ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
-        expect[LRN_KERNEL] = _lrn_layers(fnet)
+        expect.update(_op_kernel_launches(fnet))
         sparse_params = params_to(aligned, dev, torch.bfloat16)
         dense_net = Net(fnet.specs, policy=ExecutionPolicy())
         dense_params = params_to(fparams, dev)
@@ -4008,11 +4111,12 @@ def main(argv=None) -> int:
 
     def launches_of(fwd, inputs, expect, what, net, f32=False):
         """Each route kernel launched N_INPUTS x what ``expect`` names and
-        the LRN kernel N_INPUTS x ``net``'s LRN layers, every launch in f32
+        the op kernels N_INPUTS x ``net``'s LRN layers and max pools, every
+        launch in f32
         with ``f32`` and none without; counted into the kernel's results
         (a route kernel's ``_f32`` variant's with ``f32``)."""
         want = {k: expect.get(k, 0) for k in mods}
-        want[LRN_KERNEL] = _lrn_layers(net)
+        want.update(_op_kernel_launches(net))
         for m in net_mods.values():
             m.reset_counts()
         for i in inputs:
@@ -4113,7 +4217,7 @@ def main(argv=None) -> int:
                          "complete after calibration")
     at_expect = collections.Counter(
         ROUTE_KERNELS[r] for r in at_routes.values() if r in ROUTE_KERNELS)
-    at_expect[LRN_KERNEL] = _lrn_layers(at_net)
+    at_expect.update(_op_kernel_launches(at_net))
     print(f"net resnet50 autotuned routes (served from the last run's "
           f"cache): {dict(collections.Counter(at_routes.values()))}; "
           + ", ".join(f"{n} {r}" for n, r in at_routes.items()) + f" {tag}")
@@ -4767,10 +4871,12 @@ def main(argv=None) -> int:
 
     # each kernel, then its f32-multiply variant (same source and TPU
     # kernel; its launches are phase 4f's, its times phase 3f's)
-    # and the LRN kernel, which replaces no TPU kernel (its times phase
-    # 3l's, its launches the nets' LRN layers in phases 4, 4b-4e and 7c)
+    # and the op kernels, which replace no TPU kernel (their times phases
+    # 3l's and 3m's, their launches the nets' LRN layers and max pools in
+    # phases 4, 4b-4e and 7c)
     names = [(k, base) for base in KERNELS
-             for k in (base, f"{base}_f32")] + [(LRN_KERNEL, LRN_KERNEL)]
+             for k in (base, f"{base}_f32")] + [
+        (LRN_KERNEL, LRN_KERNEL), (MAXPOOL_KERNEL, MAXPOOL_KERNEL)]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"caffe_escoin_tpu_torch/csrc/{base}.cu",

@@ -46,6 +46,15 @@ local_size 3 and 1: f32 within rtol 1e-5, atol 1e-6 (the same f32
 operations, rsqrt and powf may round apart), bf16 at most one bf16 ulp
 apart; its gradient is the plain version's.
 
+The max-pool kernel (csrc/maxpool.cu) against its plain version on the
+card, bit for bit (NaN where it has NaN): every max pool of the benchmark's
+three configurations at b8 and b32, f32 maps, C = 20 and C = 3, a map of
+ties, -inf, signed zeros and NaN, and windows off the kernel's ring (spp's,
+3x2 at stride (2, 1)); an empty map gets an empty output and no launch;
+its gradient is the plain version's, and a captured forward of GoogLeNet,
+ResNet-50 and VGG-16 launches it once a max pool (13, 1, 5), with no
+``max_pool_forward_nhwc`` left in a profiled forward.
+
 The data slice: a Data layer's tops land on the card (pinned host copies)
 as the batches of the file it reads, and the layer types of the rest of
 the catalog (Deconvolution, SPP, Im2col, the recurrent layers, Embed,
@@ -88,9 +97,10 @@ import torch
 
 from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
-from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, lrn,
+from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, lrn, maxpool,
                                             sconv_fused, sconv_gc)
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
+from caffe_escoin_tpu_torch.ops import pool as pool_ops
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
 from caffe_escoin_tpu_torch.utils.benchmark import (device_time,
@@ -1198,6 +1208,171 @@ def test_lrn_kernel_backward_is_the_plain_gradient(dev):
     xr = x.detach().requires_grad_()
     (want,) = torch.autograd.grad(lrn.lrn_plain(xr, **kw), xr, g)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _zoo_max_pools(model, batch):
+    """(name, input shape, kernel, stride, padding) of every max pool of
+    ``model`` at ``batch``."""
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net
+
+    build, shapes = ZOO[model]
+    return [(layer.spec.name, ins[0], *(layer._args()[k] for k in (
+        "kernel", "stride", "padding")))
+        for layer, ins in Net(build()).walk_shapes(
+            {"data": (batch,) + shapes["data"][1:]})
+        if layer.spec.type == "Pooling" and layer.p.get("mode", "max") == "max"
+        and not layer.p.get("global_pooling", False)]
+
+
+# the max-pool kernel: name -> (shape, kernel, stride, padding, dtype,
+# special values); the benchmark's 19 max pools at b8 and b32 in bf16, three
+# of them in f32, C not a multiple of the 16-byte vector, maps of ties, -inf,
+# signed zeros and NaN, and windows that take the kernel's other walk
+MAXPOOL_CASES = {
+    **{f"{m}_{name}_b{b}": (shape, k, s, p, torch.bfloat16, False)
+       for m in ("googlenet", "resnet50", "vgg16") for b in (8, 32)
+       for name, shape, k, s, p in _zoo_max_pools(m, b)},
+    "pool1_b32_f32": ((32, 112, 112, 64), (3, 3), (2, 2), (0, 0),
+                      torch.float32, False),
+    "inception_3a_b32_f32": ((32, 28, 28, 192), (3, 3), (1, 1), (1, 1),
+                             torch.float32, False),
+    "vgg_pool1_b8_f32": ((8, 224, 224, 64), (2, 2), (2, 2), (0, 0),
+                         torch.float32, False),
+    "c20": ((3, 13, 13, 20), (3, 3), (2, 2), (0, 0), torch.bfloat16, False),
+    "c20_f32": ((3, 13, 13, 20), (3, 3), (1, 1), (1, 1), torch.float32,
+                False),
+    "c3": ((2, 9, 9, 3), (3, 3), (1, 1), (1, 1), torch.bfloat16, False),
+    "c3_f32": ((2, 9, 9, 3), (2, 2), (2, 2), (0, 0), torch.float32, False),
+    "special": ((4, 14, 14, 64), (3, 3), (2, 2), (1, 1), torch.bfloat16,
+                True),
+    "special_s1": ((4, 14, 14, 64), (3, 3), (1, 1), (1, 1), torch.bfloat16,
+                   True),
+    "special_f32": ((4, 13, 13, 24), (3, 3), (2, 2), (0, 0), torch.float32,
+                    True),
+    "spp_4x4_s4_p2": ((2, 13, 13, 256), (4, 4), (4, 4), (2, 2),
+                      torch.bfloat16, True),
+    "3x2_s2x1": ((2, 11, 10, 40), (3, 2), (2, 1), (1, 0), torch.bfloat16,
+                 True),
+}
+
+
+def _maxpool_case(name, dev):
+    shape, kernel, stride, padding, dtype, special = MAXPOOL_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(shape, generator=g, device=dev)
+    if special:  # ties, then -inf, +0, -0 and NaN in 5%, 5%, 5%, 2%
+        x = torch.round(x * 4) / 4
+        pick = torch.rand(shape, generator=g, device=dev)
+        x[pick < 0.05] = float("-inf")
+        x[(pick >= 0.05) & (pick < 0.1)] = 0.0
+        x[(pick >= 0.1) & (pick < 0.15)] = -0.0
+        x[(pick >= 0.15) & (pick < 0.17)] = float("nan")
+    out_size = tuple(pool_ops._pooled_size(n, k, st, pd, True) for n, k, st,
+                     pd in zip(shape[1:3], kernel, stride, padding))
+    return x.to(dtype), (kernel, stride, padding, out_size)
+
+
+def _same_bits(got, want):
+    """NaN where ``want`` has NaN, the same bits everywhere else."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
+
+
+@pytest.mark.parametrize("name", list(MAXPOOL_CASES))
+def test_maxpool_kernel_matches_plain(dev, name):
+    """The kernel against its plain version on the same card, bit for bit;
+    one launch a call, an f32 one for an f32 map."""
+    x, args = _maxpool_case(name, dev)
+    launches, launches_f32 = maxpool.launches, maxpool.launches_f32
+    with torch.inference_mode():
+        out = maxpool.max_pool(x, *args)
+        torch.cuda.synchronize()
+        ref = maxpool.max_pool_plain(x, *args)
+    f32 = x.dtype == torch.float32
+    assert (maxpool.launches, maxpool.launches_f32) == (
+        launches + 1, launches_f32 + int(f32))
+    _same_bits(out, ref)
+
+
+def test_maxpool_kernel_copies_a_strided_map_and_refuses_others(dev):
+    """A strided map (a channel slice, an unaligned view) is copied first;
+    f16 and f64 maps raise."""
+    x, args = _maxpool_case("special", dev)
+    wide = torch.cat([x, x], dim=-1)[..., 8:72]
+    assert not wide.is_contiguous()
+    _same_bits(maxpool.max_pool(wide, *args),
+               maxpool.max_pool_plain(wide, *args))
+    shifted = x.reshape(-1)[1:1 + x[1:].numel()].view(x[1:].shape)
+    assert shifted.data_ptr() % 16
+    _same_bits(maxpool.max_pool(shifted, *args),
+               maxpool.max_pool_plain(shifted, *args))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            maxpool.max_pool(x.to(dtype), *args)
+
+
+@pytest.mark.parametrize("shape", [(0, 14, 14, 64), (4, 14, 14, 0)])
+def test_maxpool_kernel_gives_an_empty_map_an_empty_output(dev, shape):
+    """No image or no channel: the kernel's path, not the plain version,
+    returns the sized empty output and launches nothing."""
+    x = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    launches = maxpool.launches
+    with torch.inference_mode():
+        out = pool_ops.pool2d(x, (3, 3), stride=(2, 2), padding=(1, 1))
+    assert maxpool.launches == launches
+    assert out.shape == (shape[0], 8, 8, shape[3]) and out.device == x.device
+    assert out.dtype == x.dtype
+
+
+def test_maxpool_kernel_backward_is_the_plain_gradient(dev):
+    """Through the autograd Function: the kernel forward (one launch), the
+    plain version's gradient backward, equal to autograd's through the
+    plain version."""
+    x, args = _maxpool_case("c20_f32", dev)
+    g = torch.randn((3, 13, 13, 20), device=dev)
+    x.requires_grad_()
+    launches = maxpool.launches
+    y = maxpool.max_pool(x, *args)
+    (got,) = torch.autograd.grad(y, x, g)
+    assert maxpool.launches == launches + 1
+    xr = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(maxpool.max_pool_plain(xr, *args), xr, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("model,pools", [("googlenet", 13), ("resnet50", 1),
+                                         ("vgg16", 5)])
+def test_captured_forward_launches_the_maxpool_kernel(dev, model, pools):
+    """A CUDA-graph capture of the dense bf16 net at batch 2 counts one
+    ``capture.launches.maxpool`` a max pool; a profiled eager forward runs
+    the kernel and no ``max_pool_forward_nhwc``."""
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
+    from caffe_escoin_tpu_torch.utils import trace
+
+    build, shapes = ZOO[model]
+    in_shape = (2,) + shapes["data"][1:]
+    net = Net(build(), policy=ExecutionPolicy(
+        compute_dtype=torch.bfloat16, cast_back=False))
+    params = net.init(torch.Generator().manual_seed(0), {"data": in_shape})
+    fnet, fparams = fuse_inference(net, params, state=net.state0)
+    fparams = params_to(fparams, dev, torch.bfloat16)
+    x = {"data": torch.randn(in_shape, device=dev)}
+    key = "capture.launches.maxpool"
+    before = trace.snapshot()["counters"].get(key, 0)
+    fnet.inference_fn(fparams, cuda_graph=True)(x)
+    assert trace.snapshot()["counters"][key] - before == pools
+    with torch.inference_mode(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fnet.forward(fparams, x)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "max_pool_forward_nhwc" in n], names
+    assert [n for n in names if "maxpool_kernel" in n], names
 
 
 @pytest.mark.parametrize("arm", ["conv", "conv_gathered",

@@ -2,9 +2,10 @@
 JAX package's functions and the reference scripts, on the CPU at small
 sizes.
 
-* ``pool``: the three candidates equal each other and the script's
+* ``pool``: the four candidates equal each other and the script's
   ``pool_rw``, ``pool_slice9`` and ``pool_twopass`` (``scripts/
-  exp_pool_r5.py``, loaded by path; its ``main`` is not run) exactly, on
+  exp_pool_r5.py``, loaded by path; its ``main`` is not run; ``hand``
+  against ``pool_rw``) exactly, on
   its six geometries at batch 2 and 8 channels, in bf16;
 * ``k3``: the XBSP arms against ``caffe_escoin_tpu.kernels.
   xla_block_sparse``'s on the same aligned weight, f32, rtol 1e-4 /
@@ -105,7 +106,7 @@ def test_pool_candidates_equal_the_scripts(case):
     outs = {name: fn(xt, k, s, p).float().numpy()
             for name, fn in pool.CANDIDATES}
     refs = {"rw": ref_pool.pool_rw, "slice9": ref_pool.pool_slice9,
-            "twopass": ref_pool.pool_twopass}
+            "twopass": ref_pool.pool_twopass, "hand": ref_pool.pool_rw}
     for name, out in outs.items():
         assert np.array_equal(out, outs["rw"]), name
         ref = np.asarray(refs[name](xj, k, s, p), np.float32)

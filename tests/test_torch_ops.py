@@ -187,6 +187,27 @@ POOL_CASES = {
                           ceil_mode=False),
     "global_avg": dict(kernel=(1, 1), mode="avg", global_pool=True, hw=7),
     "global_max": dict(kernel=(1, 1), mode="max", global_pool=True, hw=7),
+    # max pooling (kernels/maxpool.max_pool on the CPU): the zoo's windows
+    # at a ceil-extended edge (14 -> 7 at 3x3/s2), padding 1 and 2, floor
+    # mode, a non-square window and stride, and spp's windows past the
+    # padded input (13 rows in 4 bins: 4x4/s4 pad 2; in 3 bins: 5x5/s5
+    # pad 1); ``special`` maps hold ties, -inf, signed zeros and NaN
+    "max_3x3_s2_ceil_even": dict(kernel=(3, 3), stride=(2, 2), mode="max",
+                                 hw=14, special=True),
+    "max_3x3_s1_p1": dict(kernel=(3, 3), stride=(1, 1), padding=(1, 1),
+                          mode="max", hw=9, special=True),
+    "max_2x2_s2_odd": dict(kernel=(2, 2), stride=(2, 2), mode="max", hw=11,
+                           special=True),
+    "max_5x5_s3_p2": dict(kernel=(5, 5), stride=(3, 3), padding=(2, 2),
+                          mode="max", hw=10, special=True),
+    "max_3x3_s2_p1_floor": dict(kernel=(3, 3), stride=(2, 2), padding=(1, 1),
+                                mode="max", hw=10, ceil_mode=False),
+    "max_3x2_s2x1_p1x0": dict(kernel=(3, 2), stride=(2, 1), padding=(1, 0),
+                              mode="max", hw=7, special=True),
+    "max_spp_4x4_s4_p2": dict(kernel=(4, 4), stride=(4, 4), padding=(2, 2),
+                              mode="max", hw=13, special=True),
+    "max_spp_5x5_s5_p1": dict(kernel=(5, 5), stride=(5, 5), padding=(1, 1),
+                              mode="max", hw=13),
 }
 
 
@@ -216,13 +237,23 @@ def _caffe_avg_pool(x, kernel, stride, padding=(0, 0)):
 @pytest.mark.parametrize("name", list(POOL_CASES))
 def test_pool2d(name):
     """Against the JAX function, or where a window runs past the padded
-    input (``caffe``), against Caffe's rule, which JAX does not follow."""
+    input (``caffe``), against Caffe's rule, which JAX does not follow.
+    Max pooling selects, so it is held to the JAX function exactly, NaN
+    where it has NaN."""
     kw = dict(POOL_CASES[name])
     hw = kw.pop("hw")
     kernel = kw.pop("kernel")
     caffe = kw.pop("caffe", False)
-    x = np.random.default_rng(3).standard_normal((2, hw, hw, 4)).astype(
-        np.float32)
+    special = kw.pop("special", False)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, hw, hw, 4)).astype(np.float32)
+    if special:
+        x = np.round(x * 4) / 4
+        pick = rng.uniform(size=x.shape)
+        x[pick < 0.05] = -np.inf
+        x[(pick >= 0.05) & (pick < 0.1)] = 0.0
+        x[(pick >= 0.1) & (pick < 0.15)] = -0.0
+        x[(pick >= 0.15) & (pick < 0.17)] = np.nan
     jax_out = np.asarray(jpool.pool2d(jnp.asarray(x), kernel, **kw))
     out = pool.pool2d(torch.from_numpy(x), kernel, **kw).numpy()
     if caffe:
@@ -233,7 +264,10 @@ def test_pool2d(name):
     else:
         ref = jax_out
     assert out.shape == ref.shape
-    np.testing.assert_allclose(out, ref, **TOL)
+    if kw["mode"] == "max":
+        np.testing.assert_array_equal(out, ref)
+    else:
+        np.testing.assert_allclose(out, ref, **TOL)
 
 
 def test_pooled_size_drops_window_starting_in_padding():
