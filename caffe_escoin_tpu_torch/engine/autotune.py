@@ -1,16 +1,19 @@
 """Measured per-shape arm choice for the sparse conv dispatcher and the
 sparse fc (port of ``caffe_escoin_tpu/engine/autotune.py``).
 
-``kernels/xla_block_sparse.best_arm``'s hand rules come from profiles of
-one device; the fix the JAX package made, carried over: measure each
-candidate arm once per (shape, pattern) on the device, cache the winner,
-and count the dense conv among the candidates, so that the sparse path
-never loses to its own baseline in isolation (the never-lose floor).
-``calibrate_graph`` then checks the per-layer picks on the whole net.
+``ops/conv.best_arm``'s hand rules come from profiles of one device; the
+fix the JAX package made, carried over: measure each candidate arm once per
+(shape, pattern) on the device, cache the winner, and count the dense conv
+among the candidates, so that the sparse path never loses to its own
+baseline in isolation (the never-lose floor). ``calibrate_graph`` then
+checks the per-layer picks on the whole net.
 
-Measurement happens lazily, the first time a forward asks for a key: the
-weights are at hand, so each candidate runs on synthetic inputs of the real
-shape (``measure_arms``, ``measure_fc_arms``) before the forward goes on.
+This module measures and caches; the router (``ops/conv.conv_arms``,
+``ops/linear.fc_arms``) decides what competes. ``choose`` serves a key's
+cached arm, or measures the candidates it is handed then, the first time
+a forward asks for the key: the weights are at hand, so each candidate
+runs on synthetic inputs of the real shape (``measure``) before the
+forward goes on.
 Results are cached in the process and, when the policy or
 ``$CESCOIN_AUTOTUNE_CACHE`` names one, in a JSON file. The port differs
 from the JAX module in seven ways:
@@ -32,10 +35,10 @@ from the JAX module in seven ways:
   it is offered, so no arm silently drops out in favour of another (the
   JAX module skips an arm XLA cannot build);
 * the hand-written ``sconv_fused`` kernel is a candidate wherever the
-  dispatcher would run it (``sconv_fused.supported`` and ``fits_budget``),
-  with no switch: the policy alone decides what competes (the JAX module
-  offers its Pallas kernel only behind an environment switch);
-* a sparse fc has a measured arm too (``choose_fc_arm``): the XBSP
+  dispatcher would run it (``ops/conv.fused_gate``), with no switch: the
+  policy alone decides what competes (the JAX module offers its Pallas
+  kernel only behind an environment switch);
+* a sparse fc has a measured arm too (``ops/linear.fc_arm``): the XBSP
   ``spmm``, the ``bsc_spmm`` kernel and the dense matmul, under a key of
   its own (``fc_cache_key``, ``"fc"`` first), where the JAX module runs
   every sparse fc on the XBSP ``spmm``.
@@ -86,7 +89,6 @@ _RECORDING = threading.local()
 # as "net=<tag>|<key>" entries of the same table
 _NET_SCOPE: Optional[str] = None
 
-ARMS = ("unroll", "gathered", "gathered_cols", "dense", "fused")
 FC = "fc"  # the first element of an fc's key
 _TOGGLES = ("CESCOIN_XBSP_NOPAD",)
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -223,72 +225,23 @@ def _save_file(path: str) -> None:
         print(f"[autotune] could not write {path}: {e}", flush=True)
 
 
-def _dtype(policy) -> torch.dtype:
-    return (policy.compute_dtype if policy.compute_dtype is not None
-            else torch.float32)
-
-
-def measure_arms(aligned, policy, x_shape, stride, padding, dilation,
-                 *, iters: int = 10) -> Dict[str, float]:
-    """Time each candidate arm on synthetic inputs of the real shape, on
-    the weight's device. Returns arm -> seconds."""
-    from caffe_escoin_tpu_torch.kernels import sconv_fused
-    from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
-    from caffe_escoin_tpu_torch.ops import conv as conv_ops
+def measure(candidates: Dict[str, Callable], x_shape, dtype, device,
+            *, iters: int = 10) -> Dict[str, float]:
+    """Time each candidate (arm -> callable of one input) on 4 synthetic
+    inputs of ``x_shape`` and ``dtype`` on ``device``, drawn from a
+    generator seeded 0. Returns arm -> seconds."""
     from caffe_escoin_tpu_torch.utils.benchmark import device_time_arms
 
-    dtype = _dtype(policy)
-    dev = aligned.bsc.blocks.device
-    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     # 4 distinct inputs cycled per measurement: one buffer repeated stays
     # in cache across calls and under-reports memory-bound arms
-    gen = torch.Generator(device=dev).manual_seed(0)
-    xsets = [(torch.randn(tuple(x_shape), generator=gen, device=dev
+    gen = torch.Generator(device=device).manual_seed(0)
+    xsets = [(torch.randn(tuple(x_shape), generator=gen, device=device
                           ).to(dtype),) for _ in range(4)]
-    x = xsets[0][0]
-    wd = aligned.dense.to(dtype)
-    geo = dict(stride=stride, padding=padding, dilation=dilation)
-    cands = {
-        "unroll": lambda y: xbs.conv(y, aligned, **geo),
-        "gathered": lambda y: xbs.conv_gathered(y, aligned, **geo),
-        "gathered_cols": lambda y: xbs.conv_gathered_cols(y, aligned, **geo),
-        "dense": lambda y: conv_ops.conv2d_dense(
-            y, wd, aligned.bias, groups=aligned.groups, **geo),
-    }
-    # the hand-written direct kernel competes wherever the dispatcher would
-    # run it: the reference's gate, size budget included
-    if (sconv_fused.supported(x, aligned, stride=stride, dilation=dilation)
-            and sconv_fused.fits_budget(x, aligned, padding)):
-        cands["fused"] = lambda y: sconv_fused.sconv(
-            y, aligned, padding=padding, relu=False,
-            mxu_dtype=policy.mxu_dtype)
     # every candidate runs every shape it is offered here, so an arm that
     # raises is a fault and fails the measurement: it is never dropped in
     # favour of another arm. The arms are timed in turn, round by round, so
     # that a passing slowdown of the device cannot inflate one arm alone
-    return device_time_arms(cands, xsets, iters=max(iters, 8))
-
-
-def measure_fc_arms(bsc, dense, bias, relu: bool, policy, rows: int,
-                    *, iters: int = 10) -> Dict[str, float]:
-    """Time each arm of a sparse fc on synthetic inputs of ``rows`` rows,
-    on the weight's device: the XBSP ``spmm`` (where ``spmm_supported``
-    holds), the ``bsc_spmm`` kernel and the dense matmul on ``dense``
-    [K, N], each with the bias and ReLU epilogue. Returns arm ->
-    seconds."""
-    from caffe_escoin_tpu_torch.ops import linear as linear_ops
-    from caffe_escoin_tpu_torch.utils.benchmark import device_time_arms
-
-    dev = bsc.blocks.device
-    gen = torch.Generator(device=dev).manual_seed(0)
-    xsets = [(torch.randn((rows, bsc.shape[0]), generator=gen, device=dev
-                          ).to(_dtype(policy)),) for _ in range(4)]
-    arms = linear_ops.fc_arms(bsc, policy)
-    return device_time_arms(
-        {arm: functools.partial(linear_ops.run_fc_arm, arm, sparse_w=bsc,
-                                bias=bias, relu=relu, policy=policy,
-                                dense=dense)
-         for arm in arms}, xsets, iters=max(iters, 8))
+    return device_time_arms(candidates, xsets, iters=max(iters, 8))
 
 
 def _served(key: str, what: str) -> Optional[str]:
@@ -317,19 +270,37 @@ def _served(key: str, what: str) -> Optional[str]:
     return arm
 
 
-def _measured(key: str, kind: str, what: str, path: str, on_cuda: bool,
-              measure: Callable[[], Dict[str, float]], log) -> str:
-    """Measure ``key`` now (``measure()``: arm -> seconds), cache and
-    record the winner. A set-up span, ``setup:autotune``; counts
-    ``autotune.measured.<kind>``. Raises during a CUDA-graph capture."""
-    if on_cuda and torch.cuda.is_current_stream_capturing():
+def _cache_path(policy) -> str:
+    path = (getattr(policy, "autotune_cache", "")
+            or os.environ.get("CESCOIN_AUTOTUNE_CACHE", ""))
+    _load_file(path)
+    return path
+
+
+def choose(key: str, *, kind: str, what: str, policy, weight, x_shape,
+           dtype, candidates: Callable[[], Dict[str, Callable]],
+           log=None) -> Optional[str]:
+    """The arm served for ``key`` (``_served``), else the fastest of
+    ``candidates()``, built and measured now on the device of ``weight``
+    (the BSC the arms run on), cached and recorded: the set-up span
+    ``setup:autotune``, counted as ``autotune.measured.<kind>``. None
+    when called re-entrantly; raises if it would measure during a CUDA
+    graph capture: fill the cache before any capture."""
+    if getattr(_MEASURING, "active", False):
+        return None  # re-entrant call from inside a candidate arm
+    path = _cache_path(policy)
+    arm = _served(key, what)
+    if arm is not None:
+        return arm
+    if weight.blocks.is_cuda and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
             f"autotune: no cached arm for {what} during CUDA-graph "
             f"capture; run the forward once (or calibrate) before capturing")
     _MEASURING.active = True
     try:
         with trace.span("setup:autotune", always=True):
-            times = measure()
+            times = measure(candidates(), x_shape, dtype,
+                            weight.blocks.device)
     finally:
         _MEASURING.active = False
     trace.count(f"autotune.measured.{kind}", always=True)
@@ -348,56 +319,10 @@ def _measured(key: str, kind: str, what: str, path: str, on_cuda: bool,
     return winner
 
 
-def _cache_path(policy) -> str:
-    path = (getattr(policy, "autotune_cache", "")
-            or os.environ.get("CESCOIN_AUTOTUNE_CACHE", ""))
-    _load_file(path)
-    return path
-
-
-def choose_arm(aligned, policy, x_shape, stride, padding, dilation,
-               *, log=None) -> Optional[str]:
-    """The cached measured winner for this (shape, pattern), measured now
-    if absent; None when called re-entrantly from inside a measurement.
-    Raises if it would measure while a CUDA graph is being captured: fill
-    the cache before any capture."""
-    if getattr(_MEASURING, "active", False):
-        return None  # re-entrant call from inside a candidate arm
-    path = _cache_path(policy)
-    key = cache_key(aligned, x_shape, stride, padding, dilation,
-                    _dtype(policy), getattr(policy, "mxu_dtype", "auto"))
-    what = f"{tuple(x_shape)} k{aligned.kernel_shape} cout{aligned.cout}"
-    arm = _served(key, what)
-    if arm is not None:
-        return arm
-    return _measured(key, "conv", what, path, aligned.bsc.blocks.is_cuda,
-                     lambda: measure_arms(aligned, policy, x_shape, stride,
-                                          padding, dilation), log)
-
-
-def choose_fc_arm(bsc, dense, bias, relu: bool, policy, rows: int,
-                  *, log=None) -> Optional[str]:
-    """``choose_arm`` for a sparse fc of ``rows`` input rows over the BSC
-    weight ``bsc`` [K, N] (``dense`` its dense [K, N], for the dense arm):
-    one of ``ops.linear.fc_arms``, cached under ``fc_cache_key``."""
-    if getattr(_MEASURING, "active", False):
-        return None
-    path = _cache_path(policy)
-    key = fc_cache_key(bsc, rows, _dtype(policy),
-                       getattr(policy, "mxu_dtype", "auto"))
-    what = f"fc {rows}x{bsc.shape[0]}->{bsc.shape[1]}"
-    arm = _served(key, what)
-    if arm is not None:
-        return arm
-    return _measured(key, FC, what, path, bsc.blocks.is_cuda,
-                     lambda: measure_fc_arms(bsc, dense, bias, relu, policy,
-                                             rows), log)
-
-
 @contextlib.contextmanager
 def record_keys():
-    """Collect every (cache_key, arm) served to choose_arm and
-    choose_fc_arm callers inside the context, cache hits included, with
+    """Collect every (key, arm) served to ``choose`` callers inside the
+    context, cache hits included, with
     multiplicity: the arm decisions a whole-net forward depends on. An
     enclosing ``record_keys`` receives them too."""
     prev = getattr(_RECORDING, "keys", None)
@@ -462,7 +387,7 @@ def calibrate_graph(time_fn: Callable[[], float], *,
     Isolated measurement keeps each layer's weights cache-warm, which
     flatters schedules of many small products; composed in a real net
     those picks can lose to the dense floor. ``time_fn`` runs and times
-    the whole forward (each forward consults choose_arm per layer) and
+    the whole forward (each forward consults ``choose`` per layer) and
     returns seconds. Algorithm:
 
     1. Run the current assignment, recording the (key, arm) decisions

@@ -18,8 +18,8 @@ weight's sparsity pattern, read on the host (``BSC.pattern``):
   K-blocks;
 * ``spmm``: the fc twin of the unroll, x[M, K] @ BSC[K, N].
 
-``best_arm`` picks one per layer (the heuristic, or engine/autotune.py's
-measurement), as the JAX dispatcher does.
+``ops/conv.best_arm`` picks one per layer (the heuristic, or
+engine/autotune.py's measurement), as the JAX dispatcher does.
 
 Numerics are those of ``preferred_element_type=float32``: products
 accumulate in f32 across blocks (on the card bf16 operands multiply on the
@@ -92,45 +92,6 @@ def union_live_fraction(aligned: AlignedConvWeight) -> float:
     """Fraction of K-blocks live in at least one output block-column: the
     gathered arm's read volume relative to dense."""
     return len(_union(aligned.bsc)) / max(1, aligned.bsc.n_brows)
-
-
-def best_arm(aligned: AlignedConvWeight, policy, *, x_shape=None,
-             stride=(1, 1), padding=(0, 0), dilation=(1, 1)) -> str:
-    """Per-shape arm: "unroll", "gathered", "gathered_cols", "dense" or
-    "fused". The JAX package's rule, unchanged (its ``best_arm``):
-
-    * a forced ``policy.xbsp_arm`` wins;
-    * more than half the blocks live: "dense" (block-density
-      profitability, before autotune: isolated measurement keeps weights
-      cache-warm and flatters many small products);
-    * with ``policy.autotune`` and an input shape: the measured winner
-      (engine/autotune.choose_arm), when it can measure;
-    * a quarter or more of the blocks live: "dense" (the heuristic never
-      lose floor);
-    * k>1 or a reduce 1x1 (cout <= cin): "unroll";
-    * an expand 1x1 whose union covers all of K with cin >= 128: "dense";
-      else "gathered".
-    """
-    arm = getattr(policy, "xbsp_arm", "auto")
-    if arm != "auto":
-        return arm
-    if aligned.block_density > 0.5:
-        return "dense"
-    if getattr(policy, "autotune", False) and x_shape is not None:
-        from caffe_escoin_tpu_torch.engine import autotune
-
-        got = autotune.choose_arm(aligned, policy, x_shape, stride, padding,
-                                  dilation)
-        if got is not None:
-            return got
-    if aligned.block_density >= 0.25:
-        return "dense"
-    kh, kw = aligned.kernel_shape
-    if not (kh == kw == 1 and aligned.cout > aligned.cin):
-        return "unroll"
-    if aligned.cin >= 128 and union_live_fraction(aligned) >= 1.0:
-        return "dense"
-    return "gathered"
 
 
 def _unit_rows(t: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,6 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 
 from caffe_escoin_tpu_torch.engine.context import ConvMode
 from caffe_escoin_tpu_torch.nn.fillers import fill
@@ -297,17 +296,12 @@ class EscConvolutionLayer(ConvolutionLayer):
             policy, conv_mode=ConvMode.LOWERED_GEMM))
 
 
-# the kernel each ``Layer.route`` launches once per layer: the conv routes'
-# kernels and the fc's SpMM ("dense" and the XBSP routes launch none)
-ROUTE_KERNELS = {**conv_ops.ROUTE_KERNELS, "spmm": "bsc_spmm"}
-
-
 @register_layer("InnerProduct")
 class InnerProductLayer(Layer):
     """FC layer. Sparse execution runs a block-sparse SpMM over the 1x1
     GEMM-view AlignedConvWeight: the XBSP ``spmm`` with ``use_xla_sparse``,
     else the SpMM kernel; with ``autotune``, the measured fastest of those
-    and the dense matmul (``ops.linear.fc_arm``)."""
+    and the dense matmul (ops/linear.py decides)."""
 
     category = "fc"
 
@@ -331,42 +325,16 @@ class InnerProductLayer(Layer):
         return weight_align(params["w"][None, None], params.get("b"),
                             policy=self.policy)
 
-    def _sparse(self, params) -> bool:
-        """Whether the fc runs sparse, by the JAX package's rule (its
-        ``nn/layers.py:291-314``): a forced ``xbsp_arm`` decides first
-        ("dense" forces the dense matmul, any other arm the sparse one);
-        else the block-density gate, as the conv dispatcher's, sends an
-        element-sparse but block-dense pattern to the one dense matmul."""
-        pol = self.policy
-        if (not isinstance(params, AlignedConvWeight) or params.bsc is None
-                or pol.conv_mode == ConvMode.LOWERED_GEMM):
-            return False
-        if pol.xbsp_arm != "auto":
-            return pol.xbsp_arm != "dense"
-        return (params.sparsity >= pol.sparse_threshold
-                and params.block_density <= 0.5)
-
     def route(self, params, in_shapes, in_dtype=None):
-        """"xbsp_spmm" (the XBSP unroll), "spmm" (the SpMM kernel) or
-        "dense": "dense" where ``_sparse`` says so, else the arm
-        ``ops.linear.fc_arm`` picks for an input of ``in_shapes[0]`` (with
+        """``ops.linear.fc_route`` of this layer for an input of
+        ``in_shapes[0]``: "dense", "xbsp_spmm" or "spmm" (with
         ``autotune``, served from the autotune cache, and measured first
-        on the weight's device where a key is not in it yet; without, the
-        XBSP ``spmm`` under ``use_xla_sparse`` and the SpMM kernel
-        without)."""
-        if not self._sparse(params):
-            return "dense"
-        arm = linear_ops.fc_arm(params.bsc, self.policy, in_shapes[0][0],
-                                bias=params.bias, relu=self._relu(),
-                                dense=self._dense(params))
-        return {"bsc_spmm": "spmm"}.get(arm, arm)
+        on the weight's device where a key is not in it yet)."""
+        return linear_ops.fc_route(params, self.policy, in_shapes[0][0],
+                                   relu=self._relu())
 
     def _relu(self) -> bool:
         return self.p.get("fuse_relu", False) and self.policy.fuse_relu
-
-    @staticmethod
-    def _dense(aligned):
-        return aligned.dense.reshape(-1, aligned.cout)
 
     def forward(self, params, inputs, state=None):
         (x,) = inputs
@@ -378,17 +346,8 @@ class InnerProductLayer(Layer):
             x2 = x2.to(cd)
             params = _cast(params, cd)
         if isinstance(params, AlignedConvWeight):
-            aligned = params
-            if self._sparse(aligned):
-                if aligned.cin_pad != aligned.cin:
-                    x2 = F.pad(x2, (0, aligned.cin_pad - aligned.cin))
-                out = linear_ops.linear_sparse(x2, aligned.bsc, aligned.bias,
-                                               relu=fuse_relu,
-                                               policy=self.policy,
-                                               dense=self._dense(aligned))
-            else:
-                out = linear_ops.linear(x2, self._dense(aligned),
-                                        aligned.bias, relu=fuse_relu)
+            out = linear_ops.linear_aligned(x2, params, relu=fuse_relu,
+                                            policy=self.policy)
         else:
             out = linear_ops.linear(x2, params["w"], params.get("b"),
                                     relu=fuse_relu)
@@ -443,6 +402,14 @@ class PoolingLayer(Layer):
             return [pool_ops.pool2d_packed(x, **self._args(), r_in=r_in,
                                            r_out=r_out)]
         return [pool_ops.pool2d(x, **self._args())]
+
+    def launches(self, params, in_shapes, in_dtype):
+        """The max-pool kernel's launch, where ``forward``'s op takes it
+        (``ops.pool.takes_maxpool_kernel``)."""
+        return {"maxpool": int(pool_ops.takes_maxpool_kernel(
+            self._args()["mode"],
+            global_pool=self.p.get("global_pooling", False),
+            r_in=_pack(self.p)[0]))}
 
 
 @register_layer("ReLU")
@@ -548,6 +515,11 @@ class LRNLayer(Layer):
             inputs[0], local_size=self.p.get("local_size", 5),
             alpha=self.p.get("alpha", 1e-4), beta=self.p.get("beta", 0.75),
             k=self.p.get("k", 1.0), groups=self.p.get("pack_in", 1))]
+
+    def launches(self, params, in_shapes, in_dtype):
+        """``ops.norm.lrn_across_channels`` launches the LRN kernel once,
+        packed input or not."""
+        return {"lrn": 1}
 
 
 @register_layer("Concat")
@@ -908,6 +880,12 @@ class SPPLayer(_MetaShapes, Layer):
     def forward(self, params, inputs, state=None):
         return [pool_ops.spp(inputs[0], self.p.get("pyramid_height", 3),
                              mode=self.p.get("mode", "max"))]
+
+    def launches(self, params, in_shapes, in_dtype):
+        """One pooling a pyramid level, each on the max-pool kernel where
+        ``ops.pool.takes_maxpool_kernel``."""
+        return {"maxpool": self.p.get("pyramid_height", 3) * int(
+            pool_ops.takes_maxpool_kernel(self.p.get("mode", "max")))}
 
 
 @register_layer("Im2col")

@@ -19,6 +19,7 @@ whose output shape depends on the data (Filter), runs eagerly:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -26,6 +27,7 @@ import torch
 
 from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
+from caffe_escoin_tpu_torch.ops.conv import route_launches
 from caffe_escoin_tpu_torch.sparse.weight_align import (AlignedConvWeight,
                                                         split_payloads)
 from caffe_escoin_tpu_torch.utils import trace
@@ -104,6 +106,11 @@ class Layer(torch.nn.Module):
     def route(self, params, in_shapes, in_dtype) -> Optional[str]:
         """The kernel route a conv or fc layer takes; None for the rest."""
         return None
+
+    def launches(self, params, in_shapes, in_dtype) -> Dict[str, int]:
+        """The hand-kernel launches of one forward of this layer, by
+        kernel module: its route's (none for a layer with no route)."""
+        return route_launches(self.route(params, in_shapes, in_dtype))
 
     def forward(self, params, inputs: List[torch.Tensor], state=None):
         raise NotImplementedError
@@ -225,6 +232,21 @@ class Net(torch.nn.Module):
                             input_dtype)
             if r is not None:
                 out[layer.spec.name] = r
+        return out
+
+    def launches(self, aligned_params,
+                 input_shapes: Dict[str, Tuple[int, ...]],
+                 input_dtype: torch.dtype = torch.float32
+                 ) -> collections.Counter:
+        """The hand-kernel launches of one forward, by kernel module, from
+        shapes as ``routes`` (each ``Layer.launches``: a conv's or fc's
+        from its route, a pool's and an LRN's by the rule their op
+        dispatches by). Off the card each entry counts them as ``calls``
+        and runs its plain version."""
+        out = collections.Counter()
+        for layer, in_shapes in self.walk_shapes(input_shapes):
+            out.update(layer.launches(aligned_params.get(layer.spec.name),
+                                      in_shapes, input_dtype))
         return out
 
     def forward(self, params: Dict[str, Any], inputs: Dict[str, torch.Tensor],

@@ -13,10 +13,10 @@
                     package's default executor (its ``ops/conv.py:188-203,
                     256-312``): a strided 1x1 conv subsamples first, a
                     strided k>1 conv runs dense, and a stride-1 conv runs
-                    the arm ``xla_block_sparse.best_arm`` picks ("unroll",
-                    "gathered", "gathered_cols", "dense" on the pruned
-                    weight, or "fused", the direct kernel); SCONV runs the
-                    arm image by image, SCONV_PAR on the whole batch.
+                    the arm ``best_arm`` picks ("unroll", "gathered",
+                    "gathered_cols", "dense" on the pruned weight, or
+                    "fused", the direct kernel); SCONV runs the arm image
+                    by image, SCONV_PAR on the whole batch.
                     With ``use_xla_sparse=False``, the kernels' route (its
                     ``ops/conv.py:188-210, 314-381``): strided 1x1 convs
                     subsample first, strided k>1 convs run lowered, and a
@@ -30,21 +30,24 @@
                     (``csrc/sconv.cc`` through data/native.py; the JAX
                     package's ``ops/conv.py:212-254``).
 
-``conv_route`` names the route of a layer from shapes alone (with
-autotune on, from the autotune cache), and ``conv2d`` dispatches through
-it; the native host route depends on the tensor's device, so it is taken
-at run time and never named. A layer whose weight is denser than the
-policy's threshold runs dense.
+This module owns the choice of kernel. ``conv_route`` names the route of
+a layer from shapes alone, and ``conv2d`` dispatches through it; the native
+host route depends on the tensor's device, so it is taken at run time and
+never named. A layer whose weight is denser than the policy's threshold
+runs dense. With autotune on, ``conv_arms`` names what competes and
+engine/autotune.py only measures it and caches the winner.
 Activations are NHWC and weights HWIO, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import (ConvMode, ExecutionPolicy,
                                                    SparseFormat)
 from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
@@ -175,13 +178,113 @@ def _uses_ell(aligned: AlignedConvWeight, policy: ExecutionPolicy) -> bool:
             and aligned.ell_t is not None)
 
 
-# the kernel each conv route launches once per layer; the rest ("dense",
-# the XBSP arms, "xbsp_lowered", "ell") launch none
+# the hand kernel each conv or fc route launches once ("spmm" is the fc's);
+# the rest launch none
 ROUTE_KERNELS = {"fused": "sconv_fused", "gc": "sconv_gc",
-                 "spmm_1x1": "bsc_spmm", "lowered": "bsc_spmm"}
+                 "spmm_1x1": "bsc_spmm", "lowered": "bsc_spmm",
+                 "spmm": "bsc_spmm"}
+
+
+def route_launches(route: Optional[str]) -> Dict[str, int]:
+    """The hand-kernel launches of one conv or fc on ``route``, by kernel
+    module: its kernel's one, or none."""
+    kernel = ROUTE_KERNELS.get(route)
+    return {kernel: 1} if kernel else {}
+
+
 # the XBSP arm functions by route name
 XBSP_ARMS = {"unroll": xbs.conv, "gathered": xbs.conv_gathered,
              "gathered_cols": xbs.conv_gathered_cols}
+
+
+def fused_gate(x, aligned: AlignedConvWeight, padding, *, stride=(1, 1),
+               dilation=(1, 1)) -> bool:
+    """The fused kernel's one gate, for routes and candidates alike: its
+    own limits (``sconv_fused.supported``) and the TPU kernel's size
+    budget (``sconv_fused.fits_budget``, part of the reference's
+    ``supported``). ``x`` needs only ``shape`` and ``dtype``."""
+    return (sconv_fused.supported(x, aligned, stride=stride,
+                                  dilation=dilation)
+            and sconv_fused.fits_budget(x, aligned, padding))
+
+
+def conv_arms(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
+              policy: ExecutionPolicy) -> Dict[str, Callable]:
+    """A conv's candidates (the router asks at stride 1), callables of the
+    input with neither ReLU nor residual, in this order: "unroll",
+    "gathered", "gathered_cols", "dense" (the pruned weight cast once to
+    x's dtype), then "fused" where ``fused_gate`` admits the shape."""
+    geo = dict(stride=stride, padding=padding, dilation=dilation)
+    wd = aligned.dense.to(x.dtype)
+    arms = {
+        "unroll": lambda y: xbs.conv(y, aligned, **geo),
+        "gathered": lambda y: xbs.conv_gathered(y, aligned, **geo),
+        "gathered_cols": lambda y: xbs.conv_gathered_cols(y, aligned, **geo),
+        "dense": lambda y: conv2d_dense(y, wd, aligned.bias,
+                                        groups=aligned.groups, **geo),
+    }
+    if fused_gate(x, aligned, padding, stride=stride, dilation=dilation):
+        arms["fused"] = lambda y: sconv_fused.sconv(
+            y, aligned, padding=padding, relu=False,
+            mxu_dtype=policy.mxu_dtype)
+    return arms
+
+
+def measured_arm(aligned: AlignedConvWeight, policy, x_shape, stride,
+                 padding, dilation, *, log=None) -> Optional[str]:
+    """``autotune.choose`` of ``conv_arms`` under ``autotune.cache_key``:
+    the cached winner for this (shape, pattern), or measured now; None
+    when called re-entrantly from inside a measurement."""
+    dtype = policy.compute_dtype or torch.float32
+    x = torch.empty(tuple(x_shape), dtype=dtype, device="meta")
+    return autotune.choose(
+        autotune.cache_key(aligned, x_shape, stride, padding, dilation,
+                           dtype, getattr(policy, "mxu_dtype", "auto")),
+        kind="conv",
+        what=f"{tuple(x_shape)} k{aligned.kernel_shape} cout{aligned.cout}",
+        policy=policy, weight=aligned.bsc, x_shape=x_shape, dtype=dtype,
+        candidates=functools.partial(conv_arms, x, aligned, stride=stride,
+                                     padding=padding, dilation=dilation,
+                                     policy=policy),
+        log=log)
+
+
+def best_arm(aligned: AlignedConvWeight, policy, *, x_shape=None,
+             stride=(1, 1), padding=(0, 0), dilation=(1, 1)) -> str:
+    """Per-shape arm: "unroll", "gathered", "gathered_cols", "dense" or
+    "fused". The JAX package's rule, unchanged (its
+    ``kernels/xla_block_sparse.best_arm``):
+
+    * a forced ``policy.xbsp_arm`` wins;
+    * more than half the blocks live: "dense" (block-density
+      profitability, before autotune: isolated measurement keeps weights
+      cache-warm and flatters many small products);
+    * with ``policy.autotune`` and an input shape: the measured winner
+      (``measured_arm``), when it can measure;
+    * a quarter or more of the blocks live: "dense" (the heuristic never
+      lose floor);
+    * k>1 or a reduce 1x1 (cout <= cin): "unroll";
+    * an expand 1x1 whose union covers all of K with cin >= 128: "dense";
+      else "gathered".
+    """
+    arm = getattr(policy, "xbsp_arm", "auto")
+    if arm != "auto":
+        return arm
+    if aligned.block_density > 0.5:
+        return "dense"
+    if getattr(policy, "autotune", False) and x_shape is not None:
+        got = measured_arm(aligned, policy, x_shape, stride, padding,
+                           dilation)
+        if got is not None:
+            return got
+    if aligned.block_density >= 0.25:
+        return "dense"
+    kh, kw = aligned.kernel_shape
+    if not (kh == kw == 1 and aligned.cout > aligned.cin):
+        return "unroll"
+    if aligned.cin >= 128 and xbs.union_live_fraction(aligned) >= 1.0:
+        return "dense"
+    return "gathered"
 
 
 def _subsampled(x, stride, padding):
@@ -192,48 +295,31 @@ def _subsampled(x, stride, padding):
                        dtype=x.dtype, device="meta")
 
 
-def _xbsp_route(x, aligned: AlignedConvWeight, stride, padding, dilation,
+def _xbsp_route(x, aligned: AlignedConvWeight, padding, dilation,
                 policy: ExecutionPolicy) -> str:
-    """The SCONV route of the JAX package's ``conv2d_sconv`` with
-    ``use_xla_sparse`` (its ``ops/conv.py:188-203, 256-312``): "dense" for
-    a strided k>1 conv, else the arm of ``best_arm``. A "fused" pick runs
-    the kernel only where the reference's gate holds, the kernel's own
-    limits and the TPU kernel's size budget (``sconv_fused.fits_budget``,
-    part of the reference's ``supported``); elsewhere it runs the unroll,
-    as there."""
-    if stride != (1, 1):
-        if aligned.kernel_shape == (1, 1) and dilation == (1, 1):
-            return _xbsp_route(_subsampled(x, stride, padding), aligned,
-                               (1, 1), (0, 0), (1, 1), policy)
-        return "dense"
-    arm = xbs.best_arm(aligned, policy, x_shape=tuple(x.shape), stride=stride,
-                       padding=padding, dilation=dilation)
+    """A stride-1 conv's SCONV route in the JAX package's ``conv2d_sconv``
+    with ``use_xla_sparse`` (its ``ops/conv.py:188-203, 256-312``): the arm
+    of ``best_arm``. A "fused" pick runs the kernel only where
+    ``fused_gate`` admits the shape; elsewhere it runs the unroll, as
+    there."""
+    arm = best_arm(aligned, policy, x_shape=tuple(x.shape), padding=padding,
+                   dilation=dilation)
     if arm == "dense":
         return "dense"
-    if (arm == "fused" and sconv_fused.supported(x, aligned,
-                                                 dilation=dilation)
-            and sconv_fused.fits_budget(x, aligned, padding)):
+    if arm == "fused" and fused_gate(x, aligned, padding, dilation=dilation):
         return "fused"
     return arm if arm in XBSP_ARMS else "unroll"
 
 
-def _sconv_route(x, aligned: AlignedConvWeight, stride, padding,
-                 dilation) -> str:
-    """The SCONV route of the JAX package's ``conv2d_sconv`` with
-    ``use_xla_sparse=False``. Its two Pallas gates are size budgets of the
-    TPU kernels, carried over (``sconv_fused.fits_budget``,
-    ``sconv_gc.fits_budget``) so that each layer takes the same kernel on
-    both sides; each kernel's ``supported`` adds its own limits."""
-    if stride != (1, 1):
-        if aligned.kernel_shape == (1, 1) and dilation == (1, 1):
-            # routed as the stride-1 conv on the subsampled map
-            return _sconv_route(_subsampled(x, stride, padding), aligned,
-                                (1, 1), (0, 0), (1, 1))
-        return "lowered"
+def _kernel_route(x, aligned: AlignedConvWeight, padding, dilation) -> str:
+    """A stride-1 conv's SCONV route in the JAX package's ``conv2d_sconv``
+    with ``use_xla_sparse=False``. Its two Pallas gates are size budgets of
+    the TPU kernels, carried over (``fused_gate``, ``sconv_gc.fits_budget``)
+    so that each layer takes the same kernel on both sides; each kernel's
+    ``supported`` adds its own limits."""
     if dilation != (1, 1):
         return "lowered"
-    if (sconv_fused.supported(x, aligned)
-            and sconv_fused.fits_budget(x, aligned, padding)):
+    if fused_gate(x, aligned, padding):
         return "fused"
     bk = aligned.bsc.block_shape[0]
     # the 1x1 gate keeps the TPU SpMM's alignment rule (bsc_pallas.py:43-47)
@@ -243,6 +329,37 @@ def _sconv_route(x, aligned: AlignedConvWeight, stride, padding,
     if sconv_gc.supported(x, aligned) and sconv_gc.fits_budget(x, aligned):
         return "gc"
     return "lowered"
+
+
+def _sconv_route(x, aligned: AlignedConvWeight, stride, padding, dilation,
+                 policy: ExecutionPolicy) -> str:
+    """The SCONV route: the XBSP branch's where ``xbs.supported``, else
+    the kernels'. A strided 1x1 conv is routed as the stride-1 conv on the
+    map it subsamples; another strided conv runs "dense" on the XBSP
+    branch and "lowered" on the kernels'."""
+    xbsp = xbs.supported(aligned, policy)
+    if stride != (1, 1):
+        if aligned.kernel_shape == (1, 1) and dilation == (1, 1):
+            return _sconv_route(_subsampled(x, stride, padding), aligned,
+                                (1, 1), (0, 0), (1, 1), policy)
+        return "dense" if xbsp else "lowered"
+    if xbsp:
+        return _xbsp_route(x, aligned, padding, dilation, policy)
+    return _kernel_route(x, aligned, padding, dilation)
+
+
+def _runs_sparse(aligned: AlignedConvWeight, policy: ExecutionPolicy,
+                 mode: ConvMode) -> bool:
+    """A sparse mode, a sparse artifact aligned, and the weight at least as
+    sparse as the mode's threshold; else the conv runs dense."""
+    if mode == ConvMode.LOWERED_SPARSE:
+        threshold = policy.sparse_threshold
+    elif mode in (ConvMode.SCONV, ConvMode.SCONV_PAR):
+        threshold = policy.sconv_threshold
+    else:
+        return False
+    return ((aligned.bsc is not None or aligned.ell_t is not None)
+            and aligned.sparsity >= threshold)
 
 
 def conv_route(x, aligned: AlignedConvWeight, *,
@@ -265,14 +382,7 @@ def conv_route(x, aligned: AlignedConvWeight, *,
     device."""
     policy = policy or ExecutionPolicy()
     mode = policy.conv_mode if mode is None else mode
-    if mode == ConvMode.LOWERED_SPARSE:
-        profitable = aligned.sparsity >= policy.sparse_threshold
-    elif mode in (ConvMode.SCONV, ConvMode.SCONV_PAR):
-        profitable = aligned.sparsity >= policy.sconv_threshold
-    else:
-        profitable = False
-    sparse_ready = aligned.bsc is not None or aligned.ell_t is not None
-    if mode == ConvMode.LOWERED_GEMM or not sparse_ready or not profitable:
+    if not _runs_sparse(aligned, policy, mode):
         return "dense"
     stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     if mode == ConvMode.LOWERED_SPARSE:
@@ -280,9 +390,7 @@ def conv_route(x, aligned: AlignedConvWeight, *,
             return "ell"
         return ("xbsp_lowered" if xbs.spmm_supported(aligned.bsc, policy)
                 else "lowered")
-    if xbs.supported(aligned, policy):
-        return _xbsp_route(x, aligned, stride, padding, dilation, policy)
-    return _sconv_route(x, aligned, stride, padding, dilation)
+    return _sconv_route(x, aligned, stride, padding, dilation, policy)
 
 
 def _subsample_1x1(x, stride, padding):
@@ -390,17 +498,13 @@ def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                  relu, policy: ExecutionPolicy, batch_parallel: bool = True,
                  residual=None):
     """Direct sparse convolution, whatever the weight's sparsity: the native
-    host route where ``_native_ok``, else the XBSP arms with
-    ``use_xla_sparse``, else the kernels' route (the JAX package's
-    ``ops/conv.py:167-381``)."""
+    host route where ``_native_ok``, else the route ``_sconv_route`` names
+    (the JAX package's ``ops/conv.py:167-381``)."""
     stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     if _native_ok(x, aligned, stride, dilation, policy):
         return _run_native(x, aligned, stride=stride, padding=padding,
                            relu=relu, residual=residual)
-    if xbs.supported(aligned, policy):
-        route = _xbsp_route(x, aligned, stride, padding, dilation, policy)
-    else:
-        route = _sconv_route(x, aligned, stride, padding, dilation)
+    route = _sconv_route(x, aligned, stride, padding, dilation, policy)
     return _run_route(route, x, aligned, stride=stride, padding=padding,
                       dilation=dilation, relu=relu, policy=policy,
                       residual=residual, batch_parallel=batch_parallel)
@@ -412,20 +516,20 @@ def conv2d(x, aligned: AlignedConvWeight, *,
            dilation: Tuple[int, int] = (1, 1), relu: bool = False,
            mode: Optional[ConvMode] = None,
            policy: Optional[ExecutionPolicy] = None, residual=None):
-    """Mode-dispatched convolution over an aligned weight: runs the route
-    ``conv_route`` names, or the native host route where a profitable SCONV
-    conv passes ``_native_ok``."""
+    """Mode-dispatched convolution over an aligned weight: a sparse SCONV
+    conv through ``conv2d_sconv``, image by image in SCONV; else the route
+    ``conv_route`` names."""
     policy = policy or ExecutionPolicy()
     mode = policy.conv_mode if mode is None else mode
-    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     if (mode in (ConvMode.SCONV, ConvMode.SCONV_PAR)
-            and aligned.sparsity >= policy.sconv_threshold
-            and _native_ok(x, aligned, stride, dilation, policy)):
-        return _run_native(x, aligned, stride=stride, padding=padding,
-                           relu=relu, residual=residual)
+            and _runs_sparse(aligned, policy, mode)):
+        return conv2d_sconv(x, aligned, stride=stride, padding=padding,
+                            dilation=dilation, relu=relu, policy=policy,
+                            batch_parallel=(mode == ConvMode.SCONV_PAR),
+                            residual=residual)
+    stride, padding, dilation = tuple(stride), tuple(padding), tuple(dilation)
     route = conv_route(x, aligned, stride=stride, padding=padding,
                        dilation=dilation, mode=mode, policy=policy)
     return _run_route(route, x, aligned, stride=stride, padding=padding,
                       dilation=dilation, relu=relu, policy=policy,
-                      residual=residual,
-                      batch_parallel=(mode == ConvMode.SCONV_PAR))
+                      residual=residual)

@@ -95,6 +95,15 @@ def _avg_clipped(x, kernel, stride, padding, ho, wo):
     return total / div[None, :, :, None]
 
 
+def takes_maxpool_kernel(mode="max", *, global_pool=False,
+                         r_in: int = 1) -> bool:
+    """Whether a pooling runs on the max-pool kernel (kernels/maxpool.py,
+    one launch a call on the card): a max pool that is neither global nor
+    on a W-pair packed input (``pool2d_packed`` pools that one with torch
+    ops)."""
+    return mode == "max" and not global_pool and r_in == 1
+
+
 def pool2d(x, kernel, *, stride=None, padding=(0, 0), mode="max",
            ceil_mode=True, global_pool=False, train=False, generator=None):
     """x: [N, H, W, C] -> [N, Ho, Wo, C]. ``train`` and ``generator``
@@ -113,6 +122,8 @@ def pool2d(x, kernel, *, stride=None, padding=(0, 0), mode="max",
     ph, pw = padding
     ho = _pooled_size(h, kh, sh, ph, ceil_mode)
     wo = _pooled_size(w, kw, sw, pw, ceil_mode)
+    if takes_maxpool_kernel(mode, global_pool=global_pool):
+        return maxpool.max_pool(x, (kh, kw), (sh, sw), (ph, pw), (ho, wo))
     if mode == "stochastic":
         return _stochastic(_pool_patches(x, (kh, kw), (sh, sw), (ph, pw), ho,
                                          wo), train, generator)
@@ -129,9 +140,7 @@ def pool2d(x, kernel, *, stride=None, padding=(0, 0), mode="max",
             raise ValueError(f"avg pool sized {tuple(out.shape[1:3])}, "
                              f"Caffe sizes {(ho, wo)}")
         return out.contiguous()
-    if mode != "max":
-        raise ValueError(f"unknown pool mode {mode!r}")
-    return maxpool.max_pool(x, (kh, kw), (sh, sw), (ph, pw), (ho, wo))
+    raise ValueError(f"unknown pool mode {mode!r}")
 
 
 def _check_mode(mode, who):

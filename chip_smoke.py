@@ -110,11 +110,12 @@ Phases, one line each (any failure exits non-zero):
      TF32 TFLOP/s). Every launch of the phase must multiply in f32; they
      are printed, not counted in the kernels line.
   4. nets, each on 4 distinct inputs with every launch counter set to 0
-     just before and read just after: every route kernel must have
-     launched as many times as the layers' routes (``Net.routes``, the
-     function the dispatch runs through) say, the LRN kernel once per
-     LRN layer (GoogLeNet and AlexNet 2, ResNet-50 and VGG-16 0) and the
-     max-pool kernel once per max pool on an unpacked input (GoogLeNet 13,
+     just before and read just after: every kernel must have launched as
+     many times as ``Net.launches`` declares (each route kernel once per
+     route that names it, from the layers' routes, ``Net.routes``, the
+     function the dispatch runs through; the LRN kernel once per LRN
+     layer, GoogLeNet and AlexNet 2, ResNet-50 and VGG-16 0; the max-pool
+     kernel once per max pool on an unpacked input, GoogLeNet 13,
      ResNet-50 1, VGG-16 5, AlexNet 3; so too in phases 4b-4f and 7c); the
      last classifier's logits within 5e-2
      relative L2 of the same pruned, fused net run dense in f32 (cuDNN,
@@ -129,12 +130,12 @@ Phases, one line each (any failure exits non-zero):
      emptied cache (``autotune.clear()``, the file removed). Its
      ``time_fn`` is ``device_time`` of the whole forward, which captures
      the forward anew on each call (the trials change the routes) and
-     times CUDA-graph replays cycling the 4 inputs; ``measure_arms`` times
-     every candidate the same way. The first forward of each run measures
-     every key; an arm or a forward that raises fails the run. Each run's
-     ``calib`` line, every key's isolated arm times (each key must hold
-     every arm, ``fused`` wherever ``sconv_fused.supported`` and the
-     reference's size gate ``fits_budget`` take the key), each key's arm
+     times CUDA-graph replays cycling the 4 inputs; ``autotune.measure``
+     times every candidate the same way. The first forward of each run
+     measures every key; an arm or a forward that raises fails the run.
+     Each run's ``calib`` line, every key's isolated arm times (each key
+     must hold every arm ``ops.conv.conv_arms`` names, ``fused`` wherever
+     ``fused_gate`` admits the key), each key's arm
      in the three runs and whether they agree. Then, on the last run's
      picks: the routes served from the cache, launches (``sconv_fused``
      once per "fused" route), the logits against dense f32 (same limit),
@@ -884,17 +885,10 @@ def _bound(nbytes, flops, rates=BOUND_RATES):
     return ms[by], by
 
 
-def _op_kernel_launches(net) -> dict:
-    """The launches of the op kernels in one forward of ``net`` on the
-    card: the LRN kernel's, one per LRN layer; the max-pool kernel's, one
-    per max pool on an unpacked input (a packed input takes
-    ``pool2d_packed``)."""
-    return {LRN_KERNEL: sum(layer.spec.type == "LRN" for layer in net.layers),
-            MAXPOOL_KERNEL: sum(
-                layer.spec.type == "Pooling"
-                and layer.p.get("mode", "max") == "max"
-                and not layer.p.get("global_pooling", False)
-                and layer.p.get("pack_in", 1) == 1 for layer in net.layers)}
+def _routed(launches) -> dict:
+    """The route kernels' entries of a ``Net.launches`` count, those it
+    launches."""
+    return {k: n for k, n in launches.items() if k in KERNELS and n}
 
 
 def _bf16_ulps(out, ref) -> float:
@@ -1038,15 +1032,14 @@ def _nopad(fn, x):
 
 def _check_arms(net, params, shapes, measured):
     """(keys, keys with "fused"): every arm competed on every measured key,
-    a conv's with the fused kernel wherever the dispatcher would run it
-    (``sconv_fused.supported`` and the reference's size gate
-    ``fits_budget``), a sparse fc's ``ops.linear.fc_arms``. Each key is
-    mapped back to its conv as the dispatcher forms it (a strided 1x1 conv
-    on its subsampled map), or to its fc; raises SystemExit otherwise."""
+    a conv's ``ops.conv.conv_arms`` (the fused kernel wherever
+    ``fused_gate`` admits the shape), a sparse fc's ``ops.linear.fc_arms``.
+    Each key is mapped back to its conv as the dispatcher forms it (a
+    strided 1x1 conv on its subsampled map), or to its fc; raises
+    SystemExit otherwise."""
     import torch
 
     from caffe_escoin_tpu_torch.engine import autotune
-    from caffe_escoin_tpu_torch.kernels import sconv_fused
     from caffe_escoin_tpu_torch.ops import conv as conv_ops
     from caffe_escoin_tpu_torch.ops import linear as linear_ops
     from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
@@ -1056,7 +1049,7 @@ def _check_arms(net, params, shapes, measured):
     for layer, in_shapes in net.walk_shapes(shapes):
         al = params.get(layer.spec.name)
         if (layer.spec.type == "InnerProduct"
-                and isinstance(al, AlignedConvWeight) and layer._sparse(al)):
+                and linear_ops.runs_sparse(al, layer.policy)):
             key = autotune.fc_cache_key(al.bsc, in_shapes[0][0], dtype,
                                         net.policy.mxu_dtype)
             want = set(linear_ops.fc_arms(al.bsc, net.policy))
@@ -1083,11 +1076,9 @@ def _check_arms(net, params, shapes, measured):
         if key not in measured or key in seen:
             continue
         seen.add(key)
-        want = {"unroll", "gathered", "gathered_cols", "dense"}
-        if (sconv_fused.supported(x, al, stride=stride, dilation=dil)
-                and sconv_fused.fits_budget(x, al, pad)):
-            want.add("fused")
-            n_fused += 1
+        want = set(conv_ops.conv_arms(x, al, stride=stride, padding=pad,
+                                      dilation=dil, policy=net.policy))
+        n_fused += "fused" in want
         if set(measured[key]) != want:
             raise SystemExit(f"autotune: {layer.spec.name} measured "
                              f"{sorted(measured[key])}, expected "
@@ -1493,7 +1484,6 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     from caffe_escoin_tpu_torch.kernels import lrn, maxpool
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
-    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
     from caffe_escoin_tpu_torch.tools import cli
     from caffe_escoin_tpu_torch.utils.benchmark import force_platform
     from caffe_escoin_tpu_torch.utils.pruning import PruningSchedule
@@ -1636,9 +1626,7 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     fnet, fparams = fuse_inference(net, trained, state=net.state0)
     aligned = fnet.weight_align(fparams)
     routes = fnet.routes(aligned, in_shape)
-    expect = collections.Counter(
-        ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
-    expect.update(_op_kernel_launches(fnet))
+    expect = fnet.launches(aligned, in_shape)
     fwd = fnet.inference_fn(params_to(aligned, dev, torch.bfloat16),
                             return_blobs=True)
     fwd_d = Net(fnet.specs, policy=ExecutionPolicy()).inference_fn(
@@ -1805,7 +1793,6 @@ def _phase_data(mods, tag, results, dev):
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import (LayerSpec, Net, fuse_inference,
                                            params_to)
-    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
     from caffe_escoin_tpu_torch.ops import conv as conv_ops
     from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
     from caffe_escoin_tpu_torch.tools import cli
@@ -1912,10 +1899,9 @@ def _phase_data(mods, tag, results, dev):
                                        state=net.state0)
         aligned = fnet.weight_align(fparams)
         routes = fnet.routes(aligned, {})
-        expect = collections.Counter(
-            ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
-        if dict(expect) != DATA_RESNET_LAUNCHES:
-            raise SystemExit(f"data resnet50: routes name {dict(expect)}, "
+        expect = fnet.launches(aligned, {})
+        if _routed(expect) != DATA_RESNET_LAUNCHES:
+            raise SystemExit(f"data resnet50: routes name {_routed(expect)}, "
                              f"expected {DATA_RESNET_LAUNCHES}")
         fwd = fnet.inference_fn(params_to(aligned, dev, torch.bfloat16),
                                 return_blobs=True)
@@ -2215,7 +2201,6 @@ def _phase_parallel(mods, tag, results, dev):
     from caffe_escoin_tpu_torch.kernels import sconv_gc
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
-    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
     from caffe_escoin_tpu_torch.ops import conv as conv_ops
     from caffe_escoin_tpu_torch.parallel import dp, halo, tp
     from caffe_escoin_tpu_torch.parallel import mesh as mesh_lib
@@ -2255,8 +2240,11 @@ def _phase_parallel(mods, tag, results, dev):
             results[k]["launches"] += n
 
     def kernels_of(routes):
-        return dict(collections.Counter(
-            ROUTE_KERNELS[r] for r in routes if r in ROUTE_KERNELS))
+        """The launches of convs on these routes (a halo chain: no net)."""
+        out = collections.Counter()
+        for r in routes:
+            out.update(conv_ops.route_launches(r))
+        return out
 
     def max_err(got, ref):
         return (got.float() - ref.float()).abs().max().item()
@@ -2441,7 +2429,7 @@ def _phase_parallel(mods, tag, results, dev):
         out, got = launched(lambda: fwd(weights, dp.shard_batch(
             mesh, {"data": x})))
         count(f"dp eval resnet50 b{PAR_DP_BATCH}", got,
-              kernels_of(routes.values()))
+              fnet.launches(aligned, shapes))
         with torch.inference_mode():
             ref = Net(fnet.specs, policy=ExecutionPolicy()).apply(
                 params_to(fparams, dev), {"data": x})["prob"]
@@ -2532,7 +2520,7 @@ def _phase_parallel(mods, tag, results, dev):
                                  return_blobs=True)
         out, got = launched(lambda: kfwd({"data": x}))
         count(f"permute min_density {PAR_MIN_DENSITY:g} resnet50 "
-              f"b{PAR_DP_BATCH}", got, kernels_of(routes.values()))
+              f"b{PAR_DP_BATCH}", got, knet.launches(kal, shapes))
         with torch.inference_mode():
             ref = Net(enet.specs, policy=ExecutionPolicy()).apply(
                 params_to(dep, dev), {"data": x},
@@ -2573,8 +2561,7 @@ def _phase_parallel(mods, tag, results, dev):
         clf = vision.Classifier(vnet, valigned, **kw)
         preds, got = launched(lambda: clf.predict(images))
         count(f"vision Classifier alexnet {PAR_VISION_IMAGES} images x 10 "
-              f"crops", got, kernels_of(vnet.routes(valigned, shapes)
-                                       .values()))
+              f"crops", got, vnet.launches(valigned, shapes))
         ref = vision.Classifier(dense_net, vparams, **kw).predict(images)
         rel = rel_l2(torch.from_numpy(preds), torch.from_numpy(ref))
         ok = preds.shape == (PAR_VISION_IMAGES, 1000) and rel <= \
@@ -2592,8 +2579,8 @@ def _phase_parallel(mods, tag, results, dev):
         dets, got = launched(lambda: det.detect_windows(
             [(images[0], windows)]))
         count(f"vision Detector alexnet {PAR_WINDOWS} windows", got,
-              kernels_of(vnet.routes(valigned, {
-                  "data": (PAR_WINDOWS,) + shapes["data"][1:]}).values()))
+              vnet.launches(valigned, {
+                  "data": (PAR_WINDOWS,) + shapes["data"][1:]}))
         ref = vision.Detector(dense_net, vparams,
                               output_name="fc8").detect_windows(
             [(images[0], windows)])
@@ -2723,7 +2710,6 @@ def _phase_examples(mods, tag, results, dev, full=False):
     from caffe_escoin_tpu_torch.examples import net_surgery, siamese_digits
     from caffe_escoin_tpu_torch.examples import train_eval_sparse as tes
     from caffe_escoin_tpu_torch.nn import Net, params_to
-    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
 
     t_phase = time.perf_counter()
     cuda = dev.type == "cuda"
@@ -2797,8 +2783,7 @@ def _phase_examples(mods, tag, results, dev, full=False):
     b = args.batch
     shapes = {"data": (b,) + ted.shape[1:], "label": (b,)}
     routes = knet.routes(aligned, shapes)
-    expect = collections.Counter(ROUTE_KERNELS[r] for r in routes.values()
-                                 if r in ROUTE_KERNELS)
+    expect = knet.launches(aligned, shapes)
     head = next(l.spec.bottoms[0] for l in knet.layers
                 if l.spec.type == "SoftmaxWithLoss")
     state = params_to(s.net_state, dev)
@@ -2884,7 +2869,6 @@ def _phase_bench(mods, tag, results, dev):
     from caffe_escoin_tpu_torch.engine import autotune
     from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
     from caffe_escoin_tpu_torch.nn import Net, params_to
-    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
 
     t_phase = time.perf_counter()
     cuda = dev.type == "cuda"
@@ -2902,10 +2886,9 @@ def _phase_bench(mods, tag, results, dev):
             torch.cuda.synchronize(dev)
         return {k: m.launches for k, m in mods.items()}
 
-    def kernels_of(routes, n=1):
-        got = collections.Counter(ROUTE_KERNELS[r] for r in routes.values()
-                                  if r in ROUTE_KERNELS)
-        return {k: n * got.get(k, 0) for k in mods}
+    def per_forwards(launches, n=1):
+        """``Net.launches``' route kernels, n forwards' worth."""
+        return {k: n * launches[k] for k in mods}
 
     prev_cache = os.environ.get("CESCOIN_AUTOTUNE_CACHE")
     os.environ["CESCOIN_AUTOTUNE_CACHE"] = BENCH_AUTOTUNE_CACHE
@@ -2956,6 +2939,7 @@ def _phase_bench(mods, tag, results, dev):
                 n_measured = len(autotune.report())
                 with autotune.net_scope(args.model):
                     routes = bare.net_s.routes(bare.aligned, bare.shapes)
+                    declared = bare.net_s.launches(bare.aligned, bare.shapes)
                     fwd = bare.net_s.inference_fn(bare.aligned,
                                                   return_blobs=True)
                     for m in mods.values():
@@ -2966,7 +2950,7 @@ def _phase_bench(mods, tag, results, dev):
                 if len(autotune.report()) != n_measured:
                     raise SystemExit("bench bare: an arm was measured after "
                                      "the run: its table was not complete")
-                expect = kernels_of(routes, len(bare.xs))
+                expect = per_forwards(declared, len(bare.xs))
                 # the sparse net's own pruned weights, dense in f32 (the
                 # bench's dense arms hold the unpruned ones)
                 dense = Net(bare.net_s.specs, policy=ExecutionPolicy(
@@ -3009,6 +2993,7 @@ def _phase_bench(mods, tag, results, dev):
                 logits, fwd_launches = {}, {}
                 with autotune.net_scope(args.model):
                     routes = bare.net_s.routes(bare.aligned, bare.shapes)
+                    declared = bare.net_s.launches(bare.aligned, bare.shapes)
                     for flag in (False, True):
                         fwd = bare.net_s.inference_fn(
                             bare.aligned, return_blobs=True,
@@ -3033,7 +3018,7 @@ def _phase_bench(mods, tag, results, dev):
                     raise SystemExit(f"bench {label}: the forward over "
                                      f"grafted payloads differs from the "
                                      f"closed-over one")
-                if fwd_launches[True] != kernels_of(routes, len(bare.xs)) \
+                if fwd_launches[True] != per_forwards(declared, len(bare.xs)) \
                         or not fwd_launches[True]["sconv_fused"]:
                     raise SystemExit(f"bench {label}: launches "
                                      f"{fwd_launches[True]} are not what "
@@ -3056,8 +3041,8 @@ def _phase_bench(mods, tag, results, dev):
                 args = bench.parse_args(argv + extra)
                 n_fwd = len(bare.xs) + (len(bare.xs) if cuda
                                         else max(args.repeats, 8))
-                expect = kernels_of(net.routes(bare.aligned, bare.shapes),
-                                    n_fwd)
+                expect = per_forwards(net.launches(bare.aligned, bare.shapes),
+                                      n_fwd)
                 print(f"bench {label}: launches {got}, expected {expect} "
                       f"({n_fwd} forwards of what Net.routes names) {tag}")
                 if got != expect or not got["sconv_fused"]:
@@ -3425,7 +3410,6 @@ def main(argv=None) -> int:
                                                     pack_narrow_chains)
         from caffe_escoin_tpu_torch.ops import s2d as s2d_ops
         from caffe_escoin_tpu_torch.ops import wpack
-        from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
         from caffe_escoin_tpu_torch.engine.context import SparseFormat
         from caffe_escoin_tpu_torch.kernels.spmm import ell_spmm
         from caffe_escoin_tpu_torch.sparse import dense_to_bsc, dense_to_ell
@@ -3439,8 +3423,7 @@ def main(argv=None) -> int:
         return 1
     # the route kernels, whose launches a net's routes name; the phases that
     # run a forward on the kernel routes (4, 4b-4f, 7c) count the op kernels
-    # beside them (net_mods): one LRN launch per LRN layer, one max-pool
-    # launch per max pool on an unpacked input
+    # beside them (net_mods), all as ``Net.launches`` declares them
     mods = {"sconv_fused": sconv_fused, "bsc_spmm": bsc_spmm,
             "sconv_gc": sconv_gc}
     net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool}
@@ -4002,6 +3985,31 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. the nets ------------------------------------------------------
+    def launches_of(fwd, inputs, expect, what, f32=False):
+        """Each kernel launched N_INPUTS x what ``expect`` (the net's
+        ``Net.launches``) names, every launch in f32 with ``f32`` and none
+        without; counted into the kernel's results (a route kernel's
+        ``_f32`` variant's with ``f32``). Returns the forwards' outputs."""
+        want = {k: expect[k] for k in net_mods}
+        for m in net_mods.values():
+            m.reset_counts()
+        outs = [fwd(i) for i in inputs]
+        torch.cuda.synchronize()
+        got = {k: m.launches for k, m in net_mods.items()}
+        got_f32 = {k: m.launches_f32 for k, m in net_mods.items()}
+        print(f"net {what} launches over {N_INPUTS} forwards: {got}"
+              + (f", of them in f32 {got_f32}" if f32 else "")
+              + f" (expected {N_INPUTS} x {want}) {tag}")
+        for name, n in got.items():
+            if (n != N_INPUTS * want[name]
+                    or got_f32[name] != (n if f32 else 0)):
+                raise SystemExit(f"{what} launched {name} {n} times ("
+                                 f"{got_f32[name]} in f32), expected "
+                                 f"{N_INPUTS * want[name]}")
+            f32_variant = f32 and name in KERNELS
+            results[f"{name}_f32" if f32_variant else name]["launches"] += n
+        return outs
+
     pol_s = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
                             compute_dtype=torch.bfloat16, cast_back=False,
                             use_xla_sparse=False)
@@ -4024,9 +4032,7 @@ def main(argv=None) -> int:
             fnet.routes(aligned, shapes)
         route_us = ((time.perf_counter() - t1) / ROUTE_REPS / len(routes)
                     * 1e6)
-        expect = collections.Counter(
-            ROUTE_KERNELS[r] for r in routes.values() if r in ROUTE_KERNELS)
-        expect.update(_op_kernel_launches(fnet))
+        expect = fnet.launches(aligned, shapes)
         sparse_params = params_to(aligned, dev, torch.bfloat16)
         dense_net = Net(fnet.specs, policy=ExecutionPolicy())
         dense_params = params_to(fparams, dev)
@@ -4049,20 +4055,8 @@ def main(argv=None) -> int:
         fwd_s = fnet.inference_fn(sparse_params, return_blobs=True)
         fwd_d = dense_net.inference_fn(dense_params, return_blobs=True)
         fwd_db = dense_bf16_net.inference_fn(dense_bf16_params)
-        for m in net_mods.values():
-            m.reset_counts()
-        sparse_out = [fwd_s({"data": x}) for x in xs]
-        torch.cuda.synchronize()
-        launches = {k: m.launches for k, m in net_mods.items()}
-        print(f"net {model} launches over {N_INPUTS} forwards: {launches} "
-              f"(expected {N_INPUTS} x {dict(expect)}) {tag}")
-        for name, n in launches.items():
-            if n != N_INPUTS * expect[name]:
-                raise SystemExit(f"{model} launched {name} {n} times, "
-                                 f"expected {N_INPUTS * expect[name]}")
-            results[name]["launches"] += n
-        if not all(launches[k] for k, n in expect.items() if n):
-            raise SystemExit(f"{model}: a kernel of its path never launched")
+        sparse_out = launches_of(fwd_s, [{"data": x} for x in xs], expect,
+                                 model)
         num, den, peak = 0.0, 0.0, 0.0
         for x, so in zip(xs, sparse_out):
             prob, logits = so["prob"], so[logits_blob].float()
@@ -4108,33 +4102,6 @@ def main(argv=None) -> int:
             num += (logits - ref).pow(2).sum().item()
             den += ref.pow(2).sum().item()
         return (num / den) ** 0.5
-
-    def launches_of(fwd, inputs, expect, what, net, f32=False):
-        """Each route kernel launched N_INPUTS x what ``expect`` names and
-        the op kernels N_INPUTS x ``net``'s LRN layers and max pools, every
-        launch in f32
-        with ``f32`` and none without; counted into the kernel's results
-        (a route kernel's ``_f32`` variant's with ``f32``)."""
-        want = {k: expect.get(k, 0) for k in mods}
-        want.update(_op_kernel_launches(net))
-        for m in net_mods.values():
-            m.reset_counts()
-        for i in inputs:
-            fwd(i)
-        torch.cuda.synchronize()
-        got = {k: m.launches for k, m in net_mods.items()}
-        got_f32 = {k: m.launches_f32 for k, m in net_mods.items()}
-        print(f"net {what} launches over {N_INPUTS} forwards: {got}"
-              + (f", of them in f32 {got_f32}" if f32 else "")
-              + f" (expected {N_INPUTS} x {want}) {tag}")
-        for name, n in got.items():
-            if (n != N_INPUTS * want[name]
-                    or got_f32[name] != (n if f32 else 0)):
-                raise SystemExit(f"{what} launched {name} {n} times ("
-                                 f"{got_f32[name]} in f32), expected "
-                                 f"{N_INPUTS * want[name]}")
-            f32_variant = f32 and name in KERNELS
-            results[f"{name}_f32" if f32_variant else name]["launches"] += n
 
     # ---- 4b. ResNet-50 b32 autotuned ---------------------------------------
     row = kept["resnet50"]
@@ -4193,7 +4160,7 @@ def main(argv=None) -> int:
     x_mb = row["xs"][0].numel() * row["xs"][0].element_size() / 1e6
     print(f"calib timing: device_time of the whole forward, CUDA-graph "
           f"replays, median of {CALIB_REPS}, cycling {N_INPUTS} inputs of "
-          f"{x_mb:.1f} MB (resnet50 b32; measure_arms: 4 synthetic inputs "
+          f"{x_mb:.1f} MB (resnet50 b32; autotune.measure: 4 synthetic inputs "
           f"per key) {tag}")
     picks = []  # per run: key -> arm
     for run in range(CALIB_RUNS):
@@ -4212,28 +4179,14 @@ def main(argv=None) -> int:
     n_measured = len(autotune.report())
     with autotune.net_scope("resnet50"):
         at_routes = at_net.routes(row["params"], row["shapes"])
+        at_expect = at_net.launches(row["params"], row["shapes"])
     if len(autotune.report()) != n_measured:
         raise SystemExit("Net.routes measured an arm: the cache was not "
                          "complete after calibration")
-    at_expect = collections.Counter(
-        ROUTE_KERNELS[r] for r in at_routes.values() if r in ROUTE_KERNELS)
-    at_expect.update(_op_kernel_launches(at_net))
     print(f"net resnet50 autotuned routes (served from the last run's "
           f"cache): {dict(collections.Counter(at_routes.values()))}; "
           + ", ".join(f"{n} {r}" for n, r in at_routes.items()) + f" {tag}")
-    for m in net_mods.values():
-        m.reset_counts()
-    at_out = [fwd_at(i) for i in at_inputs]
-    torch.cuda.synchronize()
-    at_launches = {k: m.launches for k, m in net_mods.items()}
-    print(f"net resnet50 autotuned launches over {N_INPUTS} forwards: "
-          f"{at_launches} (expected {N_INPUTS} x {dict(at_expect)}: one "
-          f"sconv_fused per \"fused\" route) {tag}")
-    for name, n in at_launches.items():
-        if n != N_INPUTS * at_expect[name]:
-            raise SystemExit(f"autotuned resnet50 launched {name} {n} "
-                             f"times, expected {N_INPUTS * at_expect[name]}")
-        results[name]["launches"] += n
+    at_out = launches_of(fwd_at, at_inputs, at_expect, "resnet50 autotuned")
     num = den = 0.0
     for inputs, out in zip(at_inputs, at_out):
         logits = out["fc1000"].float()
@@ -4342,14 +4295,13 @@ def main(argv=None) -> int:
         n_measured = len(autotune.report())
         with autotune.net_scope(model):
             z_routes = z_net.routes(zrow["params"], zrow["shapes"])
+            z_expect = z_net.launches(zrow["params"], zrow["shapes"])
         if len(autotune.report()) != n_measured:
             raise SystemExit(f"{model}: Net.routes measured an arm after "
                              f"calibration")
-        z_expect = collections.Counter(
-            ROUTE_KERNELS[r] for r in z_routes.values() if r in ROUTE_KERNELS)
         print(f"net {model} autotuned routes (served from the cache): "
               f"{dict(collections.Counter(z_routes.values()))} {tag}")
-        launches_of(fwd_z, z_inputs, z_expect, f"{model} autotuned", z_net)
+        launches_of(fwd_z, z_inputs, z_expect, f"{model} autotuned")
         rel_l2 = logits_rel_l2(fwd_z, zrow, f"autotuned {model}")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net {model} autotuned {zrow['logits']} logits vs dense f32: "
@@ -4488,8 +4440,7 @@ def main(argv=None) -> int:
         p_params = params_to(pnet.weight_align(row["fparams"]), dev,
                              torch.bfloat16)
         p_routes = pnet.routes(p_params, row["shapes"])
-        expect = collections.Counter(ROUTE_KERNELS[r] for r in
-                                     p_routes.values() if r in ROUTE_KERNELS)
+        expect = pnet.launches(p_params, row["shapes"])
         # the layers that packing changed
         region = [l.spec.name for l in pnet.layers
                   if "pack_in" in l.p or "pack_out" in l.p]
@@ -4498,11 +4449,12 @@ def main(argv=None) -> int:
               f"s; routes {dict(collections.Counter(p_routes.values()))}; "
               f"packed layers: " + ", ".join(
                   f"{n} {p_routes.get(n, '-')}" for n in region) + f" {tag}")
-        if dict(expect) != PACKED_LAUNCHES[model]:
-            raise SystemExit(f"packed {model} routes launch {dict(expect)}, "
-                             f"expected {PACKED_LAUNCHES[model]}")
+        if _routed(expect) != PACKED_LAUNCHES[model]:
+            raise SystemExit(f"packed {model} routes launch "
+                             f"{_routed(expect)}, expected "
+                             f"{PACKED_LAUNCHES[model]}")
         fwd_p = pnet.inference_fn(p_params, return_blobs=True)
-        launches_of(fwd_p, inputs, expect, f"{model} packed", pnet)
+        launches_of(fwd_p, inputs, expect, f"{model} packed")
         rel_l2 = logits_rel_l2(fwd_p, row, f"packed {model}")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net {model} packed {row['logits']} logits vs dense f32 "
@@ -4550,14 +4502,11 @@ def main(argv=None) -> int:
                              "resnet50 b32 autotuned packed")
         with autotune.net_scope("resnet50_packed"):
             pat_routes = at_pnet.routes(p_params, row["shapes"])
-        pat_expect = collections.Counter(
-            ROUTE_KERNELS[r] for r in pat_routes.values()
-            if r in ROUTE_KERNELS)
+            pat_expect = at_pnet.launches(p_params, row["shapes"])
         print(f"net resnet50 autotuned packed routes (served from the "
               f"cache): {dict(collections.Counter(pat_routes.values()))} "
               f"{tag}")
-        launches_of(fwd_pat, inputs, pat_expect,
-                    f"{model} autotuned packed", at_pnet)
+        launches_of(fwd_pat, inputs, pat_expect, f"{model} autotuned packed")
         rel_l2 = logits_rel_l2(fwd_pat, row, "autotuned packed resnet50")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net {model} autotuned packed fc1000 logits vs dense f32: "
@@ -4597,15 +4546,14 @@ def main(argv=None) -> int:
     for label, (n, prm) in forms.items():
         fwd = fwds[label]
         f_routes = n.routes(prm, row["shapes"])
-        expect = collections.Counter(ROUTE_KERNELS[r] for r in
-                                     f_routes.values() if r in ROUTE_KERNELS)
+        expect = n.launches(prm, row["shapes"])
         stem = n.specs[0].params
         grid = n.layers[0]._in_shape(row["shapes"]["data"])
         print(f"net googlenet b32 {label}: stem kernel {stem['kernel']} "
               f"stride {stem.get('stride', 1)} pad {stem.get('pad', 0)} on "
               f"{grid}; packed blobs {getattr(n, 'packed_blobs', {})}; "
               f"routes {dict(collections.Counter(f_routes.values()))} {tag}")
-        launches_of(fwd, inputs, expect, f"googlenet {label}", n)
+        launches_of(fwd, inputs, expect, f"googlenet {label}")
         rel_l2 = logits_rel_l2(fwd, row, f"googlenet {label}")
         ok = rel_l2 <= LOGITS_REL_L2
         print(f"net googlenet {label} loss3/classifier logits vs dense f32 "
@@ -4667,8 +4615,7 @@ def main(argv=None) -> int:
         f_net = Net(row["specs"], policy=pol_f32)
         f_params = params_to(f_net.weight_align(row["fparams"]), dev)
         f_routes = f_net.routes(f_params, row["shapes"])
-        expect = collections.Counter(ROUTE_KERNELS[r] for r in
-                                     f_routes.values() if r in ROUTE_KERNELS)
+        expect = f_net.launches(f_params, row["shapes"])
         print(f"net {model} b{row['xs'][0].shape[0]} f32 (mxu_dtype float32,"
               f" f32 activations), kernel routes: "
               f"{dict(collections.Counter(f_routes.values()))}; the layers "
@@ -4676,7 +4623,7 @@ def main(argv=None) -> int:
                   f"{n} {r}" for n, r in f_routes.items()
                   if r != row["routes"].get(n)) + f" {tag}")
         f_fwd = f_net.inference_fn(f_params, return_blobs=True)
-        launches_of(f_fwd, inputs, expect, f"{model} f32", f_net, f32=True)
+        launches_of(f_fwd, inputs, expect, f"{model} f32", f32=True)
         f32_logits(f_fwd, row, f"{model} f32")
         f_graph_fwd = f_net.inference_fn(f_params, cuda_graph=True)
         for inputs_i in inputs[:2] * 2:
@@ -4742,16 +4689,14 @@ def main(argv=None) -> int:
         n_measured = len(autotune.report())
         with autotune.net_scope("resnet50_f32"):
             at32_routes = at_net32.routes(f_params, row["shapes"])
+            at32_expect = at_net32.launches(f_params, row["shapes"])
         if len(autotune.report()) != n_measured:
             raise SystemExit("resnet50 f32: Net.routes measured an arm after "
                              "calibration")
-        at32_expect = collections.Counter(
-            ROUTE_KERNELS[r] for r in at32_routes.values()
-            if r in ROUTE_KERNELS)
         print(f"net resnet50 autotuned f32 routes (served from the cache): "
               f"{dict(collections.Counter(at32_routes.values()))} {tag}")
         launches_of(fwd_at32, inputs, at32_expect, "resnet50 autotuned f32",
-                    at_net32, f32=True)
+                    f32=True)
         f32_logits(fwd_at32, row, "resnet50 autotuned f32")
         at32_ms = {}
         for label, fn in (("f32 kernel routes", f_fwd),

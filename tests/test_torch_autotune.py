@@ -1,10 +1,11 @@
 """The port's autotune (caffe_escoin_tpu_torch.engine.autotune) on the
 deterministic cases of the JAX package's tests/test_autotune.py, and what
 the port adds: its cache key and fingerprint, a TPU table never served, and
-``choose_arm`` with the measurement replaced, so nothing is timed.
+the router's measured picks (``ops.conv.measured_arm``,
+``ops.linear.fc_arm``) with the measurement replaced, so nothing is timed.
 
-``time_fn`` consults ``choose_arm`` as a whole forward does, but returns a
-crafted cost model, so every decision of ``calibrate_graph`` is exact.
+``time_fn`` consults ``measured_arm`` as a whole forward does, but returns
+a crafted cost model, so every decision of ``calibrate_graph`` is exact.
 """
 
 import ast
@@ -26,6 +27,7 @@ from caffe_escoin_tpu_torch.engine import autotune  # noqa: E402
 from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy  # noqa: E402
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs  # noqa: E402
 from caffe_escoin_tpu_torch.ops import conv as conv_ops  # noqa: E402
+from caffe_escoin_tpu_torch.ops import linear as linear_ops  # noqa: E402
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align  # noqa: E402
 from caffe_escoin_tpu_torch.utils import benchmark  # noqa: E402
 from caffe_escoin_tpu_torch.utils.benchmark import device_time  # noqa: E402
@@ -68,11 +70,11 @@ def two_keys(fresh):
     autotune._CACHE[key_b] = "unroll"
 
     def consult():
-        """What a whole forward does: ask choose_arm per conv site (key_a
-        twice: multiplicity)."""
-        a1 = autotune.choose_arm(a, POL, shape, (1, 1), (1, 1), (1, 1))
-        autotune.choose_arm(a, POL, shape, (1, 1), (1, 1), (1, 1))
-        a2 = autotune.choose_arm(b, POL, shape, (1, 1), (0, 0), (1, 1))
+        """What a whole forward does: ask measured_arm per conv site
+        (key_a twice: multiplicity)."""
+        a1 = conv_ops.measured_arm(a, POL, shape, (1, 1), (1, 1), (1, 1))
+        conv_ops.measured_arm(a, POL, shape, (1, 1), (1, 1), (1, 1))
+        a2 = conv_ops.measured_arm(b, POL, shape, (1, 1), (0, 0), (1, 1))
         return a1, a2
 
     yield key_a, key_b, consult, fresh
@@ -289,11 +291,11 @@ def test_tpu_table_is_never_served(fresh, monkeypatch):
         json.dump({"__kernel_fingerprint__": autotune.code_fingerprint(),
                    tpu_key: "dense"}, fh)
     measured = []
-    monkeypatch.setattr(autotune, "measure_arms",
+    monkeypatch.setattr(autotune, "measure",
                         lambda *a, **k: measured.append(1) or {
                             "unroll": 1.0, "dense": 2.0})
-    assert autotune.choose_arm(al, POL, shape, (1, 1), (1, 1),
-                               (1, 1)) == "unroll"
+    assert conv_ops.measured_arm(al, POL, shape, (1, 1), (1, 1),
+                                 (1, 1)) == "unroll"
     assert measured == [1]
     assert tpu_key in autotune._CACHE  # loaded, but never matched
 
@@ -321,17 +323,17 @@ def test_choose_arm_measures_once_and_caches(fresh, monkeypatch):
     _, al = _aligned(rng, 32, 32, 3)
     calls = []
 
-    def fake(aligned, policy, x_shape, stride, padding, dilation):
+    def fake(candidates, x_shape, dtype, device):
         calls.append(x_shape)
         return {"unroll": 3e-6, "gathered": 2e-6, "gathered_cols": 4e-6,
                 "dense": 5e-6}
 
-    monkeypatch.setattr(autotune, "measure_arms", fake)
+    monkeypatch.setattr(autotune, "measure", fake)
     shape = (1, 6, 6, 32)
     logs = []
     args = (al, POL, shape, (1, 1), (1, 1), (1, 1))
-    assert autotune.choose_arm(*args, log=logs.append) == "gathered"
-    assert autotune.choose_arm(*args) == "gathered"
+    assert conv_ops.measured_arm(*args, log=logs.append) == "gathered"
+    assert conv_ops.measured_arm(*args) == "gathered"
     assert calls == [shape]
     assert "gathered" in logs[0]
     key = autotune.cache_key(al, shape, (1, 1), (1, 1), (1, 1),
@@ -340,7 +342,8 @@ def test_choose_arm_measures_once_and_caches(fresh, monkeypatch):
     with open(fresh) as fh:
         assert json.load(fh)[key] == "gathered"
     # the dispatcher takes it: best_arm after the block-density gate
-    assert xbs.best_arm(al, POL, x_shape=shape, padding=(1, 1)) == "gathered"
+    assert conv_ops.best_arm(al, POL, x_shape=shape,
+                             padding=(1, 1)) == "gathered"
     route = conv_ops.conv_route(torch.empty(shape, device="meta"), al,
                                 padding=(1, 1), mode=ConvMode.SCONV_PAR,
                                 policy=POL)
@@ -352,7 +355,7 @@ def test_an_arm_that_raises_fails_the_measurement(fresh, monkeypatch,
                                                   failing):
     """No candidate drops out quietly: an XBSP arm, or the fused kernel
     (offered where it runs the shape, with no switch), that raises fails
-    choose_arm, and nothing is cached."""
+    measured_arm, and nothing is cached."""
     from caffe_escoin_tpu_torch.kernels import sconv_fused
 
     rng = np.random.default_rng(6)
@@ -364,7 +367,8 @@ def test_an_arm_that_raises_fails_the_measurement(fresh, monkeypatch,
     monkeypatch.setattr(xbs if failing == "conv_gathered" else sconv_fused,
                         failing, boom)
     with pytest.raises(RuntimeError, match=f"{failing} failed"):
-        autotune.choose_arm(al, POL, (1, 6, 6, 32), (1, 1), (1, 1), (1, 1))
+        conv_ops.measured_arm(al, POL, (1, 6, 6, 32), (1, 1), (1, 1),
+                              (1, 1))
     assert autotune.report() == {} and autotune._CACHE == {}
 
 
@@ -372,10 +376,10 @@ def test_choose_arm_is_not_reentrant(fresh, monkeypatch):
     rng = np.random.default_rng(4)
     _, al = _aligned(rng, 32, 32, 3)
     monkeypatch.setattr(autotune._MEASURING, "active", True, raising=False)
-    assert autotune.choose_arm(al, POL, (1, 6, 6, 32), (1, 1), (1, 1),
-                               (1, 1)) is None
+    assert conv_ops.measured_arm(al, POL, (1, 6, 6, 32), (1, 1), (1, 1),
+                                 (1, 1)) is None
     # best_arm then falls back to the heuristic
-    assert xbs.best_arm(al, POL, x_shape=(1, 6, 6, 32)) == "unroll"
+    assert conv_ops.best_arm(al, POL, x_shape=(1, 6, 6, 32)) == "unroll"
 
 
 @pytest.mark.parametrize("case", ["fused", "over_budget", "dilated"])
@@ -391,8 +395,12 @@ def test_measure_arms_times_every_candidate(fresh, monkeypatch, case):
     dilation = (2, 2) if case == "dilated" else (1, 1)
     rng = np.random.default_rng(5)
     _, al = _aligned(rng, 16, 16, 3)
-    times = autotune.measure_arms(al, POL, (1, 5, 5, 16), (1, 1), dilation,
-                                  dilation, iters=2)
+    shape = (1, 5, 5, 16)
+    arms = conv_ops.conv_arms(torch.empty(shape, device="meta"), al,
+                              stride=(1, 1), padding=dilation,
+                              dilation=dilation, policy=POL)
+    times = autotune.measure(arms, shape, torch.float32, torch.device("cpu"),
+                             iters=2)
     expect = {"unroll", "gathered", "gathered_cols", "dense"}
     assert set(times) == (expect | {"fused"} if case == "fused" else expect)
     assert all(t > 0 for t in times.values())
@@ -404,7 +412,8 @@ def test_fused_is_offered_exactly_where_its_gate_passes(
         fresh, monkeypatch, supported, fits):
     """The candidate set comes from the policy and the shape alone: the
     fused kernel competes exactly where ``sconv_fused.supported`` and
-    ``fits_budget`` both pass, and no environment variable is read."""
+    ``fits_budget`` both pass (``ops.conv.fused_gate``), and no environment
+    variable is read."""
     from caffe_escoin_tpu_torch.kernels import sconv_fused
 
     for name in [k for k in os.environ if k.startswith("CESCOIN_")]:
@@ -418,10 +427,31 @@ def test_fused_is_offered_exactly_where_its_gate_passes(
                         or {a: 1.0 for a in arms})
     rng = np.random.default_rng(7)
     _, al = _aligned(rng, 16, 16, 3)
-    autotune.measure_arms(al, POL, (1, 5, 5, 16), (1, 1), (1, 1), (1, 1))
+    conv_ops.measured_arm(al, POL, (1, 5, 5, 16), (1, 1), (1, 1), (1, 1))
     assert ("fused" in offered[0]) == (supported and fits)
     assert offered[0] - {"fused"} == {"unroll", "gathered", "gathered_cols",
                                       "dense"}
+
+
+@pytest.mark.parametrize("case", ["fused", "over_budget", "dilated"])
+def test_conv_candidates_come_in_order(monkeypatch, case):
+    """``ops.conv.conv_arms`` names a conv's candidates in this order:
+    unroll, gathered, gathered_cols, dense, then fused exactly where
+    ``fused_gate`` admits the shape (not over the reference's size budget,
+    not dilated)."""
+    from caffe_escoin_tpu_torch.kernels import sconv_fused
+
+    if case == "over_budget":
+        monkeypatch.setattr(sconv_fused, "VMEM_BUDGET", 1024)
+    dilation = (2, 2) if case == "dilated" else (1, 1)
+    _, al = _aligned(np.random.default_rng(5), 16, 16, 3)
+    x = torch.empty((1, 5, 5, 16), dtype=torch.bfloat16, device="meta")
+    arms = conv_ops.conv_arms(x, al, stride=(1, 1), padding=dilation,
+                              dilation=dilation, policy=POL)
+    admits = conv_ops.fused_gate(x, al, dilation, dilation=dilation)
+    assert admits == (case == "fused")
+    assert list(arms) == ["unroll", "gathered", "gathered_cols", "dense"] + (
+        ["fused"] if admits else [])
 
 
 # ---- the fc's arms ---------------------------------------------------------
@@ -464,9 +494,6 @@ def test_fc_arms_are_timed_in_turn_and_the_fastest_wins(fresh, monkeypatch,
     ``device_time_arms`` on a counting clock (each call advances it by its
     arm's cost): every arm runs each input set once eagerly, then round i
     runs every arm once on set i % 4; the cheapest arm is picked."""
-    from caffe_escoin_tpu_torch.ops import linear as linear_ops
-    from caffe_escoin_tpu_torch.utils import benchmark
-
     clock = {"t": 0.0}
     cost = {"xbsp_spmm": 3.0, "bsc_spmm": 2.0, "dense": 4.0}
     cost[fastest] = 1.0
@@ -482,7 +509,7 @@ def test_fc_arms_are_timed_in_turn_and_the_fastest_wins(fresh, monkeypatch,
     monkeypatch.setattr(benchmark, "time", type("clock", (), {
         "perf_counter": staticmethod(lambda: clock["t"])}))
     bsc, dense, bias = _fc(np.random.default_rng(9))
-    arm = autotune.choose_fc_arm(bsc, dense, bias, True, POL, 4)
+    arm = linear_ops.fc_arm(bsc, POL, 4, bias=bias, relu=True, dense=dense)
     assert arm == fastest
     arms = ["xbsp_spmm", "bsc_spmm", "dense"]
     eager = [(a, i) for a in arms for i in range(4)]
@@ -494,19 +521,20 @@ def test_fc_arms_are_timed_in_turn_and_the_fastest_wins(fresh, monkeypatch,
 
 def test_fc_pick_is_cached_and_not_measured_again(fresh, monkeypatch):
     measured = []
-    monkeypatch.setattr(autotune, "measure_fc_arms",
+    monkeypatch.setattr(autotune, "measure",
                         lambda *a, **k: measured.append(1) or {
                             "xbsp_spmm": 3.0, "bsc_spmm": 2.0, "dense": 1.0})
     bsc, dense, bias = _fc(np.random.default_rng(10))
-    args = (bsc, dense, bias, False, POL, 4)
-    assert autotune.choose_fc_arm(*args) == "dense"
-    assert autotune.choose_fc_arm(*args) == "dense"
+    args = (bsc, POL, 4)
+    kw = dict(bias=bias, dense=dense)
+    assert linear_ops.fc_arm(*args, **kw) == "dense"
+    assert linear_ops.fc_arm(*args, **kw) == "dense"
     assert measured == [1]
     key = autotune.fc_cache_key(bsc, 4, torch.float32)
     with open(fresh) as fh:
         assert json.load(fh)[key] == "dense"
     autotune.clear()  # from the file, not measured again
-    assert autotune.choose_fc_arm(*args) == "dense" and measured == [1]
+    assert linear_ops.fc_arm(*args, **kw) == "dense" and measured == [1]
 
 
 @pytest.mark.parametrize("kind", ["conv", "fc"])
@@ -519,9 +547,8 @@ def test_a_measurement_during_capture_raises(fresh, monkeypatch, kind):
 
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: True)
-    for name in ("measure_arms", "measure_fc_arms"):
-        monkeypatch.setattr(autotune, name, lambda *a, **k: pytest.fail(
-            "measured during a capture"))
+    monkeypatch.setattr(autotune, "measure", lambda *a, **k: pytest.fail(
+        "measured during a capture"))
     rng = np.random.default_rng(11)
     if kind == "conv":
         _, al = _aligned(rng, 32, 32, 3)
@@ -536,10 +563,10 @@ def test_a_measurement_during_capture_raises(fresh, monkeypatch, kind):
     with pytest.raises(RuntimeError, match="during CUDA-graph capture"):
         if kind == "conv":
             al = dataclasses.replace(al, bsc=card)
-            autotune.choose_arm(al, POL, (1, 6, 6, 32), (1, 1), (1, 1),
-                                (1, 1))
+            conv_ops.measured_arm(al, POL, (1, 6, 6, 32), (1, 1), (1, 1),
+                                  (1, 1))
         else:
-            autotune.choose_fc_arm(card, dense, bias, False, POL, 4)
+            linear_ops.fc_arm(card, POL, 4, bias=bias, dense=dense)
     assert autotune._CACHE == {}
 
 
@@ -556,7 +583,7 @@ def test_autotune_off_leaves_the_fc_routes(fresh, monkeypatch, xla):
     from caffe_escoin_tpu_torch.nn.net import LayerSpec
 
     ran = []
-    monkeypatch.setattr(autotune, "measure_fc_arms",
+    monkeypatch.setattr(autotune, "measure",
                         lambda *a, **k: ran.append("measured") or {
                             "xbsp_spmm": 3.0, "bsc_spmm": 1.0, "dense": 2.0})
     for mod, name in ((xbs, "spmm"), (bsc_spmm, "bsc_spmm")):
@@ -598,7 +625,7 @@ def test_calibrate_polish_tries_an_fcs_own_arms(fresh):
     tried = []
 
     def time_fn():
-        arm = autotune.choose_fc_arm(bsc, dense, bias, False, POL, 4)
+        arm = linear_ops.fc_arm(bsc, POL, 4, bias=bias, dense=dense)
         tried.append(arm)
         return {"xbsp_spmm": 1.0, "dense": 2.0, "bsc_spmm": 0.5}[arm]
 

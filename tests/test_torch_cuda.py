@@ -100,6 +100,7 @@ from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
 from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, lrn, maxpool,
                                             sconv_fused, sconv_gc)
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
+from caffe_escoin_tpu_torch.ops import conv as conv_ops
 from caffe_escoin_tpu_torch.ops import pool as pool_ops
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align
@@ -804,17 +805,16 @@ def test_autotune_refuses_to_measure_during_graph_capture(dev, tmp_path,
         with torch.cuda.stream(side):
             with pytest.raises(RuntimeError, match="capture"):
                 with torch.cuda.graph(graph):
-                    autotune.choose_arm(al, pol, shape, (1, 1), (1, 1),
-                                        (1, 1))
+                    conv_ops.measured_arm(al, pol, shape, (1, 1), (1, 1),
+                                          (1, 1))
         # measured outside capture, then served from the cache
-        arm = autotune.choose_arm(al, pol, shape, (1, 1), (1, 1), (1, 1))
+        arm = conv_ops.measured_arm(al, pol, shape, (1, 1), (1, 1), (1, 1))
         key = autotune.cache_key(al, shape, (1, 1), (1, 1), (1, 1),
                                  torch.bfloat16)
         assert key.startswith("('cuda:")
         # the fused kernel competes wherever it runs the shape
         x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
-        fused = (sconv_fused.supported(x, al)
-                 and sconv_fused.fits_budget(x, al, (1, 1)))
+        fused = conv_ops.fused_gate(x, al, (1, 1))
         assert set(autotune.report()[key]) == {
             "unroll", "gathered", "gathered_cols", "dense"} | (
             {"fused"} if fused else set())
@@ -957,7 +957,6 @@ def test_packed_narrow_net_launches_what_its_routes_name(dev):
     from caffe_escoin_tpu_torch.nn import (LayerSpec, Net, fuse_inference,
                                            params_to)
     from caffe_escoin_tpu_torch.nn.fuse import pack_narrow_chains
-    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
 
     pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=(8, 8),
                           compute_dtype=torch.bfloat16, cast_back=False,
@@ -988,10 +987,9 @@ def test_packed_narrow_net_launches_what_its_routes_name(dev):
     for tag, n in (("unpacked", fnet), ("packed", pnet)):
         aligned = params_to(n.weight_align(fparams), dev, torch.bfloat16)
         routes = n.routes(aligned, shapes)
-        expect = {k: 0 for k in ("sconv_fused", "sconv_gc", "bsc_spmm")}
-        for r in routes.values():
-            if r in ROUTE_KERNELS:
-                expect[ROUTE_KERNELS[r]] += 1
+        launches = n.launches(aligned, shapes)
+        expect = {k: launches[k] for k in ("sconv_fused", "sconv_gc",
+                                           "bsc_spmm")}
         for mod in (sconv_fused, sconv_gc, bsc_spmm):
             mod.reset_counts()
         x = torch.randn((2, 32, 32, 3), generator=torch.Generator(
@@ -1347,9 +1345,10 @@ def test_maxpool_kernel_backward_is_the_plain_gradient(dev):
 @pytest.mark.parametrize("model,pools", [("googlenet", 13), ("resnet50", 1),
                                          ("vgg16", 5)])
 def test_captured_forward_launches_the_maxpool_kernel(dev, model, pools):
-    """A CUDA-graph capture of the dense bf16 net at batch 2 counts one
-    ``capture.launches.maxpool`` a max pool; a profiled eager forward runs
-    the kernel and no ``max_pool_forward_nhwc``."""
+    """A CUDA-graph capture of the dense bf16 net at batch 2 counts the
+    max-pool launches ``Net.launches`` declares, one a max pool
+    (``capture.launches.maxpool``); a profiled eager forward runs the
+    kernel and no ``max_pool_forward_nhwc``."""
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
     from caffe_escoin_tpu_torch.utils import trace
@@ -1365,7 +1364,8 @@ def test_captured_forward_launches_the_maxpool_kernel(dev, model, pools):
     key = "capture.launches.maxpool"
     before = trace.snapshot()["counters"].get(key, 0)
     fnet.inference_fn(fparams, cuda_graph=True)(x)
-    assert trace.snapshot()["counters"][key] - before == pools
+    declared = fnet.launches(fparams, {"data": in_shape})["maxpool"]
+    assert trace.snapshot()["counters"][key] - before == declared == pools
     with torch.inference_mode(), torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fnet.forward(fparams, x)
@@ -1679,7 +1679,6 @@ def test_tp_conv_lowered_at_world1_is_the_lowered_route(dev, mesh1):
 
 @pytest.mark.parametrize("kind", ["chain", "tower"])
 def test_halo_stack_at_world1_is_the_convs_in_sequence(dev, mesh1, kind):
-    from caffe_escoin_tpu_torch.ops import conv as conv_ops
     from caffe_escoin_tpu_torch.parallel import halo
 
     rng = np.random.default_rng(2)
@@ -1756,7 +1755,6 @@ def test_example_alexnet_on_the_kernel_routes_launches_its_routes(dev):
     from caffe_escoin_tpu_torch.examples.train_eval_sparse import (
         evaluate, gradual_select, model_specs)
     from caffe_escoin_tpu_torch.nn import Net
-    from caffe_escoin_tpu_torch.nn.layers import ROUTE_KERNELS
     from caffe_escoin_tpu_torch.utils.pruning import gradual_masks
 
     specs = model_specs("alexnet", "xavier", include_loss=True)
@@ -1772,8 +1770,8 @@ def test_example_alexnet_on_the_kernel_routes_launches_its_routes(dev):
     aligned = net.weight_align(params)
     assert aligned["fc8"].bsc.block_shape[1] == 16
     routes = net.routes(aligned, shapes)
-    expect = {k: sum(ROUTE_KERNELS.get(r) == k for r in routes.values())
-              for k in ("sconv_fused", "bsc_spmm", "sconv_gc")}
+    launches = net.launches(aligned, shapes)
+    expect = {k: launches[k] for k in ("sconv_fused", "bsc_spmm", "sconv_gc")}
     assert expect == {"sconv_fused": 4, "bsc_spmm": 3, "sconv_gc": 0}, routes
     _, (ted, tel) = load_digits_upscaled(227, 3)
     for m in (sconv_fused, bsc_spmm, sconv_gc):

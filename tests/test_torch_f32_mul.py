@@ -50,6 +50,7 @@ from caffe_escoin_tpu_torch.kernels import (bsc_spmm, sconv_fused,  # noqa: E402
                                             sconv_gc, sconv_pipe)
 from caffe_escoin_tpu_torch.models import ZOO, vgg  # noqa: E402
 from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_from_jax  # noqa: E402
+from caffe_escoin_tpu_torch.ops import conv as conv_ops  # noqa: E402
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc  # noqa: E402
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align  # noqa: E402
 from caffe_escoin_tpu_torch.utils import pruning  # noqa: E402
@@ -324,14 +325,14 @@ def test_f32_run_is_not_served_a_bf16_pick(tmp_path, monkeypatch):
         autotune._CACHE[autotune.cache_key(al, shape, *geo, torch.float32,
                                            "bfloat16")] = "fused"
         measured = []
-        monkeypatch.setattr(autotune, "measure_arms",
+        monkeypatch.setattr(autotune, "measure",
                             lambda *a, **k: measured.append(1) or {
                                 "unroll": 1.0, "dense": 2.0})
         pol16 = ExecutionPolicy(block_shape=(16, 16), mxu_dtype="bfloat16")
         pol32 = ExecutionPolicy(block_shape=(16, 16), mxu_dtype="float32")
-        assert autotune.choose_arm(al, pol16, shape, *geo) == "fused"
+        assert conv_ops.measured_arm(al, pol16, shape, *geo) == "fused"
         assert measured == []
-        assert autotune.choose_arm(al, pol32, shape, *geo) == "unroll"
+        assert conv_ops.measured_arm(al, pol32, shape, *geo) == "unroll"
         assert measured == [1]
     finally:
         autotune.clear()

@@ -24,6 +24,7 @@ from caffe_escoin_tpu.sparse.weight_align import weight_align as jweight_align  
 
 from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy  # noqa: E402
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs  # noqa: E402
+from caffe_escoin_tpu_torch.ops import conv as conv_ops  # noqa: E402
 from caffe_escoin_tpu_torch.sparse import dense_to_bsc  # noqa: E402
 from caffe_escoin_tpu_torch.sparse.weight_align import weight_align  # noqa: E402
 from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,  # noqa: E402
@@ -209,7 +210,7 @@ def test_best_arm_matches_jax(sparsity, arm):
                                None if sparsity is None else (128, 128))
         al = weight_align(wp, policy=pol)
         jal = jweight_align(wp, policy=jpol)
-        got = xbs.best_arm(al, pol)
+        got = conv_ops.best_arm(al, pol)
         assert got == jxbs.best_arm(jal, jpol), (k, cin, cout)
         seen.add(got)
     if arm != "auto":
