@@ -7,7 +7,7 @@ ResNet-50 b32 packed or GoogLeNet b16 unpacked (``--net``), built as the
 scripts build them (``common.sparse_net``: 90% in 128x128 blocks, fused,
 aligned, autotuned), run under ``autotune.net_scope``. After a warm-up on
 the 4 inputs, ``torch.profiler`` (CPU and CUDA activities) records
-``--iters`` forwards in two forms:
+``--iters`` forwards, after one more it keeps no events of, in two forms:
 
 * ``graph``: ``Net.inference_fn(cuda_graph=True)`` replays, the
   counterpart of the one jitted module;
@@ -59,6 +59,7 @@ LAYER_SPAN = trace.PREFIX + trace.LAYER
 KERNEL_MODULES = {"sconv_fused": sconv_fused, "sconv_gc": sconv_gc,
                   "bsc_spmm": bsc_spmm}
 _COPY = ("Memcpy", "Memset")
+_STEP = "ProfilerStep"
 # the three hand kernels, by the Rows policy their sconv_pipe_kernel
 # instance is named after in a trace
 KERNEL_OF_ROWS = {"ConvRows": "sconv_fused", "SlabRows": "sconv_gc",
@@ -82,7 +83,8 @@ def aggregate(events, cuda: bool):
     device-side range (the profiler's projection of a ``record_function``
     onto the GPU timeline), since the hand kernels, launched through
     ctypes, have no CPU op to be correlated with; on the CPU the span
-    itself. The program's spans (``cet:``) are no ops."""
+    itself. The program's spans (``cet:``) and the profiler's step marks
+    (``ProfilerStep*``) are no ops."""
     kind = (torch.autograd.DeviceType.CUDA if cuda
             else torch.autograd.DeviceType.CPU)
     mine = [e for e in events if e.device_type == kind]
@@ -94,7 +96,7 @@ def aggregate(events, cuda: bool):
     layers = collections.defaultdict(collections.Counter)
     copy_us = 0.0
     for e in mine:
-        if e.name.startswith(trace.PREFIX):
+        if e.name.startswith((trace.PREFIX, _STEP)):
             continue
         if cuda:
             us = e.time_range.elapsed_us()
@@ -145,16 +147,32 @@ def hand_calls(records, iters: int):
 
 
 def _profile(fn, iters, cuda):
+    """The profiler's events of ``fn(0)`` to ``fn(iters - 1)``, and the
+    hand kernels' launches over those calls. A warm-up call comes first,
+    which the profiler runs but keeps no events of: the first kernels of
+    a window can go unrecorded (on an H100, in a process that had
+    profiled before: the first forward's kernels up to its first
+    ``sconv_fused``), so the warm-up takes that loss."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
         torch.cuda.synchronize()
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(
+            activities=activities,
+            schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                             active=1)) as prof:
+        fn(iters)
+        if cuda:
+            torch.cuda.synchronize()
+        prof.step()
+        before = {k: m.launches for k, m in KERNEL_MODULES.items()}
         for i in range(iters):
             fn(i)
         if cuda:
             torch.cuda.synchronize()
-    return prof.events()
+        launched = {k: m.launches - before[k]
+                    for k, m in KERNEL_MODULES.items()}
+    return prof.events(), launched
 
 
 def run(device, emit, *, net_name="resnet50", batch=None, iters=ITERS,
@@ -183,16 +201,14 @@ def run(device, emit, *, net_name="resnet50", batch=None, iters=ITERS,
         }
         by_name = {}
         for form, fn in forms.items():
-            before = {k: m.launches for k, m in KERNEL_MODULES.items()}
             if form == "eager":
                 trace.enable()
             try:
                 with torch.inference_mode():
-                    events = _profile(fn, iters, cuda)
+                    events, launched = _profile(fn, iters, cuda)
             finally:
                 trace.disable()
-            launched = {k: (m.launches - before[k]) / iters
-                        for k, m in KERNEL_MODULES.items()}
+            launched = {k: n / iters for k, n in launched.items()}
             records, copy_us = aggregate(events, cuda)
             for name, r in records.items():
                 # a replay has no spans: a kernel's layers are the ones

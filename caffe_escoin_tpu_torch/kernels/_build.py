@@ -38,14 +38,15 @@ _FP = ctypes.POINTER(ctypes.c_float)
 # integer arguments come as one int array (``c_ints``) and the float ones as
 # one float array (``c_floats``), built once per layer shape, since ctypes
 # converts each argument anew on every call. Each kernel has a bf16 entry and
-# an f32 one (``_f32``: mxu_dtype "float32", or an f32 map for the LRN and
-# the max pool) with the same arguments.
+# an f32 one (``_f32``: mxu_dtype "float32", or an f32 map for the LRN, the
+# max pool and the conv epilogue) with the same arguments.
 SIGNATURES = {
     "cet_sconv_fused": [_P] * 7 + [_IP, _P],
     "cet_bsc_spmm": [_P] * 8 + [_IP, _P],
     "cet_sconv_gc": [_P] * 6 + [_IP, _P],
     "cet_lrn": [_P] * 2 + [_IP, _FP, _P],
     "cet_maxpool": [_P] * 2 + [_IP, _P],
+    "cet_conv_epilogue": [_P] * 4 + [_IP, _P],
 }
 SIGNATURES.update({f"{k}_f32": v for k, v in list(SIGNATURES.items())})
 

@@ -228,6 +228,21 @@ class ConvolutionLayer(Layer):
         return conv_ops.conv_route(x, params, stride=stride, padding=pad,
                                    dilation=dil, policy=self.policy)
 
+    def launches(self, params, in_shapes, in_dtype):
+        """``ops.conv.conv_launches`` of this layer's route: on the dense
+        route the epilogue kernel's, where the conv has a bias, a fused
+        ReLU or a residual; none for an N-D conv (``convnd_dense``)."""
+        if len(in_shapes[0]) != 4:
+            return {}
+        bias = (params.bias if isinstance(params, AlignedConvWeight)
+                else (params or {}).get("b"))
+        epilogue = (bias is not None
+                    or (self.p.get("fuse_relu", False)
+                        and self.policy.fuse_relu)
+                    or (len(in_shapes) > 1 and bool(self.p.get("fuse_add"))))
+        return conv_ops.conv_launches(
+            self.route(params, in_shapes, in_dtype), epilogue=epilogue)
+
     def forward(self, params, inputs, state=None):
         x = inputs[0]
         # the residual arrives in the output's layout, packed or not

@@ -1,7 +1,9 @@
 """Convolution with execution-mode dispatch (port of
 ``caffe_escoin_tpu/ops/conv.py``).
 
-* LOWERED_GEMM   -> ``F.conv2d`` (cuDNN on the card).
+* LOWERED_GEMM   -> ``F.conv2d`` (cuDNN on the card), then the bias,
+                    residual and ReLU in one pass of
+                    kernels/conv_epilogue.py.
 * LOWERED_SPARSE -> im2col + SpMM: with ``sparse_format=ELL`` and the
                     ELL artifact aligned, the gather SpMM over the
                     row-sparse W^T (kernels/spmm.ell_spmm, torch ops, as
@@ -50,7 +52,8 @@ import torch.nn.functional as F
 from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import (ConvMode, ExecutionPolicy,
                                                    SparseFormat)
-from caffe_escoin_tpu_torch.kernels import bsc_spmm, sconv_fused, sconv_gc
+from caffe_escoin_tpu_torch.kernels import (bsc_spmm, conv_epilogue,
+                                            sconv_fused, sconv_gc)
 from caffe_escoin_tpu_torch.kernels import spmm as spmm_kernels
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
@@ -76,27 +79,26 @@ def im2col(x, kernel, *, stride, padding, dilation):
     return torch.cat(cols, dim=-1), (ho, wo)
 
 
-def _epilogue(out, relu, residual=None):
-    """Residual add and ReLU after a conv that applied neither. A
-    two-operand bf16 add rounds once, so this equals adding in f32 and
-    casting, as the fused kernel's epilogue does."""
-    if residual is not None:
-        out = out + residual.to(out.dtype)
-    if relu:
-        out = torch.relu(out)
-    return out
-
-
 def conv2d_dense(x, w_hwio, bias=None, *, stride=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, relu=False, residual=None):
     """Dense conv: the LOWERED_GEMM mode. NHWC in and out; internally a
-    channels_last NCHW view for ``F.conv2d``."""
+    channels_last NCHW view for ``F.conv2d``. Its bias, residual and ReLU
+    are one entry of ``kernels/conv_epilogue``: where that launches its
+    kernel (``takes_kernel``) cuDNN adds no bias and the kernel adds it
+    with the rest in one pass; elsewhere ``F.conv2d`` adds it and the
+    entry's plain version runs the rest. A conv with none of the three
+    calls no entry."""
+    b = None if bias is None else bias.to(x.dtype)
+    kernel = conv_epilogue.takes_kernel(x, w_hwio, b, residual)
     out = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.to(x.dtype).permute(3, 2, 0, 1),
-                   None if bias is None else bias.to(x.dtype),
-                   stride=tuple(stride), padding=tuple(padding),
-                   dilation=tuple(dilation), groups=groups)
+                   None if kernel else b, stride=tuple(stride),
+                   padding=tuple(padding), dilation=tuple(dilation),
+                   groups=groups)
     out = out.permute(0, 2, 3, 1)
-    return _epilogue(out, relu, residual).contiguous()
+    if b is None and not relu and residual is None:
+        return out.contiguous()
+    return conv_epilogue.conv_epilogue(out, b if kernel else None, relu=relu,
+                                       residual=residual)
 
 
 _CONV_ND = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -122,7 +124,7 @@ def convnd_dense(x, w, bias=None, *, stride=None, padding=None,
         stride=tuple(stride or (1,) * nsp),
         padding=tuple(padding or (0,) * nsp),
         dilation=tuple(dilation or (1,) * nsp), groups=groups)
-    return _epilogue(out.movedim(1, -1), relu).contiguous()
+    return conv_epilogue.epilogue_plain(out.movedim(1, -1), relu=relu)
 
 
 def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
@@ -167,7 +169,7 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
                                   mxu_dtype=policy.mxu_dtype)
     out = out2d.reshape(n, ho, wo, aligned.cout)
     if residual is not None:
-        out = _epilogue(out, relu, residual)
+        out = conv_epilogue.epilogue_plain(out, relu=relu, residual=residual)
     return out
 
 
@@ -190,6 +192,16 @@ def route_launches(route: Optional[str]) -> Dict[str, int]:
     module: its kernel's one, or none."""
     kernel = ROUTE_KERNELS.get(route)
     return {kernel: 1} if kernel else {}
+
+
+def conv_launches(route: Optional[str], *, epilogue: bool) -> Dict[str, int]:
+    """The hand-kernel launches of one 2-D conv on ``route``: its route
+    kernel's, and on the "dense" route the epilogue kernel's
+    (``conv2d_dense``) where the conv has a bias, a ReLU or a residual
+    (``epilogue``)."""
+    if route == "dense":
+        return {"conv_epilogue": 1} if epilogue else {}
+    return route_launches(route)
 
 
 # the XBSP arm functions by route name
@@ -454,7 +466,7 @@ def _run_route(route, x, aligned: AlignedConvWeight, *, stride, padding,
                              relu=relu and residual is None,
                              mxu_dtype=policy.mxu_dtype)
     if residual is not None:
-        out = _epilogue(out, relu, residual)
+        out = conv_epilogue.epilogue_plain(out, relu=relu, residual=residual)
     return out
 
 
@@ -490,7 +502,8 @@ def _run_native(x, aligned: AlignedConvWeight, *, stride, padding, relu,
         raise RuntimeError("native bsc_sconv failed")
     out = torch.from_numpy(out)
     if residual is not None:
-        out = _epilogue(out, relu, residual.float())
+        out = conv_epilogue.epilogue_plain(out, relu=relu,
+                                           residual=residual.float())
     return out.to(x.dtype)
 
 

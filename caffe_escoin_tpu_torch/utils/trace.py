@@ -44,8 +44,9 @@ serves in the captured forwards). The hand kernels' own
 The hand kernels are of two kinds: ``KERNELS``, the ports of the JAX
 package's Pallas kernels, and ``OP_KERNELS``, kernels of ops that the JAX
 package leaves to XLA (``lrn``: LRN across channels; ``maxpool``: max
-pooling). ``kernel_counts()``, and so ``snapshot()`` and the capture
-counters, read both.
+pooling; ``conv_epilogue``: a dense conv's bias, residual and ReLU).
+``kernel_counts()``, and so ``snapshot()`` and the capture counters, read
+both.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ import torch
 PREFIX = "cet:"
 LAYER = "layer:"
 KERNELS = ("sconv_fused", "sconv_gc", "bsc_spmm")
-OP_KERNELS = ("lrn", "maxpool")
+OP_KERNELS = ("lrn", "maxpool", "conv_epilogue")
 KERNEL_COUNTERS = ("calls", "launches", "launches_f32")
 
 ON = False  # read directly on the per-query path: ``if trace.ON``

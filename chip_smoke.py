@@ -84,6 +84,16 @@ Phases, one line each (any failure exits non-zero):
      version, ``F.max_pool2d`` on the map's NCHW view with Caffe's padding
      and ceil mode (the library's, timed here only) and its bound, one bf16
      read of the map and one write of the output at 3.35 TB/s.
+  3e. the dense conv's epilogue kernel (csrc/conv_epilogue.cu, a kernel of
+     an op the JAX package leaves to XLA) over cuDNN's bias-free output at
+     b32's dense-conv maps in bf16 (``EPILOGUE_SHAPES``: VGG-16's conv1_2,
+     ResNet-50's and GoogLeNet's conv1), bias and ReLU: its plain version's
+     bits and the library's, one launch a call; timed eager and as a CUDA
+     graph in place (as ``conv2d_dense`` runs it) beside its plain version,
+     the broadcast ``add_`` of the bias over the channels_last NCHW output
+     plus ``torch.relu`` (the library's: what ``F.conv2d`` with a bias ran,
+     timed here only) and its bound, one bf16 read and one write of the map
+     at 3.35 TB/s.
   3b. the XBSP arms (torch ops, no kernel of this package): unroll,
      gathered and gathered_cols at three ResNet-50 shapes (on the padded
      3x3 one also in the ``CESCOIN_XBSP_NOPAD`` pad-free form) and spmm at
@@ -116,7 +126,9 @@ Phases, one line each (any failure exits non-zero):
      function the dispatch runs through; the LRN kernel once per LRN
      layer, GoogLeNet and AlexNet 2, ResNet-50 and VGG-16 0; the max-pool
      kernel once per max pool on an unpacked input, GoogLeNet 13,
-     ResNet-50 1, VGG-16 5, AlexNet 3; so too in phases 4b-4f and 7c); the
+     ResNet-50 1, VGG-16 5, AlexNet 3; the epilogue kernel once per dense
+     conv with a bias, a ReLU or a residual; so too in phases 4b-4f and
+     7c); the
      last classifier's logits within 5e-2
      relative L2 of the same pruned, fused net run dense in f32 (cuDNN,
      TF32 off). Also the routing's host time per layer (``Net.routes``,
@@ -436,9 +448,11 @@ times with the f32 bound, phase 4f's launches). Last come the LRN kernel
 (``lrn``, ``replaces`` null): phase 3l's errors, times and bound, and its
 launches in phases 4, 4b-4f and 7c, one per LRN layer of each forward
 (GoogLeNet's and AlexNet's two, none in ResNet-50 or VGG-16), checked
-there against that count; and the max-pool kernel (``maxpool``,
+there against that count; the max-pool kernel (``maxpool``,
 ``replaces`` null): phase 3m's, and its launches there, one per max pool
-on an unpacked input. As the last line
+on an unpacked input; and the dense conv's epilogue kernel
+(``conv_epilogue``, ``replaces`` null): phase 3e's, and its launches there,
+one per dense conv with a bias, a ReLU or a residual. As the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (or
@@ -490,6 +504,7 @@ KERNELS_F32 = {f"{k}_f32": k for k in KERNELS}
 # card, whatever the routes
 LRN_KERNEL = "lrn"
 MAXPOOL_KERNEL = "maxpool"
+EPILOGUE_KERNEL = "conv_epilogue"
 # phase 3f: each kernel multiplying in f32 against its plain version in f64
 # on the card, max abs err within this share of max|ref| (one TF32 pass
 # misses it by more than 10x)
@@ -528,6 +543,11 @@ MAXPOOL_SHAPES = (
     ("googlenet inception_4e/pool b32 14x14x528 3x3/s1/p1",
      (32, 14, 14, 528), 3, 1, 1),
     ("vgg16 pool1 b32 224x224x64 2x2/s2", (32, 224, 224, 64), 2, 2, 0),
+)
+# phase 3e: the epilogue kernel at b32's dense-conv output maps, (label, map)
+EPILOGUE_SHAPES = (
+    ("vgg16 conv1_2 b32 224x224x64", (32, 224, 224, 64)),
+    ("conv1 b32 112x112x64 (ResNet-50, GoogLeNet)", (32, 112, 112, 64)),
 )
 # the autotuned row: bench.py's calibration (polish 8, net scope), and a
 # cache file of this run's own (gitignored, deleted first)
@@ -613,7 +633,7 @@ STEP_NETS = (("alexnet", 8), ("cifar10_bn", 100))
 STEP_LOSS_REL, STEP_UPDATE_REL, STEP_BN_TOL = 1e-4, 1e-3, 1e-4
 # phase 7c: what the trained, pruned AlexNet must launch per forward
 TRAINED_LAUNCHES = {"sconv_fused": 4, "bsc_spmm": 3, "sconv_gc": 0,
-                    LRN_KERNEL: 2, MAXPOOL_KERNEL: 3}
+                    LRN_KERNEL: 2, MAXPOOL_KERNEL: 3, EPILOGUE_KERNEL: 1}
 CLI_TRAIN_ITERS = 4
 # the GoogLeNet stem layers phase 4e prints side by side
 STEM_LAYERS = ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
@@ -782,7 +802,8 @@ def _ptxas_summary(log) -> str:
         if kern and kern.group(1) == "lrn_kernel":
             fam = fams["lrn_kernel<" + ("f32" if "lrn_kernelIf" in symbol
                                         else "bf16") + ">"]
-        elif kern and kern.group(1).startswith("maxpool_"):
+        elif kern and (kern.group(1).startswith("maxpool_")
+                       or kern.group(1) == "conv_epilogue_kernel"):
             fam = fams[kern.group(1) + "<" + ("f32" if "3F32" in symbol
                                               else "bf16") + ">"]
         else:
@@ -1012,6 +1033,70 @@ def _phase_maxpool(tag, dev, r):
         print(f"time cet_maxpool {label}, as a CUDA graph (eager): "
               + ", ".join(f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms"
                           for arm in arms)
+              + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB at {BOUND_RATES['bytes'] / 1e12:.2f} "
+              f"TB/s), kernel graph at {bound_ms / graph['kernel']:.1%} of "
+              f"it, {graph['kernel'] / graph['library']:.2f}x the library "
+              f"{tag}")
+        del xs, out, ref, lib
+
+
+def _phase_conv_epilogue(tag, dev, r):
+    """Phase 3e (see the module docstring); its errors, times and bounds
+    summed into ``r``, the epilogue kernel's results."""
+    import torch
+
+    from caffe_escoin_tpu_torch.kernels import conv_epilogue
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for label, shape in EPILOGUE_SHAPES:
+        c = shape[3]
+        b = (torch.randn(c, generator=gen, device=dev) * 0.1).bfloat16()
+        arms = {
+            # in place over the map, as conv2d_dense runs it
+            "kernel": lambda y, b=b: conv_epilogue.conv_epilogue(
+                y, b, relu=True),
+            "plain": lambda y, b=b: conv_epilogue.epilogue_plain(
+                y, b, relu=True),
+            "library": lambda y, b=b, c=c: torch.relu(
+                y.permute(0, 3, 1, 2).add_(b.view(1, c, 1, 1))),
+        }
+        xs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+              for _ in range(N_INPUTS)]
+        launches = conv_epilogue.launches
+        with torch.inference_mode():
+            ref = arms["plain"](xs[0])
+            lib = arms["library"](xs[0].clone()).permute(0, 2, 3, 1)
+            out = arms["kernel"](xs[0].clone())
+            torch.cuda.synchronize()
+        r["err"] = max(r["err"], (out.float() - ref.float()).abs().max()
+                       .item())
+        ok = (conv_epilogue.launches == launches + 1
+              and torch.equal(out.view(torch.int16), ref.view(torch.int16))
+              and torch.equal(lib.contiguous().view(torch.int16),
+                              ref.view(torch.int16)))
+        print(f"parity cet_conv_epilogue {label} +bias +relu: the plain "
+              f"version's bits (and the library's), "
+              f"{conv_epilogue.launches - launches} launch "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"cet_conv_epilogue {label}: disagrees with its "
+                             f"plain version or did not launch once")
+        with torch.inference_mode():
+            graph = {arm: _graph_ms(fn, xs) for arm, fn in arms.items()}
+            eager = {arm: _time_ms(fn, xs) for arm, fn in arms.items()}
+        nbytes = 2 * xs[0].numel() * xs[0].element_size()
+        bound_ms, bound_by = _bound(nbytes, 0)
+        for arm in arms:
+            key = "ms" if arm == "kernel" else f"{arm}_ms"
+            r[key] += eager[arm]
+            r["graph_" + key] += graph[arm]
+        r["bound_ms"] += bound_ms
+        r["bound"]["bytes"] += bound_ms  # all of it: no operations
+        print(f"time cet_conv_epilogue {label} +bias +relu, as a CUDA graph "
+              f"(eager): " + ", ".join(
+                  f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms"
+                  for arm in arms)
               + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}: "
               f"{nbytes / 1e6:.1f} MB at {BOUND_RATES['bytes'] / 1e12:.2f} "
               f"TB/s), kernel graph at {bound_ms / graph['kernel']:.1%} of "
@@ -1481,7 +1566,7 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
                                                        ExecutionPolicy)
     from caffe_escoin_tpu_torch.engine.solver import Solver
     from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
-    from caffe_escoin_tpu_torch.kernels import lrn, maxpool
+    from caffe_escoin_tpu_torch.kernels import conv_epilogue, lrn, maxpool
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
     from caffe_escoin_tpu_torch.tools import cli
@@ -1634,7 +1719,8 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     inputs = [{"data": torch.randn(in_shape["data"], generator=gen,
                                    device=dev)} for _ in range(N_INPUTS)]
-    net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool}
+    net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool,
+                EPILOGUE_KERNEL: conv_epilogue}
     for m in net_mods.values():
         m.reset_counts()
     outs = [fwd(x)["fc8"].float().clone() for x in inputs]
@@ -3400,7 +3486,8 @@ def main(argv=None) -> int:
         from caffe_escoin_tpu_torch.ops import conv as conv_ops
         from caffe_escoin_tpu_torch.ops import linear as linear_ops
         from caffe_escoin_tpu_torch.utils.benchmark import device_time
-        from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm, lrn,
+        from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm,
+                                                    conv_epilogue, lrn,
                                                     maxpool, sconv_fused,
                                                     sconv_gc)
         from caffe_escoin_tpu_torch.utils import trace
@@ -3426,7 +3513,8 @@ def main(argv=None) -> int:
     # beside them (net_mods), all as ``Net.launches`` declares them
     mods = {"sconv_fused": sconv_fused, "bsc_spmm": bsc_spmm,
             "sconv_gc": sconv_gc}
-    net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool}
+    net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool,
+                EPILOGUE_KERNEL: conv_epilogue}
     card = _card_line()
     print(card)
     tag = f"[{card}]"
@@ -3464,7 +3552,7 @@ def main(argv=None) -> int:
                        graph_library_ms=0.0, bound_ms=0.0, launches=0,
                        bound={"bytes": 0.0, "operations": 0.0})
                for k in (*KERNELS, *KERNELS_F32, LRN_KERNEL,
-                         MAXPOOL_KERNEL)}
+                         MAXPOOL_KERNEL, EPILOGUE_KERNEL)}
     timed = []  # (kernel, label, {arm: fn}, args, bytes, flops)
 
     def check(kernel, label, out, ref):
@@ -3735,6 +3823,9 @@ def main(argv=None) -> int:
 
     # ---- 3m. the max-pool kernel -------------------------------------------
     _phase_maxpool(tag, dev, results[MAXPOOL_KERNEL])
+
+    # ---- 3e. the dense conv's epilogue kernel -------------------------------
+    _phase_conv_epilogue(tag, dev, results[EPILOGUE_KERNEL])
 
     # ---- 3b. the XBSP arms against the f32 dense conv ----------------------
     def time_line(what, label, arms, args, nbytes, flops):
@@ -4817,11 +4908,12 @@ def main(argv=None) -> int:
     # each kernel, then its f32-multiply variant (same source and TPU
     # kernel; its launches are phase 4f's, its times phase 3f's)
     # and the op kernels, which replace no TPU kernel (their times phases
-    # 3l's and 3m's, their launches the nets' LRN layers and max pools in
-    # phases 4, 4b-4e and 7c)
+    # 3l's, 3m's and 3e's, their launches the nets' LRN layers, max pools
+    # and dense convs in phases 4, 4b-4f and 7c)
     names = [(k, base) for base in KERNELS
              for k in (base, f"{base}_f32")] + [
-        (LRN_KERNEL, LRN_KERNEL), (MAXPOOL_KERNEL, MAXPOOL_KERNEL)]
+        (LRN_KERNEL, LRN_KERNEL), (MAXPOOL_KERNEL, MAXPOOL_KERNEL),
+        (EPILOGUE_KERNEL, EPILOGUE_KERNEL)]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"caffe_escoin_tpu_torch/csrc/{base}.cu",

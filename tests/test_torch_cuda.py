@@ -55,6 +55,15 @@ its gradient is the plain version's, and a captured forward of GoogLeNet,
 ResNet-50 and VGG-16 launches it once a max pool (13, 1, 5), with no
 ``max_pool_forward_nhwc`` left in a profiled forward.
 
+The dense conv's epilogue (csrc/conv_epilogue.cu): ``conv2d_dense`` on the
+card is ``torch.equal`` to the former ``F.conv2d`` with the bias and
+``torch.relu``, bit for bit, at ResNet-50's conv1 b32, GoogLeNet's
+inception_3a/5x5 b8, VGG-16's conv1_2 b32, an f32 conv and one with a
+residual; an NCHW output is read through its strides, misaligned operands
+take the scalar path; a captured forward of ResNet-50's and GoogLeNet's
+configurations launches it once a dense conv (2, 10), as ``Net.launches``
+declares.
+
 The data slice: a Data layer's tops land on the card (pinned host copies)
 as the batches of the file it reads, and the layer types of the rest of
 the catalog (Deconvolution, SPP, Im2col, the recurrent layers, Embed,
@@ -832,8 +841,10 @@ def test_vgg16_b32_autotuned_through_the_graph_entry(dev):
     True)``: the first call measures every pruned layer's arms, the
     capture counts one ``autotune.pick.*`` for each of the 15 pruned
     layers, every pruned layer's route is its autotuned pick (an fc's the
-    fastest measured), and the replayed logits are within the
-    configuration's ``logit_rel_err`` of the plain f32 reference."""
+    fastest measured), the capture launches the epilogue kernel once for
+    the dense stem and once for each dense pick, as ``Net.launches``
+    declares, and the replayed logits are within the configuration's
+    ``logit_rel_err`` of the plain f32 reference."""
     from pathlib import Path
 
     from portbench import check, harness, weights
@@ -865,6 +876,13 @@ def test_vgg16_b32_autotuned_through_the_graph_entry(dev):
         with autotune.record_keys() as served:
             routes = system.net.routes(system.aligned,
                                        {"data": tuple(pool[0].shape)})
+        # the stem and the dense picks: one epilogue launch each
+        epilogue = "capture.launches.conv_epilogue"
+        assert after[epilogue] - before.get(epilogue, 0) == (
+            system.net.launches(system.aligned, {"data": tuple(
+                pool[0].shape)}, torch.bfloat16)["conv_epilogue"]) == sum(
+            r == "dense" for n, r in routes.items()
+            if not n.startswith("fc"))
         order = [name for name in routes if name in pruned]
         assert len(order) == len(served) == 15
         times = autotune.report()
@@ -1373,6 +1391,186 @@ def test_captured_forward_launches_the_maxpool_kernel(dev, model, pools):
     names = [e.key for e in prof.key_averages()]
     assert not [n for n in names if "max_pool_forward_nhwc" in n], names
     assert [n for n in names if "maxpool_kernel" in n], names
+
+
+# the dense conv's epilogue (csrc/conv_epilogue.cu) at the cells' dense
+# convs: (input NHWC, k, cout, stride, pad, dtype, residual)
+EPILOGUE_CASES = {
+    "resnet50_conv1_b32": ((32, 224, 224, 3), 7, 64, 2, 3, torch.bfloat16,
+                           False),
+    "googlenet_3a_5x5_b8": ((8, 28, 28, 16), 5, 32, 1, 2, torch.bfloat16,
+                            False),
+    "vgg16_conv1_2_b32": ((32, 224, 224, 64), 3, 64, 1, 1, torch.bfloat16,
+                          False),
+    "f32_3a_3x3_reduce_b8": ((8, 28, 28, 192), 1, 96, 1, 0, torch.float32,
+                             False),
+    "residual_1x1_b8": ((8, 56, 56, 64), 1, 256, 1, 0, torch.bfloat16, True),
+}
+
+
+def _epilogue_case(name, dev):
+    shape, k, cout, stride, pad, dtype, res = EPILOGUE_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = torch.randn((k, k, shape[3], cout), generator=g, device=dev) * (
+        2.0 / (k * k * shape[3])) ** 0.5
+    b = torch.randn(cout, generator=g, device=dev) * 0.1
+    ho = (shape[1] + 2 * pad - k) // stride + 1
+    r = (torch.randn((shape[0], ho, ho, cout), generator=g, device=dev)
+         .to(dtype) if res else None)
+    return x, w, b, r, dict(stride=(stride, stride), padding=(pad, pad))
+
+
+def _former_epilogue(out, relu, residual=None):
+    """What ``conv2d_dense`` ran after ``F.conv2d`` before the epilogue
+    kernel: the residual added in out's dtype, ``torch.relu``, a copy to
+    contiguous."""
+    if residual is not None:
+        out = out + residual.to(out.dtype)
+    if relu:
+        out = torch.relu(out)
+    return out.contiguous()
+
+
+def _former_dense(x, w, b, r, geo, relu=True):
+    """``conv2d_dense`` as it was: ``F.conv2d`` with the bias (cuDNN, then
+    ATen's broadcast add), the residual add, ``torch.relu``."""
+    import torch.nn.functional as F
+
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+                   b.to(x.dtype), **geo).permute(0, 2, 3, 1)
+    return _former_epilogue(out, relu, r)
+
+
+@pytest.mark.parametrize("name", list(EPILOGUE_CASES))
+def test_conv2d_dense_epilogue_matches_the_former_path(dev, name):
+    """``conv2d_dense`` on the card (cuDNN without the bias, then one
+    launch of the epilogue kernel, an f32 one for an f32 map) is
+    ``torch.equal`` to the former ``F.conv2d`` with the bias and
+    ``torch.relu``, and has its bits."""
+    from caffe_escoin_tpu_torch.kernels import conv_epilogue
+
+    x, w, b, r, geo = _epilogue_case(name, dev)
+    launches, launches_f32 = (conv_epilogue.launches,
+                              conv_epilogue.launches_f32)
+    with torch.inference_mode():
+        out = conv_ops.conv2d_dense(x, w, b, relu=True, residual=r, **geo)
+        torch.cuda.synchronize()
+        ref = _former_dense(x, w, b, r, geo)
+    f32 = x.dtype == torch.float32
+    assert (conv_epilogue.launches, conv_epilogue.launches_f32) == (
+        launches + 1, launches_f32 + int(f32))
+    assert out.is_contiguous()
+    assert torch.equal(out, ref)
+    _same_bits(out, ref)
+
+
+def test_conv2d_dense_epilogue_reads_a_strided_output(dev):
+    """An NCHW-contiguous input gives cuDNN's NCHW output, which the kernel
+    reads through its strides into a new NHWC map; a bias-only conv and a
+    ReLU-only one launch it too; misaligned operands take its scalar path;
+    f16 raises."""
+    import torch.nn.functional as F
+
+    from caffe_escoin_tpu_torch.kernels import conv_epilogue
+
+    x, w, b, _, geo = _epilogue_case("googlenet_3a_5x5_b8", dev)
+    xn = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not xn.is_contiguous()
+    with torch.inference_mode():
+        for bias, relu in ((b, True), (b, False), (None, True)):
+            launches = conv_epilogue.launches
+            out = conv_ops.conv2d_dense(xn, w, bias, relu=relu, **geo)
+            assert conv_epilogue.launches == launches + 1
+            want = F.conv2d(xn.permute(0, 3, 1, 2), w.to(x.dtype).permute(
+                3, 2, 0, 1), None if bias is None else bias.to(x.dtype),
+                **geo).permute(0, 2, 3, 1)
+            want = _former_epilogue(want, relu)
+            assert out.is_contiguous()
+            _same_bits(out, want)
+        y = torch.randn((4, 6, 6, 24), device=dev).bfloat16()
+        shifted = torch.randn(25, device=dev).bfloat16()[1:]
+        assert shifted.data_ptr() % 16
+        ref = conv_epilogue.epilogue_plain(y, shifted, relu=True)
+        _same_bits(conv_epilogue.conv_epilogue(y.clone(), shifted, relu=True),
+                   ref)
+        with pytest.raises(TypeError):
+            conv_epilogue.conv_epilogue(y.half(), None, relu=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias, residual", [(False, False), (True, False),
+                                            (True, True)])
+def test_conv_epilogue_keeps_signed_zeros_and_nan_as_plain(dev, dtype, bias,
+                                                           residual):
+    """Over a map of signed zeros, infinities, NaN and tiny values the
+    kernel gives the plain version's bits: ``torch.relu``'s sign of a zero
+    and its NaN, the adds' rounding. An unaligned C (20) takes the scalar
+    path, C = 24 the vector."""
+    from caffe_escoin_tpu_torch.kernels import conv_epilogue
+
+    special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                            float("-inf"), 1e-38, -1e-38, -1.5, 2.5, 3e38])
+    for c in (20, 24):
+        g = torch.Generator(device=dev).manual_seed(c)
+        y = torch.randn((3, 5, 7, c), generator=g, device=dev)
+        y.view(-1)[:special.numel() * 7] = special.repeat(7).to(dev)
+        y = y.to(dtype)
+        b = torch.randn(c, generator=g, device=dev).to(dtype) if bias else None
+        if bias:
+            b[:4] = torch.tensor([-0.0, 0.0, float("nan"), 1.0])
+        r = (torch.randn((3, 5, 7, c), generator=g, device=dev).to(dtype)
+             if residual else None)
+        with torch.inference_mode():
+            want = conv_epilogue.epilogue_plain(y, b, relu=True, residual=r)
+            launches = conv_epilogue.launches
+            got = conv_epilogue.conv_epilogue(y.clone(), b, relu=True,
+                                              residual=r)
+            torch.cuda.synchronize()
+        assert conv_epilogue.launches == launches + 1
+        _same_bits(got, want)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("model, dense", [("resnet50", 2), ("googlenet", 10)])
+def test_captured_forward_launches_the_conv_epilogue(dev, model, dense):
+    """The configuration's net (convs with Cin >= 32 pruned to 90% of their
+    128x128 blocks, fused, bf16, the kernel routes) at batch 2, captured:
+    ``capture.launches.conv_epilogue`` counts what ``Net.launches``
+    declares, one a dense conv; a profiled eager forward runs the kernel."""
+    from caffe_escoin_tpu_torch.engine.context import ConvMode
+    from caffe_escoin_tpu_torch.models import ZOO
+    from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
+    from caffe_escoin_tpu_torch.utils import trace
+
+    build, shapes = ZOO[model]
+    in_shape = {"data": (2,) + shapes["data"][1:]}
+    pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=(128, 128),
+                          compute_dtype=torch.bfloat16, cast_back=False,
+                          use_xla_sparse=False)
+    net = Net(build(), policy=pol)
+    params = net.init(torch.Generator().manual_seed(0), in_shape)
+    for layer in net.layers:
+        p = params.get(layer.spec.name)
+        if (layer.spec.type in ("Convolution", "ConvolutionReLU")
+                and p["w"].shape[2] >= 32):
+            p["w"] = torch.from_numpy(prune_conv_weight(
+                p["w"].numpy(), 0.9, (128, 128)))
+    fnet, fparams = fuse_inference(net, params, state=net.state0)
+    aligned = params_to(fnet.weight_align(fparams), dev, torch.bfloat16)
+    x = {"data": torch.randn(in_shape["data"], device=dev)}
+    key = "capture.launches.conv_epilogue"
+    before = trace.snapshot()["counters"].get(key, 0)
+    fnet.inference_fn(aligned, cuda_graph=True)(x)
+    declared = fnet.launches(aligned, in_shape)["conv_epilogue"]
+    assert trace.snapshot()["counters"][key] - before == declared == dense
+    with torch.inference_mode(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fnet.forward(aligned, x)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert [n for n in names if "conv_epilogue_kernel" in n], names
 
 
 @pytest.mark.parametrize("arm", ["conv", "conv_gathered",

@@ -319,6 +319,23 @@ def test_opprofile_lenet_cpu_profile(autotune_scratch):
     assert len(rows) == 2 + 2 * 8
 
 
+def test_opprofile_profile_keeps_no_event_of_its_warm_up():
+    """``_profile`` runs one warm-up call first (``fn(iters)``), whose
+    events the profiler drops, then records ``fn(0)`` to
+    ``fn(iters - 1)``; its step marks are no ops for ``aggregate``."""
+    def fn(i):
+        with torch.profiler.record_function(f"opp_call_{i}"):
+            torch.ones(4) + i
+
+    events, launched = opprofile._profile(fn, 3, cuda=False)
+    names = {e.name for e in events}
+    assert {f"opp_call_{i}" for i in range(4)} & names == {
+        "opp_call_0", "opp_call_1", "opp_call_2"}
+    assert launched == {k: 0 for k in opprofile.KERNEL_MODULES}
+    records, _ = opprofile.aggregate(events, cuda=False)
+    assert not [n for n in records if n.startswith("ProfilerStep")]
+
+
 def test_traced_net_forward_is_untraced_bit_for_bit(autotune_scratch):
     """The eager form's forward: ``Net.forward`` with tracing on gives the
     blobs it gives with tracing off."""

@@ -14,15 +14,16 @@ import torch
 
 from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy
-from caffe_escoin_tpu_torch.kernels import (bsc_spmm, lrn, maxpool,
-                                            sconv_fused, sconv_gc)
+from caffe_escoin_tpu_torch.kernels import (bsc_spmm, conv_epilogue, lrn,
+                                            maxpool, sconv_fused, sconv_gc)
 from caffe_escoin_tpu_torch.models import ZOO
 from caffe_escoin_tpu_torch.nn import Net, fuse_inference
 from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
                                                   prune_conv_weight)
 
 KERNELS = {"sconv_fused": sconv_fused, "sconv_gc": sconv_gc,
-           "bsc_spmm": bsc_spmm, "lrn": lrn, "maxpool": maxpool}
+           "bsc_spmm": bsc_spmm, "lrn": lrn, "maxpool": maxpool,
+           "conv_epilogue": conv_epilogue}
 BLOCK = (128, 128)
 # the fixed times of the autotuned case's arms (lower wins; others 2)
 RANK = {"fused": 0, "bsc_spmm": 0, "dense": 1}
@@ -80,5 +81,8 @@ def test_launches_are_what_one_forward_calls(model, autotuned, tmp_path,
         assert want["sconv_fused"] > 0 and want["bsc_spmm"] > 0
         assert want["maxpool"] > 0
         assert want["lrn"] == (2 if model == "googlenet" else 0)
+        # the stems, convs too dense to prune, and the dense arm's picks
+        assert want["conv_epilogue"] == {"resnet50": 2, "googlenet": 10,
+                                         "vgg16": 6 if autotuned else 1}[model]
     finally:
         autotune.clear()
