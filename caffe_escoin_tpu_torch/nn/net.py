@@ -356,13 +356,27 @@ class Net(torch.nn.Module):
 
     def weight_align(self, params):
         """Host-side sparse compile of every layer's params (a set-up span,
-        ``setup:align``)."""
+        ``setup:align``).
+
+        Each grouped conv aligned with a BSC adds to the set-up counters
+        ``align.grouped.convs`` (one), ``align.grouped.nnz`` (the nonzero
+        weights it stores) and ``align.grouped.block_slots`` (its GEMM
+        view's live blocks x bk x bn: the weights the kernel multiplies,
+        the zeros of the view's block-diagonal expansion among them)."""
         out = dict(params)
         with trace.span("setup:align", always=True):
             for layer in self.layers:
                 name = layer.spec.name
                 if name in out:
-                    out[name] = layer.align(out[name])
+                    out[name] = a = layer.align(out[name])
+                    if (isinstance(a, AlignedConvWeight) and a.groups > 1
+                            and a.bsc is not None):
+                        bk, bn = a.bsc.block_shape
+                        trace.count("align.grouped.convs", always=True)
+                        trace.count("align.grouped.nnz",
+                                    int((a.dense != 0).sum()), always=True)
+                        trace.count("align.grouped.block_slots",
+                                    a.bsc.nnz_blocks * bk * bn, always=True)
         return out
 
     def inference_fn(self, aligned_params, *,

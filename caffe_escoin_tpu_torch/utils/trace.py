@@ -36,8 +36,12 @@ key first). Counters: ``entry.replays``, ``entry.eager_calls``,
 ``entry.captures``, ``capture.launches.<kernel>`` (each hand kernel's
 launches inside the captured forwards: what their replays launch), and
 the set-up counters ``autotune.measured.conv`` and ``autotune.measured.fc``
-(the keys measured) and ``autotune.pick.<arm>`` (the layers each arm
-serves in the captured forwards). The hand kernels' own
+(the keys measured), ``autotune.pick.<arm>`` (the layers each arm
+serves in the captured forwards) and, from ``Net.weight_align``,
+``align.grouped.convs``, ``align.grouped.nnz`` and
+``align.grouped.block_slots`` (the grouped convs aligned with a BSC,
+their stored nonzero weights, and their GEMM view's live blocks x bk x
+bn). The hand kernels' own
 ``calls`` / ``launches`` / ``launches_f32`` stay in their modules;
 ``snapshot()`` reads them.
 

@@ -80,7 +80,10 @@ arms in turn), the port's ``bench`` runs
 a capture that would have to measure an autotune key raises, and VGG-16
 b32 autotuned, set up by the benchmark's ``portbench/`` from its
 configuration, routes every pruned layer as autotune picked it and meets
-the configuration's limit against the plain reference.
+the configuration's limit against the plain reference; AlexNet b32, set
+up the same way from ``alexnet-block90`` on the kernel routes, captures
+``sconv_fused`` / ``bsc_spmm`` / ``lrn`` / ``maxpool`` / ``conv_epilogue``
+4 / 3 / 2 / 3 / 1 times, as ``Net.launches`` declares, within its limit.
 
 parallel/ at world size 1, over NCCL (a group from an in-process store):
 the halo path's ``engine="pallas"`` launches ``sconv_gc`` once and gives
@@ -896,6 +899,54 @@ def test_vgg16_b32_autotuned_through_the_graph_entry(dev):
     finally:
         system.close()
         autotune.clear()
+
+
+def test_alexnet_b32_captured_launches(dev):
+    """AlexNet b32 set up as the benchmark's ``alexnet-block90``
+    configuration sets it up (``portbench/``: seeded weights, 90% of
+    128x128 blocks pruned in conv2-5 and fc6-8, SCONV_PAR on the kernel
+    routes, bf16, fused), through ``inference_fn(cuda_graph=True)``: the
+    capture launches ``sconv_fused`` / ``bsc_spmm`` / ``lrn`` / ``maxpool``
+    / ``conv_epilogue`` 4 / 3 / 2 / 3 / 1 times, as ``Net.launches``
+    declares, and the replayed logits are within the configuration's
+    ``logit_rel_err`` of the plain f32 reference."""
+    from pathlib import Path
+
+    from portbench import check, harness, weights
+    from portbench.system import PortSystem
+
+    from caffe_escoin_tpu_torch.utils import trace
+
+    bench = harness.Bench(Path(__file__).resolve().parents[1])
+    cfg = bench.config("alexnet-block90")
+    seed = 2 ** 31 + 26
+    table, params, pruned = weights.make_net(
+        cfg, bench.reference(cfg["reference"]), seed, dev)
+    assert len(pruned) == 7
+    hwc = tuple(cfg["input_hwc"])
+    pool = weights.images(2 * 32, hwc, weights.generator(
+        seed, weights.POOL, dev), dev).view(2, 32, *hwc)
+    kernels = ("sconv_fused", "bsc_spmm", "lrn", "maxpool", "conv_epilogue")
+    before = trace.snapshot()["counters"]
+    system = PortSystem(cfg, table, params, dev)
+    try:
+        # the first query captures, the second replays
+        kept = [(j, system.query(pool[j])) for j in range(2)]
+        after = trace.snapshot()["counters"]
+        captured = tuple(after[f"capture.launches.{k}"]
+                         - before.get(f"capture.launches.{k}", 0)
+                         for k in kernels)
+        declared = system.net.launches(system.aligned, {"data": tuple(
+            pool[0].shape)}, torch.bfloat16)
+        assert captured == tuple(declared[k] for k in kernels) == (
+            4, 3, 2, 3, 1), (captured, declared)
+        assert after["entry.captures"] - before.get("entry.captures", 0) == 1
+        numbers, _ = check.against_reference(table, params, pool, kept, cfg)
+        print(f"alexnet b32: launches {dict(zip(kernels, captured))}; "
+              f"{numbers}")
+        assert numbers["logit_rel_err"] <= cfg["limits"]["logit_rel_err"]
+    finally:
+        system.close()
 
 
 def _packed_weight(rng, k, cin, cout, r_in, r_out, sw, pw, w_in, dev):

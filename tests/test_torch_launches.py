@@ -1,5 +1,6 @@
 """``Net.launches`` against one eager forward on the CPU: ResNet-50,
-GoogLeNet and VGG-16 at batch 1 (224x224, every published width), their
+GoogLeNet and VGG-16 at batch 1 (224x224, every published width) and
+AlexNet (227x227, conv2, conv4 and conv5 in two groups), their
 convs with 32 or more input channels and their fcs pruned to 90% in
 128x128 blocks, fused, SCONV_PAR in bf16 on the kernel routes; and VGG-16
 on the XBSP branch with autotune, its measurement replaced by fixed times
@@ -47,8 +48,8 @@ def _pruned(net, params):
 
 @pytest.mark.parametrize("model, autotuned", [
     ("resnet50", False), ("googlenet", False), ("vgg16", False),
-    ("vgg16", True)], ids=["resnet50", "googlenet", "vgg16",
-                           "vgg16-autotuned"])
+    ("vgg16", True), ("alexnet", False)],
+    ids=["resnet50", "googlenet", "vgg16", "vgg16-autotuned", "alexnet"])
 def test_launches_are_what_one_forward_calls(model, autotuned, tmp_path,
                                              monkeypatch):
     if autotuned:
@@ -80,9 +81,13 @@ def test_launches_are_what_one_forward_calls(model, autotuned, tmp_path,
         assert set(want) <= set(KERNELS)
         assert want["sconv_fused"] > 0 and want["bsc_spmm"] > 0
         assert want["maxpool"] > 0
-        assert want["lrn"] == (2 if model == "googlenet" else 0)
+        assert want["lrn"] == (2 if model in ("googlenet", "alexnet") else 0)
         # the stems, convs too dense to prune, and the dense arm's picks
         assert want["conv_epilogue"] == {"resnet50": 2, "googlenet": 10,
-                                         "vgg16": 6 if autotuned else 1}[model]
+                                         "vgg16": 6 if autotuned else 1,
+                                         "alexnet": 1}[model]
+        if model == "alexnet":
+            assert (want["sconv_fused"], want["bsc_spmm"], want["maxpool"]
+                    ) == (4, 3, 3)
     finally:
         autotune.clear()
