@@ -37,9 +37,10 @@ _FP = ctypes.POINTER(ctypes.c_float)
 # argtypes of each C entry point: pointers and the stream as c_void_p; the
 # integer arguments come as one int array (``c_ints``) and the float ones as
 # one float array (``c_floats``), built once per layer shape, since ctypes
-# converts each argument anew on every call. Each kernel has a bf16 entry and
-# an f32 one (``_f32``: mxu_dtype "float32", or an f32 map for the LRN, the
-# max pool and the conv epilogue) with the same arguments.
+# converts each argument anew on every call. Each kernel but the stem conv
+# (bf16 only) has a bf16 entry and an f32 one (``_f32``: mxu_dtype
+# "float32", or an f32 map for the LRN, the max pool and the conv epilogue)
+# with the same arguments.
 SIGNATURES = {
     "cet_sconv_fused": [_P] * 7 + [_IP, _P],
     "cet_bsc_spmm": [_P] * 8 + [_IP, _P],
@@ -49,6 +50,7 @@ SIGNATURES = {
     "cet_conv_epilogue": [_P] * 4 + [_IP, _P],
 }
 SIGNATURES.update({f"{k}_f32": v for k, v in list(SIGNATURES.items())})
+SIGNATURES["cet_stem_conv"] = [_P] * 4 + [_IP, _P]
 
 _lib = None
 ptxas_log = ""  # nvcc's -Xptxas -v report of that build

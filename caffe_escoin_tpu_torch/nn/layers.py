@@ -230,18 +230,32 @@ class ConvolutionLayer(Layer):
 
     def launches(self, params, in_shapes, in_dtype):
         """``ops.conv.conv_launches`` of this layer's route: on the dense
-        route the epilogue kernel's, where the conv has a bias, a fused
-        ReLU or a residual; none for an N-D conv (``convnd_dense``)."""
+        route the stem kernel's where ``ops.conv.runs_stem`` takes the conv
+        in an inference forward, else the epilogue kernel's where the conv
+        has a bias, a fused ReLU or a residual; none for an N-D conv
+        (``convnd_dense``)."""
         if len(in_shapes[0]) != 4:
             return {}
-        bias = (params.bias if isinstance(params, AlignedConvWeight)
-                else (params or {}).get("b"))
+        aligned = isinstance(params, AlignedConvWeight)
+        bias = params.bias if aligned else (params or {}).get("b")
+        residual = len(in_shapes) > 1 and bool(self.p.get("fuse_add"))
         epilogue = (bias is not None
                     or (self.p.get("fuse_relu", False)
                         and self.policy.fuse_relu)
-                    or (len(in_shapes) > 1 and bool(self.p.get("fuse_add"))))
-        return conv_ops.conv_launches(
-            self.route(params, in_shapes, in_dtype), epilogue=epilogue)
+                    or residual)
+        route = self.route(params, in_shapes, in_dtype)
+        stem = False
+        if route == "dense" and params:
+            in_shape = self._in_shape(in_shapes[0])
+            stride, pad, dil = self._geometry(in_shape)
+            x = torch.empty(in_shape, dtype=self.policy.compute_dtype
+                            or in_dtype, device="meta")
+            with torch.no_grad():
+                stem = conv_ops.runs_stem(
+                    x, params.dense if aligned else params["w"], bias,
+                    stride=stride, padding=pad, dilation=dil,
+                    groups=self._conf(in_shape)["groups"], residual=residual)
+        return conv_ops.conv_launches(route, epilogue=epilogue, stem=stem)
 
     def forward(self, params, inputs, state=None):
         x = inputs[0]

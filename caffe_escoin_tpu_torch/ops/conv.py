@@ -1,9 +1,10 @@
 """Convolution with execution-mode dispatch (port of
 ``caffe_escoin_tpu/ops/conv.py``).
 
-* LOWERED_GEMM   -> ``F.conv2d`` (cuDNN on the card), then the bias,
-                    residual and ReLU in one pass of
-                    kernels/conv_epilogue.py.
+* LOWERED_GEMM   -> a bf16 stem (Cin <= 4) in one pass of
+                    kernels/stem_conv.py; any other conv ``F.conv2d``
+                    (cuDNN on the card), then the bias, residual and
+                    ReLU in one pass of kernels/conv_epilogue.py.
 * LOWERED_SPARSE -> im2col + SpMM: with ``sparse_format=ELL`` and the
                     ELL artifact aligned, the gather SpMM over the
                     row-sparse W^T (kernels/spmm.ell_spmm, torch ops, as
@@ -53,7 +54,7 @@ from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import (ConvMode, ExecutionPolicy,
                                                    SparseFormat)
 from caffe_escoin_tpu_torch.kernels import (bsc_spmm, conv_epilogue,
-                                            sconv_fused, sconv_gc)
+                                            sconv_fused, sconv_gc, stem_conv)
 from caffe_escoin_tpu_torch.kernels import spmm as spmm_kernels
 from caffe_escoin_tpu_torch.kernels import xla_block_sparse as xbs
 from caffe_escoin_tpu_torch.sparse.weight_align import AlignedConvWeight
@@ -79,15 +80,34 @@ def im2col(x, kernel, *, stride, padding, dilation):
     return torch.cat(cols, dim=-1), (ho, wo)
 
 
+def runs_stem(x, w_hwio, bias=None, *, stride=(1, 1), padding=(0, 0),
+              dilation=(1, 1), groups=1, residual=False) -> bool:
+    """Whether ``conv2d_dense`` runs this conv on the stem kernel
+    (``kernels/stem_conv.takes``: a bf16 image of at most 4 channels, no
+    residual, no autograd graph). ``x`` needs only shape and dtype."""
+    return stem_conv.takes(x, w_hwio, bias, stride=stride, padding=padding,
+                           dilation=dilation, groups=groups,
+                           residual=residual)
+
+
 def conv2d_dense(x, w_hwio, bias=None, *, stride=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, relu=False, residual=None):
-    """Dense conv: the LOWERED_GEMM mode. NHWC in and out; internally a
-    channels_last NCHW view for ``F.conv2d``. Its bias, residual and ReLU
-    are one entry of ``kernels/conv_epilogue``: where that launches its
-    kernel (``takes_kernel``) cuDNN adds no bias and the kernel adds it
-    with the rest in one pass; elsewhere ``F.conv2d`` adds it and the
-    entry's plain version runs the rest. A conv with none of the three
-    calls no entry."""
+                 dilation=(1, 1), groups=1, relu=False, residual=None,
+                 memo=None):
+    """Dense conv: the LOWERED_GEMM mode. NHWC in and out. Where
+    ``runs_stem`` holds, one entry of ``kernels/stem_conv`` (the conv, its
+    bias and ReLU in one pass; its weight layout kept in ``memo``, an
+    aligned weight's, where one is given). Elsewhere ``F.conv2d`` on a
+    channels_last NCHW view, and its bias, residual and ReLU are one entry
+    of ``kernels/conv_epilogue``: where that launches its kernel
+    (``takes_kernel``) cuDNN adds no bias and the kernel adds it with the
+    rest in one pass; elsewhere ``F.conv2d`` adds it and the entry's plain
+    version runs the rest. A conv with none of the three calls no
+    epilogue entry."""
+    if runs_stem(x, w_hwio, bias, stride=stride, padding=padding,
+                 dilation=dilation, groups=groups,
+                 residual=residual is not None):
+        return stem_conv.stem_conv(x, w_hwio, bias, stride=stride,
+                                   padding=padding, relu=relu, memo=memo)
     b = None if bias is None else bias.to(x.dtype)
     kernel = conv_epilogue.takes_kernel(x, w_hwio, b, residual)
     out = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.to(x.dtype).permute(3, 2, 0, 1),
@@ -194,12 +214,15 @@ def route_launches(route: Optional[str]) -> Dict[str, int]:
     return {kernel: 1} if kernel else {}
 
 
-def conv_launches(route: Optional[str], *, epilogue: bool) -> Dict[str, int]:
+def conv_launches(route: Optional[str], *, epilogue: bool,
+                  stem: bool = False) -> Dict[str, int]:
     """The hand-kernel launches of one 2-D conv on ``route``: its route
-    kernel's, and on the "dense" route the epilogue kernel's
-    (``conv2d_dense``) where the conv has a bias, a ReLU or a residual
-    (``epilogue``)."""
+    kernel's; on the "dense" route the stem kernel's where ``conv2d_dense``
+    takes it (``stem``: ``runs_stem``), else the epilogue kernel's where
+    the conv has a bias, a ReLU or a residual (``epilogue``)."""
     if route == "dense":
+        if stem:
+            return {"stem_conv": 1}
         return {"conv_epilogue": 1} if epilogue else {}
     return route_launches(route)
 
@@ -437,7 +460,7 @@ def _run_route(route, x, aligned: AlignedConvWeight, *, stride, padding,
         return conv2d_dense(
             x, aligned.dense, aligned.bias, stride=stride, padding=padding,
             dilation=dilation, groups=aligned.groups, relu=relu,
-            residual=residual)
+            residual=residual, memo=aligned.memo)
     if route in ("lowered", "xbsp_lowered", "ell"):
         return conv2d_lowered_sparse(
             x, aligned, stride=stride, padding=padding, dilation=dilation,

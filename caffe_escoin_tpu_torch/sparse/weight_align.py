@@ -82,7 +82,9 @@ class AlignedConvWeight:
     """Execution-ready representations of one conv (or fc) layer's weight.
 
     ``bias`` is kept in float32 by ``to``: the sparse kernels add it in
-    their f32 epilogue.
+    their f32 epilogue. ``memo`` holds what a kernel derives from the
+    payloads once (the stem kernel's weight layout); ``to`` and
+    ``dataclasses.replace`` start the copy with an empty one.
     """
 
     dense: torch.Tensor  # [KH,KW,Cin/g,Cout] as loaded
@@ -97,6 +99,8 @@ class AlignedConvWeight:
     sparsity: float = 0.0
     block_density: float = 1.0
     stats: Optional[SparsityStats] = None
+    memo: dict = dataclasses.field(default_factory=dict, init=False,
+                                   compare=False, repr=False)
 
     @property
     def k(self) -> int:

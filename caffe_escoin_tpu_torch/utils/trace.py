@@ -48,7 +48,9 @@ bn). The hand kernels' own
 The hand kernels are of two kinds: ``KERNELS``, the ports of the JAX
 package's Pallas kernels, and ``OP_KERNELS``, kernels of ops that the JAX
 package leaves to XLA (``lrn``: LRN across channels; ``maxpool``: max
-pooling; ``conv_epilogue``: a dense conv's bias, residual and ReLU).
+pooling; ``conv_epilogue``: a dense conv's bias, residual and ReLU;
+``stem_conv``: a dense conv over an image of at most 4 channels, with its
+bias and ReLU).
 ``kernel_counts()``, and so ``snapshot()`` and the capture counters, read
 both.
 """
@@ -65,7 +67,7 @@ import torch
 PREFIX = "cet:"
 LAYER = "layer:"
 KERNELS = ("sconv_fused", "sconv_gc", "bsc_spmm")
-OP_KERNELS = ("lrn", "maxpool", "conv_epilogue")
+OP_KERNELS = ("lrn", "maxpool", "conv_epilogue", "stem_conv")
 KERNEL_COUNTERS = ("calls", "launches", "launches_f32")
 
 ON = False  # read directly on the per-query path: ``if trace.ON``

@@ -94,6 +94,17 @@ Phases, one line each (any failure exits non-zero):
      plus ``torch.relu`` (the library's: what ``F.conv2d`` with a bias ran,
      timed here only) and its bound, one bf16 read and one write of the map
      at 3.35 TB/s.
+  3s. the stem conv kernel (csrc/stem_conv.cu, a kernel of an op the JAX
+     package leaves to XLA) at the zoo's stems in bf16 (``STEM_SHAPES``:
+     AlexNet's conv1 11x11/s4, the 7x7/s2/p3 conv1 of ResNet-50 and
+     GoogLeNet, VGG-16's conv1_1 3x3/s1/p1, at b32 and b1), bias and ReLU:
+     within the parity rule of its plain version (``F.conv2d`` with the
+     bias in bf16, then ReLU), one launch a call; timed eager and as a CUDA
+     graph beside its plain version, the former path (cuDNN's fprop
+     without the bias, then the epilogue kernel: what ``conv2d_dense`` ran
+     at these shapes before the stem kernel, timed here only as the
+     yardstick) and its bound, max(bf16 image, weight and output bytes at
+     3.35 TB/s, 2*M*Cout*kh*kw*Cin FLOPs at 989 TFLOP/s).
   3b. the XBSP arms (torch ops, no kernel of this package): unroll,
      gathered and gathered_cols at three ResNet-50 shapes (on the padded
      3x3 one also in the ``CESCOIN_XBSP_NOPAD`` pad-free form) and spmm at
@@ -452,7 +463,10 @@ there against that count; the max-pool kernel (``maxpool``,
 ``replaces`` null): phase 3m's, and its launches there, one per max pool
 on an unpacked input; and the dense conv's epilogue kernel
 (``conv_epilogue``, ``replaces`` null): phase 3e's, and its launches there,
-one per dense conv with a bias, a ReLU or a residual. As the last line
+one per dense conv with a bias, a ReLU or a residual that the stem kernel
+does not take; and the stem conv kernel (``stem_conv``, ``replaces``
+null): phase 3s's, and its launches there, one per bf16 stem. As the last
+line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py`` (or
@@ -505,6 +519,7 @@ KERNELS_F32 = {f"{k}_f32": k for k in KERNELS}
 LRN_KERNEL = "lrn"
 MAXPOOL_KERNEL = "maxpool"
 EPILOGUE_KERNEL = "conv_epilogue"
+STEM_KERNEL = "stem_conv"
 # phase 3f: each kernel multiplying in f32 against its plain version in f64
 # on the card, max abs err within this share of max|ref| (one TF32 pass
 # misses it by more than 10x)
@@ -548,6 +563,17 @@ MAXPOOL_SHAPES = (
 EPILOGUE_SHAPES = (
     ("vgg16 conv1_2 b32 224x224x64", (32, 224, 224, 64)),
     ("conv1 b32 112x112x64 (ResNet-50, GoogLeNet)", (32, 112, 112, 64)),
+)
+# phase 3s: (label, image NHWC, kernel, stride, pad, Cout) of the zoo's stems
+STEM_SHAPES = (
+    ("alexnet conv1 b32 227x227x3 11x11/s4 -> 96", (32, 227, 227, 3), 11, 4,
+     0, 96),
+    ("resnet50/googlenet conv1 b32 224x224x3 7x7/s2/p3 -> 64",
+     (32, 224, 224, 3), 7, 2, 3, 64),
+    ("vgg16 conv1_1 b32 224x224x3 3x3/s1/p1 -> 64", (32, 224, 224, 3), 3, 1,
+     1, 64),
+    ("alexnet conv1 b1", (1, 227, 227, 3), 11, 4, 0, 96),
+    ("resnet50/googlenet conv1 b1", (1, 224, 224, 3), 7, 2, 3, 64),
 )
 # the autotuned row: bench.py's calibration (polish 8, net scope), and a
 # cache file of this run's own (gitignored, deleted first)
@@ -633,7 +659,8 @@ STEP_NETS = (("alexnet", 8), ("cifar10_bn", 100))
 STEP_LOSS_REL, STEP_UPDATE_REL, STEP_BN_TOL = 1e-4, 1e-3, 1e-4
 # phase 7c: what the trained, pruned AlexNet must launch per forward
 TRAINED_LAUNCHES = {"sconv_fused": 4, "bsc_spmm": 3, "sconv_gc": 0,
-                    LRN_KERNEL: 2, MAXPOOL_KERNEL: 3, EPILOGUE_KERNEL: 1}
+                    LRN_KERNEL: 2, MAXPOOL_KERNEL: 3, EPILOGUE_KERNEL: 0,
+                    STEM_KERNEL: 1}
 CLI_TRAIN_ITERS = 4
 # the GoogLeNet stem layers phase 4e prints side by side
 STEM_LAYERS = ("conv1/7x7_s2", "pool1/3x3_s2", "pool1/norm1",
@@ -803,7 +830,8 @@ def _ptxas_summary(log) -> str:
             fam = fams["lrn_kernel<" + ("f32" if "lrn_kernelIf" in symbol
                                         else "bf16") + ">"]
         elif kern and (kern.group(1).startswith("maxpool_")
-                       or kern.group(1) == "conv_epilogue_kernel"):
+                       or kern.group(1) in ("conv_epilogue_kernel",
+                                            "stem_conv_kernel")):
             fam = fams[kern.group(1) + "<" + ("f32" if "3F32" in symbol
                                               else "bf16") + ">"]
         else:
@@ -1103,6 +1131,82 @@ def _phase_conv_epilogue(tag, dev, r):
               f"it, {graph['kernel'] / graph['library']:.2f}x the library "
               f"{tag}")
         del xs, out, ref, lib
+
+
+def _phase_stem_conv(tag, dev, r):
+    """Phase 3s (see the module docstring); its errors, times and bounds
+    summed into ``r``, the stem kernel's results."""
+    import torch
+    import torch.nn.functional as F
+
+    from caffe_escoin_tpu_torch.kernels import conv_epilogue, stem_conv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for label, shape, k, s, p, cout in STEM_SHAPES:
+        c = shape[3]
+        wt = (torch.randn((k, k, c, cout), generator=gen, device=dev)
+              * (2.0 / (k * k * c)) ** 0.5).bfloat16()
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        b16 = b.bfloat16()
+        geo = dict(stride=(s, s), padding=(p, p))
+        memo = {}
+
+        def former(x, wt=wt, b16=b16, geo=geo):
+            # conv2d_dense before the stem kernel: cuDNN without the bias,
+            # then the epilogue kernel in place
+            y = F.conv2d(x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1),
+                         None, **geo).permute(0, 2, 3, 1)
+            return conv_epilogue.conv_epilogue(y, b16, relu=True)
+
+        arms = {
+            "kernel": lambda x, wt=wt, b=b, geo=geo, memo=memo:
+                stem_conv.stem_conv(x, wt, b, relu=True, memo=memo, **geo),
+            "plain": lambda x, wt=wt, b=b, geo=geo: stem_conv.stem_plain(
+                x, wt, b, relu=True, **geo),
+            "library": former,
+        }
+        xs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+              for _ in range(N_INPUTS)]
+        launches = stem_conv.launches
+        with torch.inference_mode():
+            ref = arms["plain"](xs[0])
+            out = arms["kernel"](xs[0])
+            torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        bound_err = PARITY_REL * ref.float().abs().max().item() + PARITY_ABS
+        r["err"] = max(r["err"], err)
+        ok = (stem_conv.launches == launches + 1 and err <= bound_err
+              and bool(torch.isfinite(out).all()))
+        print(f"parity cet_stem_conv {label} +bias +relu: max_abs_err "
+              f"{err:.3e} (bound {bound_err:.3e}) against its plain version, "
+              f"{stem_conv.launches - launches} launch "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"cet_stem_conv {label}: disagrees with its "
+                             f"plain version or did not launch once")
+        with torch.inference_mode():
+            graph = {arm: _graph_ms(fn, xs) for arm, fn in arms.items()}
+            eager = {arm: _time_ms(fn, xs) for arm, fn in arms.items()}
+        m = out.numel() // cout
+        nbytes = 2 * (xs[0].numel() + wt.numel() + out.numel())
+        flops = 2 * m * cout * k * k * c
+        bound_ms, bound_by = _bound(nbytes, flops)
+        for arm in arms:
+            key = "ms" if arm == "kernel" else f"{arm}_ms"
+            r[key] += eager[arm]
+            r["graph_" + key] += graph[arm]
+        r["bound_ms"] += bound_ms
+        r["bound"][bound_by] += bound_ms
+        print(f"time cet_stem_conv {label} +bias +relu, as a CUDA graph "
+              f"(eager): " + ", ".join(
+                  f"{arm} {graph[arm]:.4f} ({eager[arm]:.4f}) ms"
+                  for arm in arms)
+              + f"; bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), kernel "
+              f"graph at {bound_ms / graph['kernel']:.1%} of it, "
+              f"{graph['kernel'] / graph['library']:.2f}x the former "
+              f"cuDNN + epilogue {tag}")
+        del xs, out, ref
 
 
 def _nopad(fn, x):
@@ -1566,7 +1670,8 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
                                                        ExecutionPolicy)
     from caffe_escoin_tpu_torch.engine.solver import Solver
     from caffe_escoin_tpu_torch.engine.solvers import SolverConfig
-    from caffe_escoin_tpu_torch.kernels import conv_epilogue, lrn, maxpool
+    from caffe_escoin_tpu_torch.kernels import (conv_epilogue, lrn, maxpool,
+                                                stem_conv)
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
     from caffe_escoin_tpu_torch.tools import cli
@@ -1720,7 +1825,7 @@ def _phase_train(mods, tag, results, alexnet_graph_ms):
     inputs = [{"data": torch.randn(in_shape["data"], generator=gen,
                                    device=dev)} for _ in range(N_INPUTS)]
     net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool,
-                EPILOGUE_KERNEL: conv_epilogue}
+                EPILOGUE_KERNEL: conv_epilogue, STEM_KERNEL: stem_conv}
     for m in net_mods.values():
         m.reset_counts()
     outs = [fwd(x)["fc8"].float().clone() for x in inputs]
@@ -3489,7 +3594,7 @@ def main(argv=None) -> int:
         from caffe_escoin_tpu_torch.kernels import (_build, bsc_spmm,
                                                     conv_epilogue, lrn,
                                                     maxpool, sconv_fused,
-                                                    sconv_gc)
+                                                    sconv_gc, stem_conv)
         from caffe_escoin_tpu_torch.utils import trace
         from caffe_escoin_tpu_torch.models import ZOO
         from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
@@ -3514,7 +3619,7 @@ def main(argv=None) -> int:
     mods = {"sconv_fused": sconv_fused, "bsc_spmm": bsc_spmm,
             "sconv_gc": sconv_gc}
     net_mods = {**mods, LRN_KERNEL: lrn, MAXPOOL_KERNEL: maxpool,
-                EPILOGUE_KERNEL: conv_epilogue}
+                EPILOGUE_KERNEL: conv_epilogue, STEM_KERNEL: stem_conv}
     card = _card_line()
     print(card)
     tag = f"[{card}]"
@@ -3552,7 +3657,7 @@ def main(argv=None) -> int:
                        graph_library_ms=0.0, bound_ms=0.0, launches=0,
                        bound={"bytes": 0.0, "operations": 0.0})
                for k in (*KERNELS, *KERNELS_F32, LRN_KERNEL,
-                         MAXPOOL_KERNEL, EPILOGUE_KERNEL)}
+                         MAXPOOL_KERNEL, EPILOGUE_KERNEL, STEM_KERNEL)}
     timed = []  # (kernel, label, {arm: fn}, args, bytes, flops)
 
     def check(kernel, label, out, ref):
@@ -3826,6 +3931,9 @@ def main(argv=None) -> int:
 
     # ---- 3e. the dense conv's epilogue kernel -------------------------------
     _phase_conv_epilogue(tag, dev, results[EPILOGUE_KERNEL])
+
+    # ---- 3s. the stem conv kernel -------------------------------------------
+    _phase_stem_conv(tag, dev, results[STEM_KERNEL])
 
     # ---- 3b. the XBSP arms against the f32 dense conv ----------------------
     def time_line(what, label, arms, args, nbytes, flops):
@@ -4908,12 +5016,12 @@ def main(argv=None) -> int:
     # each kernel, then its f32-multiply variant (same source and TPU
     # kernel; its launches are phase 4f's, its times phase 3f's)
     # and the op kernels, which replace no TPU kernel (their times phases
-    # 3l's, 3m's and 3e's, their launches the nets' LRN layers, max pools
-    # and dense convs in phases 4, 4b-4f and 7c)
+    # 3l's, 3m's, 3e's and 3s's, their launches the nets' LRN layers, max
+    # pools, dense convs and stems in phases 4, 4b-4f and 7c)
     names = [(k, base) for base in KERNELS
              for k in (base, f"{base}_f32")] + [
         (LRN_KERNEL, LRN_KERNEL), (MAXPOOL_KERNEL, MAXPOOL_KERNEL),
-        (EPILOGUE_KERNEL, EPILOGUE_KERNEL)]
+        (EPILOGUE_KERNEL, EPILOGUE_KERNEL), (STEM_KERNEL, STEM_KERNEL)]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"caffe_escoin_tpu_torch/csrc/{base}.cu",

@@ -95,7 +95,8 @@ def test_pruned_as_the_configuration_says(made):
 
 
 def test_routes_and_launches(made):
-    """conv2-5 on ``sconv_fused``, fc6-8 on ``bsc_spmm``, conv1 dense, as
+    """conv2-5 on ``sconv_fused``, fc6-8 on ``bsc_spmm``, conv1 dense (on
+    ``stem_conv``, so no epilogue launch), as
     ``Net.launches`` declares them (``tests/test_torch_launches.py`` holds
     the declaration to a forward's calls)."""
     table, params, _, x = made
@@ -108,7 +109,8 @@ def test_routes_and_launches(made):
     assert {routes[n] for n in ("fc6", "fc7", "fc8")} == {"spmm"}
     declared = fnet.launches(aligned, shapes, torch.bfloat16)
     assert (declared["sconv_fused"], declared["bsc_spmm"], declared["lrn"],
-            declared["maxpool"], declared["conv_epilogue"]) == (4, 3, 2, 3, 1)
+            declared["maxpool"], declared["conv_epilogue"],
+            declared["stem_conv"]) == (4, 3, 2, 3, 0, 1)
 
 
 def test_float32_within_the_reference_and_bfloat16_not(made):

@@ -10,9 +10,10 @@ The launch that the CUDA kernel reads takes the 16-byte vector exactly where
 C, the pointers and the strides allow it, and its grid covers the map, one
 thread a vector; at every dense conv of the benchmark's three
 configurations at batch 8 and 32 it takes the vector. ``Net.launches`` declares one
-launch a dense conv with a bias, a ReLU or a residual (ResNet-50's 2,
-GoogLeNet's 10), none for one with none of them, and the trace lists the
-kernel beside the LRN's and the max pool's.
+launch a dense conv with a bias, a ReLU or a residual that the stem kernel
+does not take (ResNet-50's 1 of 2, GoogLeNet's 9 of 10), none for one with
+none of them, and the trace lists the kernel beside the LRN's and the max
+pool's.
 """
 
 import numpy as np
@@ -282,8 +283,9 @@ def _pruned(net, params):
 @pytest.mark.parametrize("model, n", [("resnet50", 2), ("googlenet", 10)])
 def test_net_launches_one_epilogue_a_dense_conv(model, n):
     """ResNet-50's and GoogLeNet's configurations (b8, bf16, fused, on the
-    kernel routes): the dense routes are ``DENSE_CONVS``, each declaring
-    one epilogue launch."""
+    kernel routes): the dense routes are ``DENSE_CONVS``, the stem
+    declaring one ``stem_conv`` launch and each other one epilogue
+    launch."""
     pol = ExecutionPolicy(conv_mode=ConvMode.SCONV_PAR, block_shape=BLOCK,
                           compute_dtype=torch.bfloat16, cast_back=False,
                           use_xla_sparse=False)
@@ -298,8 +300,8 @@ def test_net_launches_one_epilogue_a_dense_conv(model, n):
     convs = {l.spec.name for l in fnet.layers if l.category == "conv"}
     assert sorted(k for k, r in routes.items()
                   if r == "dense" and k in convs) == sorted(DENSE_CONVS[model])
-    assert fnet.launches(aligned, shapes, torch.bfloat16)[
-        "conv_epilogue"] == n
+    declared = fnet.launches(aligned, shapes, torch.bfloat16)
+    assert (declared["conv_epilogue"], declared["stem_conv"]) == (n - 1, 1)
 
 
 @pytest.mark.parametrize("bias, relu, want", [

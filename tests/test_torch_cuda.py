@@ -57,12 +57,23 @@ ResNet-50 and VGG-16 launches it once a max pool (13, 1, 5), with no
 
 The dense conv's epilogue (csrc/conv_epilogue.cu): ``conv2d_dense`` on the
 card is ``torch.equal`` to the former ``F.conv2d`` with the bias and
-``torch.relu``, bit for bit, at ResNet-50's conv1 b32, GoogLeNet's
+``torch.relu``, bit for bit, at ResNet-50's conv1 b32 in f32, GoogLeNet's
 inception_3a/5x5 b8, VGG-16's conv1_2 b32, an f32 conv and one with a
 residual; an NCHW output is read through its strides, misaligned operands
 take the scalar path; a captured forward of ResNet-50's and GoogLeNet's
-configurations launches it once a dense conv (2, 10), as ``Net.launches``
-declares.
+configurations launches it once a dense conv but the stem (1, 9), as
+``Net.launches`` declares.
+
+The stem conv (csrc/stem_conv.cu) at the zoo's four stems (AlexNet's
+11x11/s4, ResNet-50's and GoogLeNet's 7x7/s2/p3, VGG-16's 3x3/s1/p1) at
+b1 and b32, and at odd shapes with ragged last tiles, Cin 1 and 4 and
+Cout 40 (a padded width): against its plain version (cuDNN in bf16, the
+bias rounded to bf16 and added, ReLU) within the bf16 rule above, and
+against the same conv in f64 within one bf16 rounding of each output
+(2**-8 of its magnitude, plus 1e-5 of the largest for the order of the f32
+sums): the kernel adds the f32 bias and rounds once. ``conv2d_dense``
+launches it once a bf16 stem, ``gemm_weight`` built once into an aligned
+weight's memo; a NaN pixel stays inside its own windows.
 
 The data slice: a Data layer's tops land on the card (pinned host copies)
 as the batches of the file it reads, and the layer types of the rest of
@@ -844,9 +855,10 @@ def test_vgg16_b32_autotuned_through_the_graph_entry(dev):
     True)``: the first call measures every pruned layer's arms, the
     capture counts one ``autotune.pick.*`` for each of the 15 pruned
     layers, every pruned layer's route is its autotuned pick (an fc's the
-    fastest measured), the capture launches the epilogue kernel once for
-    the dense stem and once for each dense pick, as ``Net.launches``
-    declares, and the replayed logits are within the configuration's
+    fastest measured), the capture launches the stem kernel once for the
+    dense stem and the epilogue kernel once for each dense pick, as
+    ``Net.launches`` declares, and the replayed logits are within the
+    configuration's
     ``logit_rel_err`` of the plain f32 reference."""
     from pathlib import Path
 
@@ -879,13 +891,16 @@ def test_vgg16_b32_autotuned_through_the_graph_entry(dev):
         with autotune.record_keys() as served:
             routes = system.net.routes(system.aligned,
                                        {"data": tuple(pool[0].shape)})
-        # the stem and the dense picks: one epilogue launch each
-        epilogue = "capture.launches.conv_epilogue"
+        # the stem on its kernel, the dense picks one epilogue launch each
+        declared = system.net.launches(system.aligned, {"data": tuple(
+            pool[0].shape)}, torch.bfloat16)
+        epilogue, stem = ("capture.launches.conv_epilogue",
+                          "capture.launches.stem_conv")
         assert after[epilogue] - before.get(epilogue, 0) == (
-            system.net.launches(system.aligned, {"data": tuple(
-                pool[0].shape)}, torch.bfloat16)["conv_epilogue"]) == sum(
+            declared["conv_epilogue"]) == sum(
             r == "dense" for n, r in routes.items()
-            if not n.startswith("fc"))
+            if not n.startswith("fc")) - 1
+        assert after[stem] - before.get(stem, 0) == declared["stem_conv"] == 1
         order = [name for name in routes if name in pruned]
         assert len(order) == len(served) == 15
         times = autotune.report()
@@ -907,9 +922,9 @@ def test_alexnet_b32_captured_launches(dev):
     128x128 blocks pruned in conv2-5 and fc6-8, SCONV_PAR on the kernel
     routes, bf16, fused), through ``inference_fn(cuda_graph=True)``: the
     capture launches ``sconv_fused`` / ``bsc_spmm`` / ``lrn`` / ``maxpool``
-    / ``conv_epilogue`` 4 / 3 / 2 / 3 / 1 times, as ``Net.launches``
-    declares, and the replayed logits are within the configuration's
-    ``logit_rel_err`` of the plain f32 reference."""
+    / ``conv_epilogue`` / ``stem_conv`` 4 / 3 / 2 / 3 / 0 / 1 times, as
+    ``Net.launches`` declares, and the replayed logits are within the
+    configuration's ``logit_rel_err`` of the plain f32 reference."""
     from pathlib import Path
 
     from portbench import check, harness, weights
@@ -926,7 +941,8 @@ def test_alexnet_b32_captured_launches(dev):
     hwc = tuple(cfg["input_hwc"])
     pool = weights.images(2 * 32, hwc, weights.generator(
         seed, weights.POOL, dev), dev).view(2, 32, *hwc)
-    kernels = ("sconv_fused", "bsc_spmm", "lrn", "maxpool", "conv_epilogue")
+    kernels = ("sconv_fused", "bsc_spmm", "lrn", "maxpool", "conv_epilogue",
+               "stem_conv")
     before = trace.snapshot()["counters"]
     system = PortSystem(cfg, table, params, dev)
     try:
@@ -939,7 +955,7 @@ def test_alexnet_b32_captured_launches(dev):
         declared = system.net.launches(system.aligned, {"data": tuple(
             pool[0].shape)}, torch.bfloat16)
         assert captured == tuple(declared[k] for k in kernels) == (
-            4, 3, 2, 3, 1), (captured, declared)
+            4, 3, 2, 3, 0, 1), (captured, declared)
         assert after["entry.captures"] - before.get("entry.captures", 0) == 1
         numbers, _ = check.against_reference(table, params, pool, kept, cfg)
         print(f"alexnet b32: launches {dict(zip(kernels, captured))}; "
@@ -1447,7 +1463,8 @@ def test_captured_forward_launches_the_maxpool_kernel(dev, model, pools):
 # the dense conv's epilogue (csrc/conv_epilogue.cu) at the cells' dense
 # convs: (input NHWC, k, cout, stride, pad, dtype, residual)
 EPILOGUE_CASES = {
-    "resnet50_conv1_b32": ((32, 224, 224, 3), 7, 64, 2, 3, torch.bfloat16,
+    # in f32: a bf16 stem runs on csrc/stem_conv.cu, without the epilogue
+    "resnet50_conv1_b32": ((32, 224, 224, 3), 7, 64, 2, 3, torch.float32,
                            False),
     "googlenet_3a_5x5_b8": ((8, 28, 28, 16), 5, 32, 1, 2, torch.bfloat16,
                             False),
@@ -1588,8 +1605,11 @@ def test_conv_epilogue_keeps_signed_zeros_and_nan_as_plain(dev, dtype, bias,
 def test_captured_forward_launches_the_conv_epilogue(dev, model, dense):
     """The configuration's net (convs with Cin >= 32 pruned to 90% of their
     128x128 blocks, fused, bf16, the kernel routes) at batch 2, captured:
-    ``capture.launches.conv_epilogue`` counts what ``Net.launches``
-    declares, one a dense conv; a profiled eager forward runs the kernel."""
+    ``capture.launches.conv_epilogue`` and ``capture.launches.stem_conv``
+    count what ``Net.launches`` declares, the stem on the stem kernel and
+    one epilogue each other dense conv; a profiled eager forward runs both
+    kernels and neither cuDNN's CUDA-core direct conv nor its channel
+    pad."""
     from caffe_escoin_tpu_torch.engine.context import ConvMode
     from caffe_escoin_tpu_torch.models import ZOO
     from caffe_escoin_tpu_torch.nn import Net, fuse_inference, params_to
@@ -1611,17 +1631,101 @@ def test_captured_forward_launches_the_conv_epilogue(dev, model, dense):
     fnet, fparams = fuse_inference(net, params, state=net.state0)
     aligned = params_to(fnet.weight_align(fparams), dev, torch.bfloat16)
     x = {"data": torch.randn(in_shape["data"], device=dev)}
-    key = "capture.launches.conv_epilogue"
-    before = trace.snapshot()["counters"].get(key, 0)
+    keys = ("capture.launches.conv_epilogue", "capture.launches.stem_conv")
+    before = [trace.snapshot()["counters"].get(k, 0) for k in keys]
     fnet.inference_fn(aligned, cuda_graph=True)(x)
-    declared = fnet.launches(aligned, in_shape)["conv_epilogue"]
-    assert trace.snapshot()["counters"][key] - before == declared == dense
+    declared = fnet.launches(aligned, in_shape)
+    assert [trace.snapshot()["counters"][k] - b
+            for k, b in zip(keys, before)] == [
+        declared["conv_epilogue"], declared["stem_conv"]] == [dense - 1, 1]
     with torch.inference_mode(), torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fnet.forward(aligned, x)
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages()]
     assert [n for n in names if "conv_epilogue_kernel" in n], names
+    assert [n for n in names if "stem_conv_kernel" in n], names
+    assert not [n for n in names if "convolve_common_engine" in n
+                or "nhwcAddPadding" in n], names
+
+
+# the stem conv (csrc/stem_conv.cu): (n, h, w, cin, k, stride, pad, cout);
+# AlexNet's conv1 leaves a last tile of 209 of 256 pixels an image
+STEM_CASES = {
+    "alexnet_conv1_b1": (1, 227, 227, 3, 11, 4, 0, 96),
+    "alexnet_conv1_b32": (32, 227, 227, 3, 11, 4, 0, 96),
+    "resnet50_conv1_b1": (1, 224, 224, 3, 7, 2, 3, 64),
+    "resnet50_conv1_b32": (32, 224, 224, 3, 7, 2, 3, 64),
+    "googlenet_conv1_b8": (8, 224, 224, 3, 7, 2, 3, 64),
+    "vgg16_conv1_1_b1": (1, 224, 224, 3, 3, 1, 1, 64),
+    "vgg16_conv1_1_b32": (32, 224, 224, 3, 3, 1, 1, 64),
+    "ragged_7x7_c1_cout40": (3, 101, 87, 1, 7, 2, 3, 40),
+    "ragged_5x5_c4_cout128": (2, 61, 75, 4, 5, 3, 2, 128),
+}
+
+
+def _stem_case(name, dev):
+    n, h, w, c, k, s, p, cout = STEM_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    x = torch.randn((n, h, w, c), generator=g, device=dev).bfloat16()
+    wt = (torch.randn((k, k, c, cout), generator=g, device=dev)
+          * (2.0 / (k * k * c)) ** 0.5).bfloat16()
+    b = torch.randn(cout, generator=g, device=dev) * 0.1
+    return x, wt, b, dict(stride=(s, s), padding=(p, p))
+
+
+def _stem_reference(x, wt, b, geo):
+    """The conv of the same bf16 values in f32 (TF32 off), + bias, ReLU."""
+    import torch.nn.functional as F
+
+    return torch.relu(F.conv2d(x.float().permute(0, 3, 1, 2),
+                               wt.float().permute(3, 2, 0, 1), b.float(),
+                               **geo).permute(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("name", list(STEM_CASES))
+def test_stem_conv_kernel_matches_plain(dev, name):
+    """One launch a call, through ``conv2d_dense``; the weight laid out
+    once into the memo; the same bits on a second call; within the bf16
+    rule of the plain version, and within one bf16 rounding of each output
+    of the f32 conv (the kernel sums in f32 and rounds once)."""
+    from caffe_escoin_tpu_torch.kernels import stem_conv
+
+    x, wt, b, geo = _stem_case(name, dev)
+    memo = {}
+    with torch.inference_mode():
+        assert conv_ops.runs_stem(x, wt, b, **geo)
+        launches = stem_conv.launches
+        out = conv_ops.conv2d_dense(x, wt, b, relu=True, memo=memo, **geo)
+        torch.cuda.synchronize()
+        assert stem_conv.launches == launches + 1 and len(memo) == 1
+        again = conv_ops.conv2d_dense(x, wt, b, relu=True, memo=memo, **geo)
+        plain = stem_conv.stem_plain(x, wt, b, relu=True, **geo)
+        ref = _stem_reference(x, wt, b, geo)
+    assert len(memo) == 1 and out.is_contiguous()
+    assert out.shape == plain.shape and torch.equal(out, again)
+    _close(out, plain, torch.bfloat16)
+    err = (out.float() - ref).abs()
+    bound = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
+    assert (err <= bound).all(), (err - bound).max().item()
+
+
+def test_stem_conv_keeps_a_nan_inside_its_windows(dev):
+    """A NaN pixel in each corner of an image: the outputs whose windows
+    hold it are NaN (ReLU keeps a NaN), every other output is finite; the
+    masked last K step and the zeroed padding never read it elsewhere."""
+    from caffe_escoin_tpu_torch.kernels import stem_conv
+
+    for name in ("alexnet_conv1_b1", "resnet50_conv1_b1",
+                 "ragged_7x7_c1_cout40"):
+        x, wt, b, geo = _stem_case(name, dev)
+        x[0, 0, 0, :] = float("nan")
+        x[-1, -1, -1, -1] = float("nan")
+        with torch.inference_mode():
+            out = stem_conv.stem_conv(x, wt, b, relu=True, **geo)
+            ref = _stem_reference(x, wt, b, geo)
+        assert torch.equal(torch.isnan(out), torch.isnan(ref)), name
+        assert torch.isnan(ref).any()
 
 
 @pytest.mark.parametrize("arm", ["conv", "conv_gathered",

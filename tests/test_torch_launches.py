@@ -16,7 +16,8 @@ import torch
 from caffe_escoin_tpu_torch.engine import autotune
 from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy
 from caffe_escoin_tpu_torch.kernels import (bsc_spmm, conv_epilogue, lrn,
-                                            maxpool, sconv_fused, sconv_gc)
+                                            maxpool, sconv_fused, sconv_gc,
+                                            stem_conv)
 from caffe_escoin_tpu_torch.models import ZOO
 from caffe_escoin_tpu_torch.nn import Net, fuse_inference
 from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
@@ -24,7 +25,7 @@ from caffe_escoin_tpu_torch.utils.pruning import (prune_blocks,
 
 KERNELS = {"sconv_fused": sconv_fused, "sconv_gc": sconv_gc,
            "bsc_spmm": bsc_spmm, "lrn": lrn, "maxpool": maxpool,
-           "conv_epilogue": conv_epilogue}
+           "conv_epilogue": conv_epilogue, "stem_conv": stem_conv}
 BLOCK = (128, 128)
 # the fixed times of the autotuned case's arms (lower wins; others 2)
 RANK = {"fused": 0, "bsc_spmm": 0, "dense": 1}
@@ -82,10 +83,12 @@ def test_launches_are_what_one_forward_calls(model, autotuned, tmp_path,
         assert want["sconv_fused"] > 0 and want["bsc_spmm"] > 0
         assert want["maxpool"] > 0
         assert want["lrn"] == (2 if model in ("googlenet", "alexnet") else 0)
-        # the stems, convs too dense to prune, and the dense arm's picks
-        assert want["conv_epilogue"] == {"resnet50": 2, "googlenet": 10,
-                                         "vgg16": 6 if autotuned else 1,
-                                         "alexnet": 1}[model]
+        # the stem on its own kernel; convs too dense to prune and the
+        # dense arm's picks on the epilogue
+        assert want["stem_conv"] == 1
+        assert want["conv_epilogue"] == {"resnet50": 1, "googlenet": 9,
+                                         "vgg16": 5 if autotuned else 0,
+                                         "alexnet": 0}[model]
         if model == "alexnet":
             assert (want["sconv_fused"], want["bsc_spmm"], want["maxpool"]
                     ) == (4, 3, 3)
