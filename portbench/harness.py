@@ -13,14 +13,21 @@ file of its own, found by the name ``BENCHMARK.json`` gives it:
   metric ``<x>.<suffix>`` that has no file of its own);
 * ``reference/<reference>.py``: the architecture's plain table.
 
-Every mix runs one loop, which holds one batch in flight: a query hands
-the entry one batch of the pool, and ends when the classifier's logits
-are on the host. Offline and stream cells differ in their batch, their
-pool and their metrics.
+A query hands the entry one batch of the pool, and ends when the
+classifier's logits are on the host. A stream mix holds one query in
+flight: the next is sent once the last one's logits are there. An offline
+mix (one that names ``ahead_seconds``) is a backlog: queries are sent
+ahead of the one the loop waits for, about ``ahead_seconds`` of the
+card's work and at most ``ahead_max`` queries, each query's logits copied
+behind its forward into a host slot of their own (``Ahead``), so that the
+card does not wait for the host's turnaround or a short stall of it. Its
+window closes so: when its time is up nothing more is sent, every query
+sent is waited for, and the clock is read after that wait.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import importlib.util
@@ -126,6 +133,7 @@ class Run:
     pruned_convs: List[str] = dataclasses.field(default_factory=list)
     stretch: Optional[traced.Stretch] = None
     layer_us: Optional[Dict[str, float]] = None
+    ahead: Optional["Ahead"] = None
 
 
 def process_age() -> float:
@@ -150,18 +158,89 @@ def card_reading(index: int, fields: str) -> str:
     return proc.stdout.strip() if proc.returncode == 0 else "not read"
 
 
-def per_second(latency_s: List[float]) -> List[int]:
-    """Queries completed in each whole second of a window of back-to-back
-    queries, from their latencies."""
-    counts, t, edge = [], 0.0, 1.0
+def per_second(done_s: List[float]) -> List[int]:
+    """Queries completed in each whole second of a window, from the
+    moments (seconds into the window, in order) at which each was seen
+    on the host."""
+    counts, edge = [], 1.0
     n = 0
-    for x in latency_s:
-        t += x
+    for t in done_s:
         while t >= edge:
             counts.append(n)
             n, edge = 0, edge + 1.0
         n += 1
     return counts
+
+
+class Ahead:
+    """Queries in flight beyond the one the loop waits for: query ``n``'s
+    logits are copied, behind its forward on the same stream, into host
+    slot ``n % depth`` (one pinned block on a card), before the next
+    forward can overwrite the graph's output; ``take`` waits for the
+    oldest query in flight and hands back its slot, which the next
+    ``send`` may fill again."""
+
+    def __init__(self, like: torch.Tensor, depth: int):
+        self.depth = depth
+        self.slots = torch.empty((depth,) + tuple(like.shape),
+                                 dtype=like.dtype, pin_memory=like.is_cuda)
+        self.events = ([torch.cuda.Event() for _ in range(depth)]
+                       if like.is_cuda else None)
+        self.pending = collections.deque()
+
+    def full(self) -> bool:
+        return len(self.pending) == self.depth
+
+    def send(self, n: int, logits: torch.Tensor) -> None:
+        i = n % self.depth
+        self.slots[i].copy_(logits, non_blocking=True)
+        if self.events is not None:
+            self.events[i].record()
+        self.pending.append(n)
+
+    def take(self):
+        """(query number, its logits on the host) of the oldest query in
+        flight, once it has ended."""
+        n = self.pending.popleft()
+        i = n % self.depth
+        if self.events is not None:
+            self.events[i].synchronize()
+        return n, self.slots[i]
+
+
+def ahead_depth(mix: dict, query_s: float) -> int:
+    """How many queries an offline mix holds in flight: ``ahead_seconds``
+    of queries that take ``query_s`` each, at least 2 and at most
+    ``ahead_max``."""
+    want = math.ceil(mix["ahead_seconds"] / max(query_s, 1e-6))
+    return max(2, min(int(mix["ahead_max"]), want))
+
+
+def dispatched(system, pool, ahead: Ahead, seconds: float, keep=None):
+    """The offline loop for ``seconds``: send queries over the pool, each
+    once its slot is free, and wait for all that were sent once the time
+    is up. Returns (queries, seconds from the first send to the end of the
+    last query, the moments each query was seen on the host); ``keep(n)``
+    says which queries' logits to hand back, as (pool index, logits)."""
+    n_pool = pool.shape[0]
+    kept, done = [], []
+
+    def take():
+        m, out = ahead.take()
+        done.append(time.perf_counter() - t0)
+        if keep is not None and keep(m):
+            kept.append((m % n_pool, out.clone()))
+
+    n = 0
+    t0 = time.perf_counter()
+    while n < n_pool or time.perf_counter() - t0 < seconds:
+        if ahead.full():
+            take()
+        ahead.send(n, system.logits(system.issue(pool[n % n_pool])))
+        n += 1
+    while ahead.pending:
+        take()
+    return n, time.perf_counter() - t0, done, kept
 
 
 def _sync(device):
@@ -199,35 +278,58 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
     t_system = clock()
 
     # warm-up: every batch of the pool once (the first call captures the
-    # graph), then the loop for warmup_seconds
+    # graph), then the loop for warmup_seconds; an offline mix times a
+    # second pass over the pool, one query at a time, for its depth
     for j in range(n_pool):
         system.query(pool[j])
-    t_end = time.perf_counter() + mix["warmup_seconds"]
-    while time.perf_counter() < t_end:
-        system.query(pool[0])
+    ahead = None
+    if "ahead_seconds" in mix:
+        _sync(device)
+        t_pass = time.perf_counter()
+        for j in range(n_pool):
+            out = system.issue(pool[j])
+            system.to_host(out)
+        like = system.logits(out)
+        ahead = Ahead(like, ahead_depth(
+            mix, (time.perf_counter() - t_pass) / n_pool))
+        dispatched(system, pool, ahead, mix["warmup_seconds"])
+    else:
+        t_end = time.perf_counter() + mix["warmup_seconds"]
+        while time.perf_counter() < t_end:
+            system.query(pool[0])
     _sync(device)
     gc.collect()
     run = Run(cell=cell, config=cfg, traffic=mix, batch=batch,
               setup_s=clock(), pruned=pruned,
               pruned_convs=[e["name"] for e in table
-                            if e["type"] == "conv" and e["name"] in pruned])
+                            if e["type"] == "conv" and e["name"] in pruned],
+              ahead=ahead)
 
-    # the measured window: one batch in flight
-    kept = []
-    lat = run.latency_s
-    n = 0
-    t0 = time.perf_counter()
-    while True:
-        ts = time.perf_counter()
-        logits = system.query(pool[n % n_pool])
-        te = time.perf_counter()
-        lat.append(te - ts)
-        if n < n_pool or mask[n % SAMPLE_MASK]:
-            kept.append((n % n_pool, logits))
-        n += 1
-        if te - t0 >= seconds and n >= n_pool:
-            break
-    run.queries, run.window_s = n, te - t0
+    # the measured window
+    def keep(m):
+        return m < n_pool or mask[m % SAMPLE_MASK]
+
+    if ahead is not None:
+        n, run.window_s, done, kept = dispatched(system, pool, ahead,
+                                                 seconds, keep)
+        run.queries = n
+    else:
+        kept, done = [], []
+        lat = run.latency_s
+        n = 0
+        t0 = time.perf_counter()
+        while True:
+            ts = time.perf_counter()
+            logits = system.query(pool[n % n_pool])
+            te = time.perf_counter()
+            lat.append(te - ts)
+            done.append(te - t0)
+            if keep(n):
+                kept.append((n % n_pool, logits))
+            n += 1
+            if te - t0 >= seconds and n >= n_pool:
+                break
+        run.queries, run.window_s = n, te - t0
     card = (card_reading(device.index or 0, "clocks.sm,clocks.mem,"
                          "temperature.gpu,power.draw")
             if device.type == "cuda" else "")
@@ -244,13 +346,14 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
                                       if device.type == "cuda" else 0)}
     run.device_kind = dev_info["kind"]
     run.peak = counts.peaks(run.device_kind)
-    log(f"window: {n} queries of batch {batch} in {run.window_s:.3f} s; "
+    log(f"window: {n} queries of batch {batch} in {run.window_s:.3f} s, "
+        f"{ahead.depth if ahead else 1} in flight at most; "
         f"set-up {run.setup_s:.2f} s: start {t_start:.2f} "
         f"({', '.join(f'{k} {v:.2f}' for k, v in (marks or {}).items())}), "
         f"weights and images {t_made - t_start:.2f}, the program's set-up "
         f"{t_system - t_made:.2f}, first calls and warm-up "
         f"{run.setup_s - t_system:.2f}")
-    log(f"queries in each second of the window: {per_second(lat)}; "
+    log(f"queries in each second of the window: {per_second(done)}; "
         f"the card after it (clocks, temperature, power): {card}")
 
     breakdown = None
@@ -301,22 +404,33 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
 
 
 def _traced(run: Run, system, pool, n0: int, device) -> dict:
-    """The profiled stretch of the loop and the layer-stepped forwards;
+    """The profiled stretch of the loop (as the window ran it: one query in
+    flight, or ``run.ahead``'s, where the last query's ``pb:to_host`` waits
+    for every query still in flight) and the layer-stepped forwards;
     returns the breakdown."""
-    mix, n_pool = run.traffic, pool.shape[0]
+    mix, n_pool, ahead = run.traffic, pool.shape[0], run.ahead
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     rf = torch.profiler.record_function
     _sync(device)
+    queries = mix["trace_queries"]
     with torch.profiler.profile(activities=acts) as prof:
-        for i in range(mix["trace_queries"]):
+        for i in range(queries):
             x = pool[(n0 + i) % n_pool]
             with rf(traced.QUERY):
+                if ahead is None:
+                    with rf(traced.ISSUE):
+                        out = system.issue(x)
+                    with rf(traced.TO_HOST):
+                        system.to_host(out)
+                    continue
                 with rf(traced.ISSUE):
-                    out = system.issue(x)
+                    ahead.send(n0 + i, system.logits(system.issue(x)))
                 with rf(traced.TO_HOST):
-                    system.to_host(out)
+                    while ahead.full() or (i == queries - 1
+                                           and ahead.pending):
+                        ahead.take()
     events = prof.events()
     run.stretch = traced.read_stretch(events)
     hand = traced.hand_kernels(events)

@@ -5,8 +5,10 @@ configuration (its model zoo's layer specs, its execution policy), given
 the benchmark's weights as its params dict and BatchNorm state, and set
 up by the program itself: ``fuse_inference``, ``weight_align``, the move
 to the card in the compute dtype, and ``Net.inference_fn(cuda_graph=
-True)``, which runs the first call eagerly and captures the forward. A
-query hands it one input batch and copies the classifier's logits to
+True)``, which runs the first call eagerly and captures the forward.
+Set-up fails where the configuration names the ELL format and the
+program would not run every pruned conv on it (``check_routes``).
+A query hands it one input batch and copies the classifier's logits to
 host memory, as a user's loop does.
 
 ``ReferenceSystem`` puts the plain reference in the program's place at a
@@ -15,6 +17,10 @@ given precision: the control (float8) and a witness (bfloat16).
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import enum
+import sys
 from typing import Dict, Tuple
 
 import torch
@@ -72,14 +78,53 @@ def port_params(net, table, params) -> Tuple[dict, dict]:
 
 
 def port_policy(policy: dict):
-    from caffe_escoin_tpu_torch.engine.context import ConvMode, ExecutionPolicy
+    """The program's ``ExecutionPolicy`` as a configuration's ``policy``
+    states it: every field whose default is an enum member (``conv_mode``,
+    ``sparse_format``) converted by member name, ``block_shape`` to a
+    tuple, ``compute_dtype`` by torch's name; the rest as written. A name
+    that is no member, or a value that is no name, fails with its key: the
+    policy is frozen and coerces nothing, so a string passed through would
+    compare unequal to every member and quietly run another route."""
+    from caffe_escoin_tpu_torch.engine.context import ExecutionPolicy
 
     kw = dict(policy)
-    kw["conv_mode"] = ConvMode[kw["conv_mode"]]
+    for f in dataclasses.fields(ExecutionPolicy):
+        if f.name not in kw or not isinstance(f.default, enum.Enum):
+            continue
+        kind, name = type(f.default), kw[f.name]
+        if not isinstance(name, str) or name not in kind.__members__:
+            raise ValueError(f"policy {f.name}: {name!r} is none of "
+                             f"{kind.__name__}'s {list(kind.__members__)}")
+        kw[f.name] = kind[name]
     kw["block_shape"] = tuple(kw["block_shape"])
     if kw.get("compute_dtype"):
-        kw["compute_dtype"] = getattr(torch, kw["compute_dtype"])
+        dtype = getattr(torch, str(kw["compute_dtype"]), None)
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"policy compute_dtype: {kw['compute_dtype']!r} "
+                             f"is no torch dtype")
+        kw["compute_dtype"] = dtype
     return ExecutionPolicy(**kw)
+
+
+def check_routes(cfg, net, aligned, table, params) -> None:
+    """Where the configuration's policy names the ELL format, fails set-up
+    naming the first pruned conv (a conv of the table whose weight holds a
+    zero) that the program's net does not route ``ell``, and logs the
+    routes' counts (``Net.routes``, from shapes alone: the route of a conv
+    under ELL does not depend on the batch)."""
+    if cfg["policy"].get("sparse_format") != "ELL":
+        return
+    routes = net.routes(aligned, {"data": (1,) + tuple(cfg["input_hwc"])})
+    counted = collections.Counter(routes.values())
+    print("routes: " + ", ".join(f"{r} {n}" for r, n in sorted(
+        counted.items())), file=sys.stderr, flush=True)
+    for e in table:
+        if e["type"] == "conv" and bool((params[e["name"]]["w"] == 0).any()) \
+                and routes.get(e["name"]) != "ell":
+            raise RuntimeError(
+                f"{e['name']}: the program routes this pruned conv "
+                f"{routes.get(e['name'])!r}, where the configuration's "
+                f"sparse_format ELL names 'ell'")
 
 
 class PortSystem:
@@ -104,13 +149,19 @@ class PortSystem:
         self.blob = cfg["logits"]
         self.fn = net.inference_fn(self.aligned, cuda_graph=True,
                                    return_blobs=True)
+        check_routes(cfg, net, self.aligned, table, params)
 
     def issue(self, x):
         """Hand one batch to the entry; returns its output blobs."""
         return self.fn({"data": x})
 
+    def logits(self, out) -> torch.Tensor:
+        """The classifier's logits among ``issue``'s outputs, where they
+        lie."""
+        return out[self.blob]
+
     def to_host(self, out) -> torch.Tensor:
-        return out[self.blob].cpu()
+        return self.logits(out).cpu()
 
     def query(self, x) -> torch.Tensor:
         return self.to_host(self.issue(x))
@@ -138,8 +189,13 @@ class ReferenceSystem:
         return plain.forward(self.table, self.params, x,
                              outputs=(self.blob,), precision=self.precision)
 
+    def logits(self, out) -> torch.Tensor:
+        """The classifier's logits among ``issue``'s outputs, where they
+        lie."""
+        return out[self.blob]
+
     def to_host(self, out) -> torch.Tensor:
-        return out[self.blob].cpu()
+        return self.logits(out).cpu()
 
     def query(self, x) -> torch.Tensor:
         return self.to_host(self.issue(x))

@@ -76,8 +76,9 @@ def test_nothing_to_read():
 
 
 def test_idle_and_mfu_read_the_untraced_window():
-    """Idle: 1 - busy a query in the profiled stretch / the measured
-    window's time a query; mfu: live FLOPs over the measured window."""
+    """Idle, one query in flight: 1 - busy a query in the profiled stretch
+    / the measured window's time a query; queries sent ahead: 1 - busy /
+    the stretch's length; mfu: live FLOPs over the measured window."""
     from types import SimpleNamespace
 
     from portbench import harness
@@ -86,12 +87,15 @@ def test_idle_and_mfu_read_the_untraced_window():
     bench = harness.Bench(ROOT)
     stretch = SimpleNamespace(queries=200, busy_s=0.3, window_s=0.5)
     run = SimpleNamespace(stretch=stretch, queries=5000, window_s=10.0,
-                          peak={"bf16_flop_s": 1e15},
+                          traffic={}, peak={"bf16_flop_s": 1e15},
                           work={"a": {"flops": 1e11}, "b": {"flops": 1e11}})
     for name in ("device_idle_pct.offline", "device_idle_pct.stream"):
         assert bench.reader(name)(run) == pytest.approx(
             100 * (1 - 0.0015 / 0.002))
     assert bench.reader("step_mfu_pct.offline")(run) == pytest.approx(
         100 * 2e11 * 500 / 1e15)
+    run.traffic = {"ahead_seconds": 4.0}
+    assert bench.reader("device_idle_pct.offline")(run) == pytest.approx(
+        100 * (1 - 0.3 / 0.5))
     run.stretch = None
     assert bench.reader("device_idle_pct.stream")(run) is None

@@ -21,6 +21,7 @@ KEYS = {"configs": {"name", "source", "file", "reduced", "why"},
 # what the harness reads of a traffic mix, and nothing else
 MIX_KEYS = {"batch", "pool_batches", "warmup_seconds", "check_fraction",
             "trace_queries", "layer_forwards", "why"}
+AHEAD_KEYS = {"ahead_seconds", "ahead_max"}
 
 
 def test_top_level():
@@ -63,7 +64,7 @@ def test_cell_loads_and_reports(cell):
     cfg = bench.config(w["config"])
     mix = bench.traffic(w["traffic"])
     bench.reference(cfg["reference"]).table(cfg["num_classes"])
-    assert set(mix) == MIX_KEYS, cell
+    assert set(mix) in (MIX_KEYS, MIX_KEYS | AHEAD_KEYS), cell
     assert set(cfg["limits"]) == {"logit_rel_err"}
     e2e = {m["name"] for m in bench.metrics_of(cell, "end_to_end")}
     layer = bench.metrics_of(cell, "per_layer")
